@@ -1,0 +1,270 @@
+"""Canonical model parameters: one weight layout for every architecture.
+
+The counterpart of `llm_tpu/models/params.py`. Fused QKV tensors would be
+split into canonical q/k/v by logical-row selection at load time, and every
+model becomes the same structure:
+
+    ModelParams
+      wte [E, V]  (quantized or dense, K-major)
+      wpe (gpt2), emb_norm (bloom), final_norm, lm_head (None = tied to wte)
+      layers: LayerParams stacked along a leading n_layer axis
+
+A layer of the stack is a free view (`QuantTensor.layer`, `tensor[l]`).
+This slice builds LLaMA checkpoints; the other architectures' builders
+come later. q|k|v and gate|up are fused into one weight each
+(`fuse_layer_weights`), as the reference does by default, so each
+projection is one kernel launch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, fields
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from llm_tpu_torch.ggml.quant import dequantize
+from llm_tpu_torch.ggml.reader import GgmlReader, TensorInfo
+from llm_tpu_torch.models.spec import ModelSpec
+from llm_tpu_torch.ops.packing import QuantTensor, fuse_quant, pack_ggml
+
+Weight = Union[QuantTensor, torch.Tensor]
+
+
+@dataclass
+class LayerParams:
+    """One decoder layer (or the stack of all), canonical form. All matrices
+    K-major [in, out]."""
+
+    ln1_w: torch.Tensor
+    ln1_b: Optional[torch.Tensor]
+    ln2_w: Optional[torch.Tensor]  # None: parallel_shared_ln archs
+    ln2_b: Optional[torch.Tensor]
+    wq: Optional[Weight]
+    bq: Optional[torch.Tensor]
+    wk: Optional[Weight]
+    bk: Optional[torch.Tensor]
+    wv: Optional[Weight]
+    bv: Optional[torch.Tensor]
+    wo: Weight
+    bo: Optional[torch.Tensor]
+    w_gate: Optional[Weight]  # swiglu only (llama w1)
+    w_up: Optional[Weight]  # llama w3 / c_fc / dense_h_to_4h / up_proj
+    b_up: Optional[torch.Tensor]
+    w_down: Weight
+    b_down: Optional[torch.Tensor]
+    # launch-fused q|k|v and gate|up built by fuse_layer_weights (the split
+    # tensors are then None)
+    w_qkv: Optional[Weight] = None
+    w_gate_up: Optional[Weight] = None
+
+    def layer(self, l: int) -> "LayerParams":
+        """Layer `l` of the stack: views of every field."""
+        kw = {}
+        for f in fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, QuantTensor):
+                v = v.layer(l)
+            elif v is not None:
+                v = v[l]
+            kw[f.name] = v
+        return LayerParams(**kw)
+
+
+@dataclass
+class ModelParams:
+    wte: Weight  # [E, V]
+    wpe: Optional[Weight]  # [E, n_ctx_train] (gpt2)
+    emb_norm_w: Optional[torch.Tensor]  # bloom post-embedding LN
+    emb_norm_b: Optional[torch.Tensor]
+    final_norm_w: torch.Tensor
+    final_norm_b: Optional[torch.Tensor]
+    lm_head: Optional[Weight]  # None => tied to wte
+    lm_head_b: Optional[torch.Tensor]  # gptj
+    layers: LayerParams  # stacked: every field has a leading n_layer axis
+
+
+def fuse_layer_weights(layers: LayerParams) -> LayerParams:
+    """Replace q/k/v (and gate/up) with launch-fused tensors: one kernel
+    computes all three projections. The split tensors are dropped, not
+    duplicated."""
+    kw = {}
+    qkv = fuse_quant([layers.wq, layers.wk, layers.wv])
+    if qkv is not None:
+        kw.update(w_qkv=qkv, wq=None, wk=None, wv=None)
+    if layers.w_gate is not None:
+        gate_up = fuse_quant([layers.w_gate, layers.w_up])
+        if gate_up is not None:
+            kw.update(w_gate_up=gate_up, w_gate=None, w_up=None)
+    if not kw:
+        return layers
+    return dataclasses.replace(layers, **kw)
+
+
+def _stack(xs: list):
+    """Stack one field across layers (None stays None)."""
+    if xs[0] is None:
+        return None
+    if isinstance(xs[0], QuantTensor):
+        q0 = xs[0]
+        if any(q.fmt_name != q0.fmt_name or q.lo.shape != q0.lo.shape
+               for q in xs):
+            raise ValueError("model layers are not homogeneous (mixed quant "
+                             "formats or shapes across layers)")
+
+        def st(name):
+            planes = [getattr(q, name) for q in xs]
+            return None if planes[0] is None else torch.stack(planes)
+
+        return QuantTensor(q0.fmt_name, q0.k, q0.r, st("lo"), st("hi"),
+                           st("scale"), st("bias"), q0.splits)
+    return torch.stack(xs)
+
+
+def stack_layers(layers: list[LayerParams]) -> LayerParams:
+    """Stack per-layer params along a new leading axis, fusing q|k|v and
+    gate|up first."""
+    layers = [fuse_layer_weights(l) for l in layers]
+    return LayerParams(**{
+        f.name: _stack([getattr(l, f.name) for l in layers])
+        for f in fields(LayerParams)
+    })
+
+
+class WeightSource:
+    """Fetch-and-pack adapter over a GgmlReader: packs each tensor on
+    `device` straight from its raw bytes."""
+
+    def __init__(self, reader: GgmlReader, device, progress=None):
+        self.reader = reader
+        self.device = torch.device(device)
+        self.progress = progress
+        self._loaded = 0
+
+    def has(self, name: str) -> bool:
+        return name in self.reader.tensors
+
+    def _raw(self, name: str) -> tuple[TensorInfo, np.ndarray]:
+        info = self.reader.tensors[name]
+        data = self.reader.fetch(name)
+        self._loaded += 1
+        if self.progress is not None:
+            self.progress(name, self._loaded, len(self.reader.tensors))
+        return info, data
+
+    def matrix(self, name: str, rows: Optional[np.ndarray] = None) -> Weight:
+        info, data = self._raw(name)
+        return pack_ggml(info.element_type, data, info.dims, rows=rows,
+                         device=self.device)
+
+    def vec(self, name: str,
+            rows: Optional[np.ndarray] = None) -> torch.Tensor:
+        """1-D tensor (norm weight / bias) as f32."""
+        info, data = self._raw(name)
+        v = dequantize(info.element_type, data, info.n_elements)
+        if rows is not None:
+            v = v[rows]
+        return torch.from_numpy(np.array(v, np.float32)).to(self.device)
+
+    def maybe_matrix(self, name: str) -> Optional[Weight]:
+        return self.matrix(name) if self.has(name) else None
+
+
+def _build_llama(ws: WeightSource, spec: ModelSpec) -> ModelParams:
+    layers = []
+    for i in range(spec.n_layer):
+        p = f"layers.{i}"
+        layers.append(
+            LayerParams(
+                ln1_w=ws.vec(f"{p}.attention_norm.weight"),
+                ln1_b=None,
+                ln2_w=ws.vec(f"{p}.ffn_norm.weight"),
+                ln2_b=None,
+                wq=ws.matrix(f"{p}.attention.wq.weight"),
+                bq=None,
+                wk=ws.matrix(f"{p}.attention.wk.weight"),
+                bk=None,
+                wv=ws.matrix(f"{p}.attention.wv.weight"),
+                bv=None,
+                wo=ws.matrix(f"{p}.attention.wo.weight"),
+                bo=None,
+                w_gate=ws.matrix(f"{p}.feed_forward.w1.weight"),
+                w_up=ws.matrix(f"{p}.feed_forward.w3.weight"),
+                b_up=None,
+                w_down=ws.matrix(f"{p}.feed_forward.w2.weight"),
+                b_down=None,
+            )
+        )
+    return ModelParams(
+        wte=ws.matrix("tok_embeddings.weight"),
+        wpe=None,
+        emb_norm_w=None,
+        emb_norm_b=None,
+        final_norm_w=ws.vec("norm.weight"),
+        final_norm_b=None,
+        lm_head=ws.matrix("output.weight"),
+        lm_head_b=None,
+        layers=stack_layers(layers),
+    )
+
+
+_BUILDERS = {
+    "llama": _build_llama,
+}
+
+
+def build_params(ws: WeightSource, spec: ModelSpec) -> ModelParams:
+    builder = _BUILDERS.get(spec.arch)
+    if builder is None:
+        raise NotImplementedError(
+            f"architecture {spec.arch!r} is not ported yet "
+            f"(ported: {sorted(_BUILDERS)})"
+        )
+    return builder(ws, spec)
+
+
+# ---------------------------------------------------------------------------
+# weight carry from the JAX package
+
+
+def _weight_from_numpy(v, device):
+    """One leaf of the carried tree -> torch (QuantTensor, tensor or None).
+
+    A quantized weight arrives as a dict with `fmt_name`, `k`, `r`,
+    `splits` and numpy planes `lo`/`hi`/`scale`/`bias` (uint32 word planes
+    keep their bits as int32)."""
+    if v is None:
+        return None
+    if isinstance(v, dict):
+
+        def t(a):
+            if a is None:
+                return None
+            a = np.asarray(a)
+            if a.dtype == np.uint32:
+                a = a.view(np.int32)
+            return torch.from_numpy(np.array(a)).to(device)
+
+        splits = v.get("splits")
+        return QuantTensor(v["fmt_name"], int(v["k"]), int(v["r"]),
+                           t(v["lo"]), t(v.get("hi")), t(v["scale"]),
+                           t(v.get("bias")),
+                           tuple(map(tuple, splits)) if splits else None)
+    return torch.from_numpy(np.array(v)).to(device)
+
+
+def params_from_numpy(tree: dict, device) -> ModelParams:
+    """ModelParams from a nested dict of numpy arrays: the field names of
+    ModelParams, with `layers` a dict of the LayerParams fields (each
+    stacked along a leading layer axis). This is how weights packed by the
+    JAX package are carried into the port."""
+    device = torch.device(device)
+    layers = LayerParams(**{
+        f.name: _weight_from_numpy(tree["layers"].get(f.name), device)
+        for f in fields(LayerParams)
+    })
+    kw = {f.name: _weight_from_numpy(tree.get(f.name), device)
+          for f in fields(ModelParams) if f.name != "layers"}
+    return ModelParams(layers=layers, **kw)
