@@ -1,8 +1,9 @@
 """llm_tpu_torch: the PyTorch/CUDA port of llm_tpu.
 
 Loads GGML/GGJT block-quantized checkpoints and runs them with hand-written
-CUDA kernels for the dequantizing matmul and the decode attention
-(`csrc/`), beside plain PyTorch versions of both that the CPU uses. Entry
+CUDA kernels for the dequantizing matmul and the dense and paged decode
+attention (`csrc/`), beside plain PyTorch versions of each that the CPU
+uses; `serve`/`paged`/`server` batch many streams behind HTTP. Entry
 points run on the card unless the caller passes `device="cpu"`. The JAX
 package `llm_tpu` is the reference this port is held against.
 """

@@ -1,4 +1,4 @@
-"""llm-tpu-torch command line interface: `infer` and `info`.
+"""llm-tpu-torch command line interface: `infer`, `info` and `serve`.
 
 The counterpart of `llm_tpu/cli.py` for the subcommands this port has, with
 the reference's flags for what it supports, plus `--device` (default: the
@@ -248,6 +248,40 @@ def cmd_info(args) -> None:
             print(f"- {name} ({ti.element_type} {list(ti.dims)})")
 
 
+def cmd_serve(args) -> None:
+    """HTTP serving over the continuous-batching engine (dense or paged)."""
+    import torch
+
+    from llm_tpu_torch.server import serve_forever
+
+    # pure-argument validation BEFORE the multi-GB model load
+    if args.kv_int4 and not args.paged:
+        raise SystemExit("--kv-int4 requires --paged (pool-only format)")
+    if args.kv_int4 and args.kv_int8:
+        raise SystemExit("--kv-int4 and --kv-int8 conflict; pick one")
+    if args.prefix_cache and not args.paged:
+        raise SystemExit("--prefix-cache requires --paged")
+
+    model = load_model(args)
+    try:
+        serve_forever(
+            model,
+            host=args.host,
+            port=args.port,
+            max_streams=args.max_streams,
+            kv_dtype=("int4" if args.kv_int4 else
+                      "int8" if args.kv_int8 else torch.bfloat16),
+            n_batch=args.batch_size,
+            paged=args.paged,
+            page_size=args.page_size,
+            n_pages=args.n_pages,
+            prefix_cache=args.prefix_cache,
+            warmup=not args.no_warmup,
+        )
+    except KeyboardInterrupt:
+        pass
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="llm-tpu-torch",
@@ -269,6 +303,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-t", "--tensors", action="store_true")
     p.add_argument("-k", "--tokenizer", action="store_true")
     p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser(
+        "serve",
+        help="HTTP server (OpenAI-style /v1/completions; SSE streaming) "
+        "over the continuous-batching engine",
+    )
+    add_model_args(p)
+    add_load_args(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--max-streams", type=int, default=8,
+                   help="continuous-batching slots")
+    p.add_argument("--kv-int8", action="store_true",
+                   help="int8 KV cache (halves KV memory vs bf16)")
+    p.add_argument("--kv-int4", action="store_true",
+                   help="int4 paged KV pool (nibble-packed codes + per-row "
+                   "scales); requires --paged")
+    p.add_argument("--batch-size", type=int, default=64,
+                   help="prefill chunk size per engine step")
+    p.add_argument("--paged", action="store_true",
+                   help="paged KV pool instead of dense per-slot cache")
+    p.add_argument("--page-size", type=int, default=256)
+    p.add_argument("--n-pages", type=int, default=None,
+                   help="page-pool size (paged engines; default: every "
+                   "stream can reach full context)")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="reuse full prompt-prefix KV pages across requests "
+                   "(exact-match, refcounted, LRU-evicted under pool "
+                   "pressure; requires --paged)")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip the startup warm-up request")
+    p.set_defaults(fn=cmd_serve)
     return parser
 
 

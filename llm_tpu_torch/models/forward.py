@@ -177,16 +177,15 @@ def _attention_batched(
     k_cache,  # ([B, H_kv, S, D] codes, [B, H_kv, S] scale | None)
     v_cache,
     online_pass=None,  # callable qf -> (m, l, acc): cached-KV attention
-    #                    done elsewhere (the dense-attention kernel)
-    quantize_kv=None,  # defaults to "cache carries scales" (int8)
+    #                    done elsewhere (the dense or paged kernel)
+    qmax: Optional[float] = None,  # None: raw kv; else the in-flight kv
+    #    round-trips through codes of this range (127 int8, 7 int4 pools)
 ):
     B, T, E = a.shape
     S = k_cache[0].shape[2] if k_cache[0] is not None else 0
     H, Hkv, D = spec.n_head, spec.n_head_kv, spec.head_dim
     rep = H // Hkv
     dev = a.device
-    if quantize_kv is None:
-        quantize_kv = k_cache[1] is not None
 
     q, k, v = _qkv_proj(layer, a.reshape(B * T, E))
     q = q.reshape(B, T, H, D)
@@ -200,9 +199,9 @@ def _attention_batched(
                  spec.rope_freq_base, spec.rope_freq_scale)
 
     qf = q.to(torch.float32).reshape(B, T, Hkv, rep, D)
-    if quantize_kv:  # quantized cache: in-flight kv must round-trip
-        k_out = _quant_kv(k.to(torch.float32))
-        v_out = _quant_kv(v.to(torch.float32))
+    if qmax is not None:  # quantized cache: in-flight kv must round-trip
+        k_out = _quant_kv(k.to(torch.float32), qmax)
+        v_out = _quant_kv(v.to(torch.float32), qmax)
         kf = _dequant_kv(*k_out)
         vf = _dequant_kv(*v_out)
     else:
@@ -268,7 +267,7 @@ def _attention_batched(
 
 
 def _layer_batched(spec, h, layer, positions, n_past, k_cache, v_cache,
-                   online_pass=None, quantize_kv=None):
+                   online_pass=None, qmax=None):
     B, T, E = h.shape
 
     def norm1(x):
@@ -283,7 +282,7 @@ def _layer_batched(spec, h, layer, positions, n_past, k_cache, v_cache,
     def attend(a):
         return _attention_batched(
             spec, layer, a, positions, n_past, k_cache, v_cache,
-            online_pass=online_pass, quantize_kv=quantize_kv,
+            online_pass=online_pass, qmax=qmax,
         )
 
     if spec.residual == "sequential":
@@ -315,6 +314,7 @@ def run_layers_batched(spec: ModelSpec, layers: LayerParams, h, positions,
     in place: the kernel on the card, its plain version on the CPU.
     Prefill chunks read the windowed cache slices."""
     quantized = cache.k_scale is not None
+    qmax = 127.0 if quantized else None
     decode = h.shape[1] == 1
     slopes = _slopes(spec, h.device)
     k_news, v_news = [], []
@@ -328,7 +328,7 @@ def run_layers_batched(spec: ModelSpec, layers: LayerParams, h, positions,
             )
             h, k_new, v_new = _layer_batched(
                 spec, h, layer, positions, n_past, (None, None),
-                (None, None), online_pass=online, quantize_kv=quantized,
+                (None, None), online_pass=online, qmax=qmax,
             )
         else:
             kc = (cache.k[l, :, :, :W],
@@ -336,7 +336,7 @@ def run_layers_batched(spec: ModelSpec, layers: LayerParams, h, positions,
             vc = (cache.v[l, :, :, :W],
                   cache.v_scale[l, :, :, :W] if quantized else None)
             h, k_new, v_new = _layer_batched(spec, h, layer, positions,
-                                             n_past, kc, vc)
+                                             n_past, kc, vc, qmax=qmax)
         k_news.append(k_new)
         v_news.append(v_new)
     return h, k_news, v_news

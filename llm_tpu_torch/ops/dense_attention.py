@@ -5,33 +5,30 @@ is the `online_pass` hook of `models/forward._attention_batched`: it turns
 the query of one new token per stream into online-softmax partials
 (m, l, acc) over the first `window` cached positions of one layer, which the
 caller merges with the token's own key. On a CUDA tensor it launches the
-hand-written kernel `csrc/dense_attention.cu` (the port of the TPU kernel
-K2); on a CPU tensor it runs `dense_attention_plain`, the block-wise online
-softmax that `forward._attention_batched` also uses for long prefills.
-Unlike the reference's TPU-only gate, the kernel takes any window W >= 1
-and any head dim D that is a multiple of 8 up to 256.
+hand-written paged-attention kernel `csrc/paged_attention.cu`, which
+replaces the TPU kernels K2 and K4: one layer of the dense cache
+[B, Hkv, S, D] is a pool of B pages of S positions, stream b reading page
+b. On a CPU tensor it runs `dense_attention_plain`, the
+block-wise online softmax that `forward._attention_batched` also uses for
+long prefills. Unlike the reference's TPU-only gate, the kernel takes any
+window W >= 1 and any head dim D that is a multiple of 8 up to 256.
 """
 
 from __future__ import annotations
 
-import ctypes
-import math
 from typing import Optional
 
 import torch
 
-from llm_tpu_torch import _build
+from llm_tpu_torch.ops.paged_attention import (
+    NEG_INF,
+    fold_block,
+    partials_cuda,
+)
 
-NEG_INF = -1e30
 LAUNCHES = 0  # kernel launches through dense_attention_pass
 
-_C, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-_SIGNATURES = {
-    "dense_attention_launch": [_C, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _P, _C, _C, _C, _C, _C, _C, _C, _F,
-                               _P],
-}
-_KV_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+_KV_DTYPES = (torch.bfloat16, torch.float32, torch.int8)
 
 
 def online_cache_pass_batched(
@@ -62,17 +59,8 @@ def online_cache_pass_batched(
             kf = kf * kscl[:, :, start:stop, None]
             vf = vf * vscl[:, :, start:stop, None]
         pos = torch.arange(start, stop, dtype=torch.int32, device=dev)
-        s = torch.einsum("bthrd,bhsd->bthrs", qf, kf) * spec.kq_scale
-        if slopes is not None:
-            s = s + slopes[None, None, :, :, None] * pos.to(torch.float32)
-        masked = (pos[None, :] >= n_past[:, None])[:, None, None, None, :]
-        s = s.masked_fill(masked, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None]).masked_fill(masked, 0.0)
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bthrs,bhsd->bthrd", p, vf)
-        m = m_new
+        m, l, acc = fold_block(spec, qf, kf, vf, pos, n_past, slopes, m, l,
+                               acc)
     return m, l, acc
 
 
@@ -89,18 +77,10 @@ def dense_attention_plain(spec, cache_k, cache_v, ks, vs, n_past, window,
                                      n_past, slopes, min(512, window))
 
 
-def _chunk(window: int, bh: int, sms: int) -> int:
-    """Positions per block: 64, or fewer so that B*Hkv*chunks fills the
-    card twice over (never below 16)."""
-    chunk = 64
-    while chunk > 16 and bh * math.ceil(window / chunk) < 2 * sms:
-        chunk //= 2
-    return chunk
-
-
 def dense_attention_cuda(spec, cache_k, cache_v, ks, vs, n_past, window,
                          layer, qf, slopes=None):
-    """Launch csrc/dense_attention.cu; see `dense_attention_pass`."""
+    """Launch csrc/paged_attention.cu over the layer seen as a pool of one
+    page a stream; see `dense_attention_pass`."""
     global LAUNCHES
     dev = qf.device
     B, T, Hkv, rep, D = qf.shape
@@ -115,17 +95,18 @@ def dense_attention_cuda(spec, cache_k, cache_v, ks, vs, n_past, window,
     if cache_k.dtype not in _KV_DTYPES or quantized != (
             cache_k.dtype == torch.int8) or cache_v.dtype != cache_k.dtype:
         raise ValueError(f"dense_attention: cache dtype {cache_k.dtype}")
+    # the kernel reads one layer: that slice must be contiguous (a B=1 view
+    # of one slot of a batched cache is, though the whole view is not)
     tensors = [cache_k, cache_v] + ([ks, vs] if quantized else [])
     for t in tensors:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError("dense_attention: cache tensors must be "
-                             f"contiguous on {dev}")
+        if t.device != dev or not t[layer].is_contiguous():
+            raise ValueError("dense_attention: each layer of the cache "
+                             f"tensors must be contiguous on {dev}")
     if quantized and (ks.dtype != torch.float32 or vs.dtype != torch.float32
                       or ks.shape != cache_k.shape[:-1]
                       or vs.shape != ks.shape):
         raise ValueError("dense_attention: int8 scales must be f32 "
                          "[L, B, Hkv, S]")
-    q = qf[:, 0].to(torch.float32).contiguous()
     npast = torch.as_tensor(n_past, device=dev).to(torch.int32).contiguous()
     if npast.shape != (B,):
         raise ValueError(f"dense_attention: n_past shape {tuple(npast.shape)}")
@@ -133,28 +114,13 @@ def dense_attention_cuda(spec, cache_k, cache_v, ks, vs, n_past, window,
         slopes = slopes.to(device=dev, dtype=torch.float32).contiguous()
         if slopes.shape != (Hkv, rep):
             raise ValueError("dense_attention: slopes must be [Hkv, rep]")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chunk = _chunk(window, B * Hkv, sms)
-    nc = math.ceil(window / chunk)
-    f32 = dict(dtype=torch.float32, device=dev)
-    pm = torch.empty((B * Hkv, nc, rep), **f32)
-    pl = torch.empty((B * Hkv, nc, rep), **f32)
-    pacc = torch.empty((B * Hkv, nc, rep, D), **f32)
-    m = torch.empty((B, Hkv, rep), **f32)
-    l = torch.empty((B, Hkv, rep), **f32)
-    acc = torch.empty((B, Hkv, rep, D), **f32)
-    lib = _build.load("dense_attention", _SIGNATURES)
-    ptr = _build.ptr
-    err = lib.dense_attention_launch(
-        _KV_DTYPES[cache_k.dtype], ptr(q), ptr(cache_k[layer]),
-        ptr(cache_v[layer]), ptr(ks[layer] if quantized else None),
-        ptr(vs[layer] if quantized else None), ptr(npast), ptr(slopes),
-        ptr(pm), ptr(pl), ptr(pacc), ptr(m), ptr(l), ptr(acc), B, Hkv, rep,
-        D, S, window, chunk, float(spec.kq_scale), _build.stream_ptr(dev),
-    )
-    _build.check(err, "dense_attention_launch")
+    out = partials_cuda(
+        spec.kq_scale, cache_k[layer], cache_v[layer],
+        ks[layer] if quantized else None, vs[layer] if quantized else None,
+        None, npast, slopes, window,
+        qf[:, 0].to(torch.float32).contiguous())
     LAUNCHES += 1
-    return m[:, None], l[:, None], acc[:, None]
+    return out
 
 
 def dense_attention_pass(spec, cache_k, cache_v, ks, vs, n_past, window,

@@ -442,3 +442,31 @@ def dequant(qt: QuantTensor, trim: bool = True) -> torch.Tensor:
     if trim:
         w = w[..., : qt.k, : qt.r]
     return w
+
+
+# ---------------------------------------------------------------------------
+# int4 KV rows (paged pools)
+
+
+def pack_int4_rows(q: torch.Tensor) -> torch.Tensor:
+    """int8 codes in [-7, 7] [..., D] -> planar-packed uint8 [..., D//2].
+
+    Byte j holds element j in its low nibble and element j + D/2 in its
+    high nibble (planar, not interleaved), bit-equal to the reference's
+    `pack_int4_rows`. One position's row stays D//2 contiguous bytes, so a
+    row write never touches a byte of another position."""
+    D = q.shape[-1]
+    lo = q[..., : D // 2].to(torch.int32) & 0xF
+    hi = (q[..., D // 2 :].to(torch.int32) & 0xF) << 4
+    return (lo | hi).to(torch.uint8)
+
+
+def unpack_int4_rows(b: torch.Tensor) -> torch.Tensor:
+    """planar-packed uint8 [..., D//2] -> f32 codes [..., D] in [-8, 7]:
+    each nibble sign-extended, the low halves first."""
+    x = b.to(torch.int32)
+    lo = x & 0xF
+    hi = (x >> 4) & 0xF
+    lo = torch.where(lo >= 8, lo - 16, lo)
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    return torch.cat([lo, hi], dim=-1).to(torch.float32)

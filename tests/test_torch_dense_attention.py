@@ -19,6 +19,7 @@ import torch
 from llm_tpu.ops.dense_attention import _dense_attention_call
 from llm_tpu.ops.layers import alibi_slopes as j_alibi_slopes
 from llm_tpu_torch.ops import dense_attention as tda
+from llm_tpu_torch.ops import paged_attention as tpa
 
 L, B, S, D, W = 2, 3, 96, 16, 64
 BLOCK = 16  # the TPU kernel's block over the window
@@ -93,6 +94,31 @@ def test_plain_matches_k2_interpret(kv, rep, alibi):
     # stream 0 has no past: the merge in forward relies on these constants
     assert (m.numpy()[0] == np.float32(tda.NEG_INF)).all()
     assert (l.numpy()[0] == 0).all() and (acc.numpy()[0] == 0).all()
+
+
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+def test_layer_is_a_pool_of_one_page_a_stream(kv):
+    """On the card the dense pass runs the paged kernel over the layer seen
+    as a pool of B pages of S positions, stream b reading page b: the paged
+    plain version over that view gives the dense plain version's partials
+    (same tolerance; the two cut the window into other blocks)."""
+    hkv, rep = 2, 2
+    k, v, ks, vs, q = make_inputs(kv, hkv, rep, seed=11)
+    spec = SimpleNamespace(kq_scale=1.0 / np.sqrt(D))
+    n_past = torch.tensor([0, 37, W])
+    slopes = torch.from_numpy(
+        np.array(j_alibi_slopes(hkv * rep, 8.0)).reshape(hkv, rep))
+    k, v, ks, vs = (as_torch(a, kv) for a in (k, v, ks, vs))
+    q = torch.from_numpy(q)
+    ref = tda.dense_attention_plain(spec, k, v, ks, vs, n_past, W, 1, q,
+                                    slopes)
+    tables = torch.arange(B, dtype=torch.int32)[:, None]
+    got = tpa.paged_attention_plain(spec, k, v, ks, vs, tables, n_past,
+                                    slopes, 1, 1, q)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(
+            a.numpy(), b.numpy(), rtol=1e-5,
+            atol=1e-5 * max(1.0, float(b.abs().max())))
 
 
 def test_plain_reads_only_the_window():

@@ -232,6 +232,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             rel = f.relative_to(REPO).with_suffix("")
             if rel.parts[0] == "llm_tpu_torch":
                 modules.append(".".join(rel.parts).removesuffix(".__init__"))
+    assert {"llm_tpu_torch.ops.paged_attention", "llm_tpu_torch.paged",
+            "llm_tpu_torch.serve", "llm_tpu_torch.server"} <= set(modules)
     # importing every module of the port loads neither package
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
