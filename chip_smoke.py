@@ -7,15 +7,20 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
-1. build:   nvcc compiles csrc/qmatmul.cu and csrc/paged_attention.cu
-            (which also serves the dense cache's attention) for sm_90a,
-            both at once, into build/kernels/.
+1. build:   nvcc compiles csrc/qmatmul.cu, csrc/paged_attention.cu
+            (which also serves the dense cache's attention) and
+            csrc/qmatmul_probe.cu for sm_90a, all at once, into
+            build/kernels/.
 2. kernels: each kernel's wrapper runs on the card at the LLaMA-7B shapes
             of the main paths (qmatmul at M = 1, 8, 16, 64 and 512; dense
             attention at B = 1 and 8; paged attention at B = 4-64) and is
             held against its plain PyTorch version on the same inputs;
             times of kernel, plain version, one PyTorch library call, and
-            the card's bound.
+            the card's bound. K3 (qmatmul over the coalesced buffer) is
+            held bit-equal to K1 on the same weights for all 10 formats and
+            at the 7B projections, and timed at M = 1-512; every probe
+            stage, mode and tiling is held against its plain version, at a
+            small shape and at the 7B shape its probe runs it.
 3. e2e:     a full-width random LLaMA-7B Q4_0 checkpoint (seed 0, ~3.9 GB,
             written under build/smoke/ and removed afterwards) is loaded
             on the card, and `InferenceSession.infer` answers three greedy
@@ -23,6 +28,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             launch counters set to 0 just before and read just after. The
             first prefill and decode logits are then held against the
             port's plain path on the same card.
+   coalesced: the model's layer weights coalesced on the card
+            (`coalesce_layer_weights`) give the plane run's 16 greedy
+            tokens, with 128 coalesced qmatmul launches a forward (counters
+            zeroed just before and read just after this run).
 4. serve:   the same model behind the port's HTTP server: a paged engine
             (16 streams, page 256, int8 pool, prefix cache) answers 16
             concurrent greedy /v1/completions (4 of them streamed) and then
@@ -38,6 +47,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             engine, on the same card, and torch.profiler traces a decode
             step of each engine with every slot decoding, and a prefill
             chunk of each.
+5. probes:  P2 (`llm_tpu_torch.probes.kernel_decompose`, M = 8 and 1), P3
+            (`dequant_variants`, every mode) and P1 (`coalesced`, up and
+            down, every variant) at their 7B geometry with few rounds, each
+            with the counters zeroed before and read after its run; their
+            tables are printed.
 
 Output: one JSON line per phase, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}. `--json PATH` also writes the
@@ -144,8 +158,21 @@ def bound_ms(n_bytes: float, flops: float,
 
 
 def plane_bytes(w) -> int:
+    """Bytes of a weight's planes, or of its coalesced buffer."""
+    from llm_tpu_torch.ops.packing import QuantTensorC
+
+    if isinstance(w, QuantTensorC):
+        return w.buf.numel() * 4
     return sum(p.numel() * p.element_size() for p in w.planes()
                if p is not None)
+
+
+def dequant_any(w):
+    from llm_tpu_torch.ops import packing
+
+    if isinstance(w, packing.QuantTensorC):
+        return packing.dequant_c(w)
+    return packing.dequant(w)
 
 
 # ---------------------------------------------------------------------------
@@ -178,31 +205,36 @@ def random_weight(t, K: int, R: int, rng, dev):
     return w
 
 
-def check_qmatmul(name, w, M, rng, dev, timer, timed: bool) -> dict:
-    from llm_tpu_torch.ops import packing
+def qmatmul_held(y, x, w) -> dict:
+    """The kernel's y = x @ W against the plain version (f32) and against
+    the same math with x and W rounded to bf16, to QM_TOL_PLAIN and
+    QM_TOL_BF16."""
     from llm_tpu_torch.ops import qmatmul as qm
 
-    x = torch.from_numpy(rng.standard_normal((M, w.k)).astype(np.float32)
-                         ).to(dev)
-    y = qm.qmatmul(x, w)
     torch.cuda.synchronize()
-    wd = packing.dequant(w)
+    wd = dequant_any(w)
     y_plain = qm.qmatmul_plain(x, w)
     y_bf16 = x.bfloat16().float() @ wd.bfloat16().float()
     bound = x.abs() @ wd.abs()
     err = (y - y_plain).abs()
     err_bf16 = (y - y_bf16).abs()
-    ok = bool((err <= QM_TOL_PLAIN * bound).all()) and bool(
-        err_bf16.max() <= QM_TOL_BF16 * bound.max())
-    rec = {
-        "case": name, "fmt": w.fmt_name, "scale_packed": w.scale_packed,
-        "M": M, "K": w.k, "R": w.r, "ok": ok,
-        "max_abs_err": float(err.max()),
-        "max_abs_err_bf16_plain": float(err_bf16.max()),
-        "max_abs_y": float(y_plain.abs().max()),
-    }
+    return {"ok": bool((err <= QM_TOL_PLAIN * bound).all()) and bool(
+                err_bf16.max() <= QM_TOL_BF16 * bound.max()),
+            "max_abs_err": float(err.max()),
+            "max_abs_err_bf16_plain": float(err_bf16.max()),
+            "max_abs_y": float(y_plain.abs().max())}
+
+
+def check_qmatmul(name, w, M, rng, dev, timer, timed: bool) -> dict:
+    from llm_tpu_torch.ops import qmatmul as qm
+
+    x = torch.from_numpy(rng.standard_normal((M, w.k)).astype(np.float32)
+                         ).to(dev)
+    rec = {"case": name, "fmt": w.fmt_name, "scale_packed": w.scale_packed,
+           "layout": type(w).__name__, "M": M, "K": w.k, "R": w.r,
+           **qmatmul_held(qm.qmatmul(x, w), x, w)}
     if timed:
-        w_bf16 = wd.bfloat16()
+        w_bf16 = dequant_any(w).bfloat16()
         xb = x.bfloat16()
         rec["ms"] = timer.ms(lambda: qm.qmatmul(x, w))
         rec["plain_ms"] = timer.ms(lambda: qm.qmatmul_plain(x, w))
@@ -210,7 +242,6 @@ def check_qmatmul(name, w, M, rng, dev, timer, timed: bool) -> dict:
         n_bytes = M * w.k * 4 + plane_bytes(w) + M * w.r * 4
         rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes,
                                                    2.0 * M * w.k * w.r)
-    del wd, bound
     return rec
 
 
@@ -241,6 +272,70 @@ def qmatmul_phase(dev, timer) -> list[dict]:
             recs.append(check_qmatmul(name, w, M, rng, dev, timer, True))
         del w
     return recs
+
+
+def k3_bit_equal(name, planes, coal, M, rng, dev, layer=None) -> dict:
+    """K3 over the coalesced buffer against K1 over the planes it was made
+    from: the same products summed in the same order, so bit-equal."""
+    from llm_tpu_torch.ops import qmatmul as qm
+
+    x = torch.from_numpy(rng.standard_normal((M, planes.k))
+                         .astype(np.float32)).to(dev)
+    y1 = qm.qmatmul(x, planes, layer=layer)
+    y3 = qm.qmatmul(x, coal, layer=layer)
+    torch.cuda.synchronize()
+    return {"case": name, "fmt": planes.fmt_name,
+            "scale_packed": coal.scale_packed, "M": M, "K": planes.k,
+            "R": planes.r, "layer": layer,
+            "tiles": [coal.tile_k, coal.tile_r, coal.kp, coal.rp],
+            "ok": bool(torch.equal(y1, y3)),
+            "max_abs_err": float((y1 - y3).abs().max())}
+
+
+def coalesced_phase(dev, timer) -> tuple[list, list]:
+    """K3: bit-equal to K1 for every format at a small shape (flat and one
+    layer of a stack, f16-packed and f32 scales) and for Q4_0 at each 7B
+    projection at M = 1, 8 and n_batch (the coalesced `infer` run's decode
+    and its prompt chunk, padded to n_batch); then held against its plain
+    version and timed at M = 1, 8, 16, 64 and n_batch, as K1 is."""
+    from llm_tpu_torch.ggml.types import GgmlType
+    from llm_tpu_torch.ops import packing
+    from llm_tpu_torch.ops import qmatmul as qm
+
+    rng = np.random.default_rng(7)
+    eq, recs = [], []
+    for t in packing.FORMATS:
+        ws = [random_weight(t, 512, 256, rng, dev) for _ in range(2)]
+        variants = [ws[0]]
+        if ws[0].scale_packed:  # and the format's f32-scale instantiation
+            variants.append(packing.unpack_scales_qt(ws[0]))
+        for i, w in enumerate(variants):
+            tk, tr, _ = qm.coalesce_tiles(w.fmt, w.k_padded, w.r_padded,
+                                          w.scale_packed)
+            c = packing.coalesce_qt(w, tk, tr)
+            for M in (1, 4):
+                eq.append(k3_bit_equal("small", w, c, M, rng, dev))
+            if i == 0:
+                st = packing.QuantTensor(w.fmt_name, w.k, w.r, *(
+                    None if getattr(w, n) is None else
+                    torch.stack([getattr(q, n) for q in ws])
+                    for n in ("lo", "hi", "scale", "bias")))
+                sc = packing.coalesce_qt(st, tk, tr)
+                eq.append(k3_bit_equal("small_stacked", st, sc, 4, rng, dev,
+                                       layer=1))
+    for name, K, R in SHAPES_7B:
+        w = random_weight(GgmlType.Q4_0, K, R, rng, dev)
+        c = qm.coalesce_auto(w)
+        if c is None:
+            fail(f"{name}: the 7B weight did not coalesce")
+        for M in (1, 8, N_BATCH):
+            eq.append(k3_bit_equal(name, w, c, M, rng, dev))
+        if name != "lm_head":  # the head stays planes on the main path
+            for M in (1, 8, 16, 64, N_BATCH):
+                recs.append(check_qmatmul(name, c, M, rng, dev, timer, True))
+        del w, c
+    torch.cuda.empty_cache()
+    return eq, recs
 
 
 def check_attention(name, kv, W, n_past, hkv, rep, alibi, rng, dev, timer,
@@ -527,7 +622,9 @@ def count_online_prefills():
     return calls
 
 
-def greedy_prompt_run(model, prompt: list[int]) -> dict:
+def greedy_prompt_run(model, prompt: list[int], n: int = N_PREDICT) -> dict:
+    """`n` greedy tokens after `prompt` (EoT banned) through the session,
+    and the run's times."""
     from llm_tpu_torch import session as S
     from llm_tpu_torch.samplers import build_sampler_chain
 
@@ -537,11 +634,11 @@ def greedy_prompt_run(model, prompt: list[int]) -> dict:
     chain = build_sampler_chain(["topk:k=1"],
                                 bias=[(model.eot_token_id(), float("-inf"))])
     stats = sess.infer(
-        S.InferenceRequest(prompt=prompt, maximum_token_count=N_PREDICT,
+        S.InferenceRequest(prompt=prompt, maximum_token_count=n,
                            parameters=S.InferenceParameters(sampler=chain)),
         rng=np.random.default_rng(0))
     new = sess.tokens[len(prompt):]
-    if len(new) != N_PREDICT or stats.prompt_tokens != len(prompt):
+    if len(new) != n or stats.prompt_tokens != len(prompt):
         fail(f"prompt of {len(prompt)}: {len(new)} new tokens")
     if not np.isfinite(sess.last_logits).all():
         fail("non-finite logits")
@@ -552,7 +649,7 @@ def greedy_prompt_run(model, prompt: list[int]) -> dict:
         "prefill_tok_s": len(prompt) / stats.feed_prompt_duration,
         "decode_tok_s": len(new) / decode_s,
         "decode_ms_per_token": 1e3 * decode_s / len(new),
-        "first_new_ids": new[:8],
+        "first_new_ids": new[:8], "new_ids": new,
     }
 
 
@@ -723,6 +820,58 @@ def e2e_phase(dev):
     return out, model
 
 
+COALESCED_NEW = 16
+
+
+def coalesced_infer_phase(model, dev) -> dict:
+    """`infer` on the same 7B model with its layer weights coalesced on the
+    card (`coalesce_layer_weights`; lm_head stays planes): the greedy
+    tokens of the plane run, and with the counters zeroed just before and
+    read just after this run alone, 129 qmatmul launches a forward of which
+    128 (4 projections x 32 layers) over the coalesced buffers."""
+    import copy
+
+    from llm_tpu_torch.models.params import coalesce_layer_weights
+    from llm_tpu_torch.ops import qmatmul as qm
+    from llm_tpu_torch.ops.packing import QuantTensorC
+
+    out = {}
+    prompt = np.random.default_rng(8).integers(1, V, 64).tolist()
+    plane_tokens = greedy_prompt_run(model, prompt, COALESCED_NEW)["new_ids"]
+    t0 = time.monotonic()
+    cmodel = copy.copy(model)
+    cmodel.params = coalesce_layer_weights(model.params)
+    torch.cuda.synchronize()
+    out["coalesce_s"] = time.monotonic() - t0
+    lw = cmodel.params.layers
+    if not all(isinstance(getattr(lw, f), QuantTensorC)
+               for f in ("w_qkv", "wo", "w_gate_up", "w_down")):
+        fail("coalesce_layer_weights left a 7B layer weight in planes")
+    out["tiles"] = {f: [getattr(lw, f).tile_k, getattr(lw, f).tile_r,
+                        getattr(lw, f).kp, getattr(lw, f).rp,
+                        getattr(lw, f).scale_packed]
+                    for f in ("w_qkv", "wo", "w_gate_up", "w_down")}
+    zero_launches()
+    run = greedy_prompt_run(cmodel, prompt, COALESCED_NEW)
+    launches = read_launches()
+    launches["qmatmul_coalesced"] = qm.LAUNCHES_COALESCED
+    tokens = run.pop("new_ids")
+    out["run"] = run
+    forwards = math.ceil(len(prompt) / N_BATCH) + COALESCED_NEW
+    want = {"qmatmul": (4 * N_LAYER + 1) * forwards,
+            "dense_attention": N_LAYER * COALESCED_NEW, "paged_attention": 0,
+            "qmatmul_coalesced": 4 * N_LAYER * forwards}
+    out.update(tokens=tokens, plane_tokens=plane_tokens, launches=launches,
+               launches_expected=want)
+    if tokens != plane_tokens:
+        fail(f"coalesced infer tokens {tokens} != plane run's {plane_tokens}")
+    if launches != want:
+        fail(f"coalesced infer launches {launches}, expected {want}")
+    del cmodel, lw
+    torch.cuda.empty_cache()
+    return out
+
+
 def compare_logits(name, got, ref) -> dict:
     """Relative L2 and top-1 agreement of two logits tensors [.., V]; fails
     the run past E2E_REL_L2."""
@@ -832,8 +981,10 @@ def zero_launches() -> None:
     from llm_tpu_torch.ops import dense_attention as da
     from llm_tpu_torch.ops import paged_attention as pa
     from llm_tpu_torch.ops import qmatmul as qm
+    from llm_tpu_torch.ops import qmatmul_probe as qp
 
     qm.LAUNCHES = da.LAUNCHES = pa.LAUNCHES = 0
+    qm.LAUNCHES_COALESCED = qp.LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -1115,9 +1266,283 @@ def serve_phase(model, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the chip probes P1-P3
 
 
-def kernel_entries(qrecs, arecs, precs, e2e, serve) -> list[dict]:
+# Probe kernels against their plain versions on the same card, by rule:
+# - exact: stream and unpack are wrapping integer sums, held exactly;
+# - dequant: sums bf16 weights over K in another order: 1e-5 of the sum of
+#   |w| a column (padding columns exactly);
+# - mode: a mode's kernel and plain version compute the same products and
+#   differ in summation order only: 1e-5 of |y| plus 1e-5 of max|y|
+#   (nounpack's weights reach ~1e6 and its sums cancel);
+# - qmatmul: K1 (P2's full, P1's plane) as check_qmatmul holds it;
+# - equal: K3 at a P1 tiling bit-equal to K1 over the planes.
+PROBE_TOL = 1e-5
+
+
+def held(probe, case, layout, got, ref, rule, w, x=None, **extra) -> dict:
+    """A probe variant's kernel result `got` against `ref` (its plain
+    version, or K1's kernel result for rule "equal") by `rule`."""
+    torch.cuda.synchronize()
+    rec = {"probe": probe, "case": case, "layout": layout,
+           "fmt": w.fmt_name, "K": w.k, "R": w.r, **extra}
+    if rule == "qmatmul":
+        return {**rec, **qmatmul_held(got, x, w)}
+    if rule == "exact":
+        ok = bool(torch.equal(got, ref))
+        e = float(((got.long() - ref.long()) % (1 << 32)).max())
+    elif rule == "equal":
+        ok, e = bool(torch.equal(got, ref)), float((got - ref).abs().max())
+    elif rule == "dequant":
+        w_abs = dequant_any(w).abs().sum(dim=-2)  # [R]
+        err = (got[: w.r] - ref[: w.r]).abs()
+        ok = bool((err <= PROBE_TOL * w_abs).all()) and bool(
+            torch.equal(got[w.r:], ref[w.r:]))
+        e = float((got - ref).abs().max())
+    else:  # mode
+        err = (got - ref).abs()
+        ok = bool((err <= PROBE_TOL * (ref.abs() + ref.abs().max())).all())
+        e = float(err.max())
+        rec["max_rel_err"] = e / float(ref.abs().max())
+    return {**rec, "ok": ok, "max_abs_err": e}
+
+
+def stage_rule(stage: str) -> str:
+    return "dequant" if stage == "dequant" else "exact"
+
+
+def probe_checks(dev) -> list[dict]:
+    """Every P2 stage, P3 mode and P1 variant against its plain version at
+    K=1024, R=512, layer 1 of a 2-layer stack, over Q4_0, Q8_0 and Q6_K
+    where the variant takes the format."""
+    from llm_tpu_torch.ggml.types import GgmlType
+    from llm_tpu_torch.ops import packing
+    from llm_tpu_torch.ops import qmatmul as qm
+    from llm_tpu_torch.ops import qmatmul_probe as qp
+    from llm_tpu_torch.probes import coalesced as p1
+    from llm_tpu_torch.probes import dequant_variants as p3
+
+    rng = np.random.default_rng(9)
+    K, R, M = 1024, 512, 8
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(dev)
+    recs = []
+
+    def stacked(t, r_multiple=128):
+        ws = [random_weight(t, K, R, rng, dev) for _ in range(2)]
+        if r_multiple != 128:
+            ws = [packing.pad_r_qt(w, r_multiple) for w in ws]
+        return packing.QuantTensor(ws[0].fmt_name, K, R, *(
+            None if getattr(ws[0], n) is None
+            else torch.stack([getattr(q, n) for q in ws])
+            for n in ("lo", "hi", "scale", "bias")))
+
+    def stage_rec(probe, case, layout, w, stage):
+        return held(probe, case, layout, qp.stage_run(w, stage, M),
+                    qp.stage_plain(w, stage), stage_rule(stage), w)
+
+    # P2 stages (and P1/P3's stream) over planes and coalesced buffers
+    for t in (GgmlType.Q4_0, GgmlType.Q8_0, GgmlType.Q6_K):
+        st = stacked(t)
+        sc = packing.coalesce_qt(st, 512, 128)  # 2 k-tiles, 4 r-tiles
+        for stage in qp.STAGES:
+            recs.append(stage_rec("P2", stage, "planes", st.layer(1), stage))
+            recs.append(stage_rec("P2", stage, "coalesced", sc.layer(1),
+                                  stage))
+    # P3 modes over a coalesced q4_0, whole K x 512 lanes
+    st = stacked(GgmlType.Q4_0, 1024)
+    qtc = packing.coalesce_qt(st, st.k_padded, 512).layer(1)
+    for mode in p3.MODES:
+        if mode == "stream":
+            recs.append(stage_rec("P3", mode, "coalesced", qtc, "stream"))
+            continue
+        recs.append(held("P3", mode, "coalesced", qp.mode_run(x, qtc, mode),
+                         qp.mode_plain(x, qtc, mode), "mode", qtc))
+    # P1: K3 at each tiling bit-equal to K1; each buffer's stream stage
+    weights = p1.build(K, R, 10, dev)
+    plane = qm.qmatmul(x, weights["plane"])
+    for name, w in weights.items():
+        if name == "plane":
+            continue
+        recs.append(held("P1", name, "coalesced", qm.qmatmul(x, w), plane,
+                         "equal", w, tiles=[w.tile_k, w.tile_r]))
+        recs.append(stage_rec("P1", f"{name}_stream", "coalesced", w,
+                              "stream"))
+    return recs
+
+
+def probe_checks_7b(dev) -> list[dict]:
+    """Every probe variant's kernel against its plain version on one layer
+    at the shape and M its probe runs it: P2 over q4_0 4096 x 4096 planes
+    at M = 8 and 1; P3 over 4096 x 11008 coalesced whole K x 512 lanes; P1
+    at up and down, every tiling."""
+    from llm_tpu_torch.probes import coalesced as p1
+    from llm_tpu_torch.probes import common
+    from llm_tpu_torch.probes import dequant_variants as p3
+    from llm_tpu_torch.probes import kernel_decompose as p2
+
+    def x_of(M, K):  # the probes' own x
+        return torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (M, K)).astype(np.float32)).to(dev)
+
+    recs = []
+    w = common.random_q4_0(p2.K, p2.R, 0, dev)
+    for M in (8, 1):
+        x = x_of(M, w.k)
+        for v in p2.VARIANTS:
+            rule = "qmatmul" if v == "full" else stage_rule(v)
+            recs.append(held("P2", v, "planes", p2.variant_launch(v, x, w)(),
+                             p2.variant_plain(v, x, w), rule, w, x, M=M,
+                             shape="7b"))
+    del w
+    qtc = p3.build(p3.K, p3.R, 0, dev)
+    x = x_of(p3.M, qtc.k)
+    for m in p3.MODES:
+        recs.append(held("P3", m, "coalesced", p3.mode_launch(m, x, qtc)(),
+                         p3.mode_plain(m, x, qtc),
+                         "exact" if m == "stream" else "mode", qtc, M=p3.M,
+                         shape="7b"))
+    del qtc
+    for shape in p1.SHAPES:
+        weights = p1.build(*p1.SHAPES[shape], 0, dev)
+        x = x_of(p1.M, weights["plane"].k)
+        plane = p1.variant_launch("plane", x, weights["plane"])()
+        recs.append(held("P1", "plane", "planes", plane, None, "qmatmul",
+                         weights["plane"], x, M=p1.M, shape=shape))
+        for n in p1.all_variants():
+            if n in ("plane", "dense") or \
+                    n.removesuffix("_stream") not in weights:
+                continue
+            w = p1.variant_weight(n, weights)
+            got = p1.variant_launch(n, x, w)()
+            if n.endswith("_stream"):
+                rec = held("P1", n, "coalesced", got,
+                           p1.variant_plain(n, x, w), "exact", w)
+            else:
+                rec = held("P1", n, "coalesced", got, plane, "equal", w)
+            recs.append({**rec, "M": p1.M, "shape": shape,
+                         "tiles": [w.tile_k, w.tile_r]})
+        del weights
+    torch.cuda.empty_cache()
+    return recs
+
+
+def probe_phase(dev) -> dict:
+    """The three probes at their 7B geometry, few rounds, each with the
+    counters zeroed just before and read just after its run, which must
+    count every launch the probe made; their tables are printed."""
+    from llm_tpu_torch.ops import qmatmul as qm
+    from llm_tpu_torch.ops import qmatmul_probe as qp
+    from llm_tpu_torch.probes import coalesced as p1
+    from llm_tpu_torch.probes import dequant_variants as p3
+    from llm_tpu_torch.probes import kernel_decompose as p2
+
+    out = {}
+    runs = {
+        "P2_M8": lambda: p2.run(dev, M=8, rounds=3),
+        "P2_M1": lambda: p2.run(dev, M=1, rounds=3),
+        "P3": lambda: p3.run(dev, modes=p3.MODES, rounds=3),
+        "P1_up": lambda: p1.run(dev, "up", p1.all_variants(), rounds=3),
+        "P1_down": lambda: p1.run(dev, "down", p1.all_variants(), rounds=2),
+    }
+    for key, run in runs.items():
+        zero_launches()
+        res = run()
+        got = {"probe": qp.LAUNCHES, "qmatmul": qm.LAUNCHES}
+        rows = res.get("variants") or res.get("modes")
+        want = sum(d.get("launches", 0) for d in rows.values())
+        if got["probe"] + got["qmatmul"] != want or any(
+                d.get("launches", 1) == 0 for n, d in rows.items()
+                if n != "dense"):
+            fail(f"{key}: probe launches {got}, expected {want} in all")
+        res["launches_counted"] = got
+        (p1 if key.startswith("P1") else p2 if key.startswith("P2")
+         else p3).report(res)
+        out[key] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def probe_entries(probes, checks, dev, timer) -> list[dict]:
+    """The kernel line's entries of P1-P3. Each reports its headline
+    variant (P1: the stream pass over coalesce_tiles' own tiling, the
+    kernel `make_stream_chain` built; P2: the stream stage at M=8; P3:
+    base): device time a launch at 7B from the probe's run, the bound of
+    that launch, and the plain version's and one torch.matmul's time on
+    one layer of the same weight (bf16, the same [M, K] x [K, R] shape).
+    `max_abs_err` is the headline variant's largest over its checks (small
+    and 7B shapes); `checks` counts all of the probe's."""
+    from llm_tpu_torch.ops import qmatmul_probe as qp
+    from llm_tpu_torch.probes import coalesced as p1
+    from llm_tpu_torch.probes import common
+    from llm_tpu_torch.probes import dequant_variants as p3
+
+    M = 8
+
+    def x_of(K):
+        return torch.from_numpy(np.random.default_rng(11).standard_normal(
+            (M, K)).astype(np.float32)).to(dev)
+
+    def matmul(K, R):
+        xb = x_of(K).bfloat16()
+        wb = torch.randn((K, R), device=dev).bfloat16()
+        return lambda: torch.matmul(xb, wb)
+
+    out = []
+    specs = []
+    w1 = p1.build(*p1.SHAPES["up"], 0, dev)["coalK"]
+    specs.append(("probe_coalesced", "P1", probes["P1_up"], "coalK_stream",
+                  "scripts/probe_coalesced.py:137",
+                  w1.buf.numel() * 4 + w1.rp * 4, 0.0,
+                  lambda: qp.stage_plain(w1, "stream"),
+                  matmul(w1.k, w1.r)))
+    w2 = common.random_q4_0(4096, 4096, 0, dev)
+    specs.append(("probe_kernel_decompose", "P2", probes["P2_M8"], "stream",
+                  "scripts/probe_kernel_decompose.py:108",
+                  (w2.lo.numel() + w2.scale.numel()) * 4 + w2.r_padded * 4,
+                  0.0, lambda: qp.stage_plain(w2, "stream"),
+                  matmul(w2.k, w2.r)))
+    w3 = p3.build(p3.K, p3.R, 0, dev)
+    x3 = x_of(w3.k)
+    specs.append(("probe_dequant_variants", "P3", probes["P3"], "base",
+                  "scripts/probe_dequant_variants.py:221",
+                  w3.buf.numel() * 4 + M * w3.k * 2 + M * w3.r * 4,
+                  2.0 * M * w3.k * w3.r,
+                  lambda: qp.mode_plain(x3, w3, "base"),
+                  matmul(w3.k, w3.r)))
+    for name, tag, res, variant, rep, n_bytes, flops, plain, lib in specs:
+        rows = res.get("variants") or res.get("modes")
+        b, by = bound_ms(n_bytes, flops)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "llm_tpu_torch/csrc/qmatmul_probe.cu",
+            "replaces": rep,
+            "launches": sum(res["launches_counted"].values()),
+            "max_abs_err": max(r["max_abs_err"] for r in checks
+                               if r["probe"] == tag and r["case"] == variant),
+            "max_rel_err": max(r.get("max_rel_err", 0.0) for r in checks
+                               if r["probe"] == tag and r["case"] == variant),
+            "checks": sum(r["probe"] == tag for r in checks),
+            "ms": rows[variant]["us"] / 1e3, "plain_ms": timer.ms(plain, 3),
+            "bound_ms": b, "bound_by": by, "library_ms": timer.ms(lib, 3),
+            "variant": variant,
+            "per": f"one launch of {variant} at the probe's 7B shape "
+                   f"(M={res['M']}, L={res['L']}; device time of a chain "
+                   "after a spin)",
+            "variants_us": {n: d["us"] for n, d in rows.items()},
+            "variants_kernel_us": {n: d["kernel_us"]
+                                   for n, d in rows.items()},
+            "busy_share": {n: d["busy_share"] for n, d in rows.items()},
+        })
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+
+def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
+                   cinf) -> list[dict]:
     """One entry per kernel: times summed over the launches of one decode
     step at 7B (qmatmul: the 4 projections x 32 layers + lm_head at M=1;
     dense_attention: 32 layers at W=512, bf16 cache, full window;
@@ -1146,6 +1571,28 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve) -> list[dict]:
             and r["W"] == 512 and "ms" in r]
     paged = [r for r in precs if r["case"] == "serve64" and r["kv"] == "bf16"]
     entries = []
+    # K3: the 4 coalesced projections x 32 layers of a decode token at M=1
+    dec3 = [r for r in k3recs if r["M"] == 1]
+    entries.append({
+        "name": "qmatmul_coalesced", "route": "cuda",
+        "source": "llm_tpu_torch/csrc/qmatmul.cu",
+        "replaces": "llm_tpu/ops/qmatmul.py:436",
+        "replaces_also": ["llm_tpu/ops/qmatmul.py:475",
+                          "llm_tpu/ops/qmatmul.py:268"],
+        "launches": cinf["launches"]["qmatmul_coalesced"],
+        "launches_by_path": {"infer_coalesced":
+                             cinf["launches"]["qmatmul_coalesced"]},
+        "max_abs_err": max(r["max_abs_err"] for r in k3recs),
+        "max_abs_err_vs_k1": max(r["max_abs_err"] for r in k3eq),
+        "ms": total("ms", dec3, qw), "plain_ms": total("plain_ms", dec3, qw),
+        "bound_ms": total("bound_ms", dec3, qw),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in dec3)
+        else "operations",
+        "library_ms": total("library_ms", dec3, qw),
+        "per": "one 7B decode token's coalesced launches: 128 at M=1 "
+               "(lm_head stays planes)",
+        "tolerance": "|y - plain| <= 2^-7 (|x| @ |W|); bit-equal to K1",
+    })
     for name, recs, all_recs, w, path, rep, extra in (
         ("qmatmul", dec, qrecs, qw, "infer", "llm_tpu/ops/qmatmul.py:560",
          {"source": "llm_tpu_torch/csrc/qmatmul.cu",
@@ -1203,31 +1650,65 @@ def main() -> None:
     results = {"card": smi, "torch": torch.__version__,
                "cuda": torch.version.cuda}
 
-    built = _build.build(["qmatmul", "paged_attention"])
+    t_build = time.monotonic()
+    built = _build.build(["qmatmul", "paged_attention", "qmatmul_probe"])
     emit({"build": {"nvcc_s": built}})
     results["build"] = built
 
+    phase_s = results["phase_s"] = {}
+    clock = [t_build]
+
+    def lap(name):
+        now = time.monotonic()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+
+    lap("build")
     timer = Timer(dev)
     qrecs = qmatmul_phase(dev, timer)
+    lap("qmatmul")
+    k3eq, k3recs = coalesced_phase(dev, timer)
+    lap("qmatmul_coalesced")
     arecs = attention_phase(dev, timer)
     precs = paged_phase(dev, timer)
-    results["kernel_cases"] = qrecs + arecs + precs
-    emit({"kernel_cases": qrecs + arecs + precs})
-    bad = [r for r in qrecs + arecs + precs if not r["ok"]]
+    lap("attention")
+    checks = probe_checks(dev) + probe_checks_7b(dev)
+    lap("probe_checks")
+    cases = qrecs + k3eq + k3recs + arecs + precs + checks
+    results["kernel_cases"] = cases
+    emit({"kernel_cases": cases})
+    bad = [r for r in cases if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: {bad[:3]}")
-    del timer
 
     e2e, model = e2e_phase(dev)
     results["e2e"] = e2e
     emit({"e2e": e2e})
+    lap("e2e")
+
+    cinf = coalesced_infer_phase(model, dev)
+    results["infer_coalesced"] = cinf
+    emit({"infer_coalesced": cinf})
+    lap("infer_coalesced")
 
     serve = serve_phase(model, dev)
     results["serve"] = serve
     emit({"serve": serve})
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("serve")
 
-    kernels = kernel_entries(qrecs, arecs, precs, e2e, serve)
+    probes = probe_phase(dev)
+    results["probes"] = probes
+    lap("probes")
+
+    kernels = kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
+                             cinf)
+    kernels += probe_entries(probes, checks, dev, timer)
+    del timer
+    lap("kernel_entries")
+    emit({"phase_s": phase_s})
     results["kernels"] = kernels
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)

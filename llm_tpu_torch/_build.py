@@ -5,10 +5,11 @@ Each `csrc/<name>.cu` has a plain C interface and compiles on its own with
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
          -Xcompiler -fPIC -o build/kernels/lib<name>.so csrc/<name>.cu
 
-into `build/kernels/` at the root of the checkout (listed in .gitignore). A
-library is rebuilt when its source is newer. Nothing builds at import:
-the CPU paths never need `nvcc`. Every C entry point returns
-`cudaGetLastError()`; `check` raises when that is not 0.
+into `build/kernels/` at the root of the checkout (listed in .gitignore).
+A library is rebuilt when its source, or a header of `csrc/` that the
+source includes (`#include "<header>"`), is newer.
+Nothing builds at import: the CPU paths never need `nvcc`. Every C entry
+point returns `cudaGetLastError()`; `check` raises when that is not 0.
 """
 
 from __future__ import annotations
@@ -45,8 +46,14 @@ def _so_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    so, src = _so_path(name), CSRC / f"{name}.cu"
-    return not so.exists() or so.stat().st_mtime < src.stat().st_mtime
+    so = _so_path(name)
+    if not so.exists():
+        return True
+    cu = CSRC / f"{name}.cu"
+    srcs = [cu] + [CSRC / line.split('"')[1]
+                   for line in cu.read_text().splitlines()
+                   if line.startswith('#include "')]
+    return so.stat().st_mtime < max(s.stat().st_mtime for s in srcs)
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path]:
@@ -102,3 +109,20 @@ def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+class Launch:
+    """A kernel launch whose arguments are ready (a wrapper has checked
+    them and allocated the outputs): each call enqueues it on the current
+    stream, checks the launch, counts it with `count()` and returns `out`.
+    `keep` holds the tensors behind the pointers in `args`."""
+
+    def __init__(self, fn, args: tuple, device, what: str, count, out,
+                 keep: tuple = ()):
+        self.fn, self.args, self.device = fn, args, device
+        self.what, self.count, self.out, self.keep = what, count, out, keep
+
+    def __call__(self):
+        check(self.fn(*self.args, stream_ptr(self.device)), self.what)
+        self.count()
+        return self.out

@@ -28,9 +28,15 @@ import torch
 from llm_tpu_torch.ggml.quant import dequantize
 from llm_tpu_torch.ggml.reader import GgmlReader, TensorInfo
 from llm_tpu_torch.models.spec import ModelSpec
-from llm_tpu_torch.ops.packing import QuantTensor, fuse_quant, pack_ggml
+from llm_tpu_torch.ops.packing import (
+    QuantTensor,
+    QuantTensorC,
+    fuse_quant,
+    pack_ggml,
+)
+from llm_tpu_torch.ops.qmatmul import coalesce_auto
 
-Weight = Union[QuantTensor, torch.Tensor]
+Weight = Union[QuantTensor, QuantTensorC, torch.Tensor]
 
 
 @dataclass
@@ -65,7 +71,7 @@ class LayerParams:
         kw = {}
         for f in fields(self):
             v = getattr(self, f.name)
-            if isinstance(v, QuantTensor):
+            if isinstance(v, (QuantTensor, QuantTensorC)):
                 v = v.layer(l)
             elif v is not None:
                 v = v[l]
@@ -101,6 +107,27 @@ def fuse_layer_weights(layers: LayerParams) -> LayerParams:
     if not kw:
         return layers
     return dataclasses.replace(layers, **kw)
+
+
+_W_FIELDS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_qkv",
+             "w_gate_up")
+
+
+def coalesce_layer_weights(params: ModelParams,
+                           min_k: int = 2048) -> ModelParams:
+    """The same model with every quantized layer weight that the
+    reference's size gate admits (`coalesce_auto`) in the coalesced
+    layout, on the weights' device; the embedding and lm_head stay planes.
+    The loader keeps planes: this is for callers that ask for the layout."""
+    kw = {}
+    for f in _W_FIELDS:
+        w = getattr(params.layers, f)
+        if isinstance(w, QuantTensor):
+            c = coalesce_auto(w, min_k=min_k)
+            if c is not None:
+                kw[f] = c
+    return dataclasses.replace(
+        params, layers=dataclasses.replace(params.layers, **kw))
 
 
 def _stack(xs: list):
@@ -233,8 +260,9 @@ def _weight_from_numpy(v, device):
     """One leaf of the carried tree -> torch (QuantTensor, tensor or None).
 
     A quantized weight arrives as a dict with `fmt_name`, `k`, `r`,
-    `splits` and numpy planes `lo`/`hi`/`scale`/`bias` (uint32 word planes
-    keep their bits as int32)."""
+    `splits` and numpy planes `lo`/`hi`/`scale`/`bias`, or, for the
+    coalesced layout, the buffer `buf` with `kp`, `rp`, `tile_k`, `tile_r`
+    and `scale_packed` (uint32 words keep their bits as int32)."""
     if v is None:
         return None
     if isinstance(v, dict):
@@ -248,6 +276,12 @@ def _weight_from_numpy(v, device):
             return torch.from_numpy(np.array(a)).to(device)
 
         splits = v.get("splits")
+        if "buf" in v:
+            return QuantTensorC(
+                v["fmt_name"], int(v["k"]), int(v["r"]), int(v["kp"]),
+                int(v["rp"]), int(v["tile_k"]), int(v["tile_r"]),
+                bool(v["scale_packed"]), t(v["buf"]),
+                tuple(map(tuple, splits)) if splits else None)
         return QuantTensor(v["fmt_name"], int(v["k"]), int(v["r"]),
                            t(v["lo"]), t(v.get("hi")), t(v["scale"]),
                            t(v.get("bias")),

@@ -23,10 +23,15 @@ q4_0's lo plane stores `q - 8` as a two's-complement nibble (`q XOR 8`).
 `pack_ggml` builds the planes with torch ops from the raw block bytes, on
 whatever device it is given: on the card the repack of a 7B checkpoint runs
 there instead of in host numpy.
+
+`QuantTensorC` is the reference's coalesced layout of the same planes
+(`coalesce_qt`, `uncoalesce_qt`, `dequant_c`), bit-equal to it; the CUDA
+kernel reads it as well as planes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -182,6 +187,27 @@ def split_fused(y: torch.Tensor, splits: tuple) -> "list[torch.Tensor]":
     outs, off = [], 0
     for r, rp in splits:
         outs.append(y[..., off : off + r])
+        off += rp
+    return outs
+
+
+def unfuse_quant(qt) -> "Optional[list[QuantTensor]]":
+    """Invert fuse_quant by slicing the planes at the padded column offsets
+    (exact: blocks only span K). A coalesced tensor is first converted back
+    to planes. None for a tensor that was not fused."""
+    if isinstance(qt, QuantTensorC):
+        qt = uncoalesce_qt(qt)
+    if qt.splits is None:
+        return None
+    outs, off = [], 0
+
+    def sl(p, off, rp):
+        return None if p is None else p[..., off : off + rp]
+
+    for r, rp in qt.splits:
+        outs.append(QuantTensor(qt.fmt_name, qt.k, r, sl(qt.lo, off, rp),
+                                sl(qt.hi, off, rp), sl(qt.scale, off, rp),
+                                sl(qt.bias, off, rp)))
         off += rp
     return outs
 
@@ -442,6 +468,194 @@ def dequant(qt: QuantTensor, trim: bool = True) -> torch.Tensor:
     if trim:
         w = w[..., : qt.k, : qt.r]
     return w
+
+
+# ---------------------------------------------------------------------------
+# coalesced layout: every plane of one (r-tile, k-tile) block in one span
+#
+#     buf int32 [(L,) n_r * n_k * rows_tile, tile_r]   rows_tile = lo|hi|scale|bias
+#
+# For each output tile r and reduction tile k, the block's lo rows, then hi
+# rows, then scale rows, then bias rows sit consecutively, bit-equal to the
+# reference's `coalesce_qt`. f32 scale planes are kept as their bits; q8_0's
+# int8 plane is byte-packed four to a word (two's complement).
+
+
+def coalesced_seg_rows(fmt: QFormat, tile_k: int,
+                       scale_packed: bool) -> tuple[int, int, int, int]:
+    """Word rows of each segment (lo, hi, scale, bias) per k-tile."""
+    lo = tile_k // (32 // fmt.lo_bits) if fmt.lo_bits < 8 else tile_k // 4
+    hi = tile_k // (32 // fmt.hi_bits) if fmt.hi_bits else 0
+    sc = tile_k // fmt.gsize // (2 if scale_packed else 1)
+    return lo, hi, sc, (sc if fmt.has_bias else 0)
+
+
+def _bytes_pack(a: torch.Tensor) -> torch.Tensor:
+    """int8 [..., K, R] -> int32 words [..., K/4, R], element e of each word
+    in bits [8e, 8e+8) as a two's-complement byte."""
+    b = a.to(torch.int64) & 0xFF
+    K, R = b.shape[-2], b.shape[-1]
+    b = b.reshape(*b.shape[:-2], K // 4, 4, R)
+    w = b[..., 0, :] | (b[..., 1, :] << 8) | (b[..., 2, :] << 16) | (
+        b[..., 3, :] << 24)
+    return _as_int32_bits(w)
+
+
+@dataclass
+class QuantTensorC:
+    """A block-quantized matrix in the coalesced layout (see above).
+
+    `buf` is int32 [(L,) n_r*n_k*rows_tile, tile_r]; kp/rp are the padded
+    dims the tiling was built over. `layer(l)` is a view of one layer."""
+
+    fmt_name: str
+    k: int
+    r: int
+    kp: int
+    rp: int
+    tile_k: int
+    tile_r: int
+    scale_packed: bool
+    buf: torch.Tensor
+    splits: Optional[tuple] = None
+
+    @property
+    def fmt(self) -> QFormat:
+        return _BY_NAME[self.fmt_name][1]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.k, self.r)
+
+    @property
+    def k_padded(self) -> int:
+        return self.kp
+
+    @property
+    def r_padded(self) -> int:
+        return self.rp
+
+    @property
+    def n_k(self) -> int:
+        return self.kp // self.tile_k
+
+    @property
+    def seg_rows(self) -> tuple[int, int, int, int]:
+        return coalesced_seg_rows(self.fmt, self.tile_k, self.scale_packed)
+
+    @property
+    def device(self) -> torch.device:
+        return self.buf.device
+
+    def layer(self, l: int) -> "QuantTensorC":
+        """One layer of a stacked buffer: a view, no copy."""
+        return dataclasses.replace(self, buf=self.buf[l])
+
+
+def unpack_scales_qt(qt: QuantTensor) -> QuantTensor:
+    """Copy of `qt` with f16-packed scale/bias planes expanded to f32
+    (lossless): the layout coalescing falls back to where packed-scale
+    segments cannot hold whole 8-row groups (e.g. K=768)."""
+    if not qt.scale_packed:
+        return qt
+
+    def ex(p):
+        return None if p is None else expand_f16x2(p).contiguous()
+
+    return QuantTensor(qt.fmt_name, qt.k, qt.r, qt.lo, qt.hi, ex(qt.scale),
+                       ex(qt.bias), qt.splits)
+
+
+def pad_r_qt(qt: QuantTensor, mult: int) -> QuantTensor:
+    """Pad every plane's R axis with zeros up to a multiple of `mult`
+    (padded scales are 0, so padded columns dequantize to 0)."""
+    Rp = qt.r_padded
+    new = _round_up(Rp, mult)
+    if new == Rp:
+        return qt
+
+    def pad(p):
+        if p is None:
+            return None
+        out = torch.zeros((*p.shape[:-1], new), dtype=p.dtype, device=p.device)
+        out[..., :Rp] = p
+        return out
+
+    return QuantTensor(qt.fmt_name, qt.k, qt.r, pad(qt.lo), pad(qt.hi),
+                       pad(qt.scale), pad(qt.bias), qt.splits)
+
+
+def coalesce_qt(qt: QuantTensor, tile_k: int, tile_r: int) -> QuantTensorC:
+    """Re-tile a QuantTensor's planes (flat or stacked [L, ...]) into the
+    coalesced buffer, on the planes' device."""
+    fmt = qt.fmt
+    packed = qt.scale_packed
+    Kp, Rp = qt.k_padded, qt.r_padded
+    if Kp % tile_k or Rp % tile_r:
+        raise ValueError(f"tiles ({tile_k}, {tile_r}) do not divide "
+                         f"({Kp}, {Rp})")
+    n_k, n_r = Kp // tile_k, Rp // tile_r
+    segs = coalesced_seg_rows(fmt, tile_k, packed)
+    if any(s % 8 for s in segs if s):
+        raise ValueError(f"coalesce tile_k={tile_k} gives segment rows "
+                         f"{segs} for {fmt.name}: not whole 8-row groups")
+
+    def words(p, kind):
+        if kind == "lo" and fmt.lo_bits == 8:
+            return _bytes_pack(p)
+        return p.view(torch.int32) if p.dtype == torch.float32 else p
+
+    def arrange(p, seg):
+        # [..., n_k*seg, n_r*tile_r] -> [..., n_r, n_k, seg, tile_r]
+        p = p.reshape(*p.shape[:-2], n_k, seg, n_r, tile_r)
+        return p.movedim(-2, -4)
+
+    parts = [arrange(words(plane, kind), seg) for plane, kind, seg in (
+        (qt.lo, "lo", segs[0]), (qt.hi, "hi", segs[1]),
+        (qt.scale, "scale", segs[2]), (qt.bias, "bias", segs[3])) if seg]
+    buf = torch.cat(parts, dim=-2)
+    buf = buf.reshape(*buf.shape[:-4], n_r * n_k * sum(segs), tile_r)
+    return QuantTensorC(fmt.name, qt.k, qt.r, Kp, Rp, tile_k, tile_r, packed,
+                        buf.contiguous(), qt.splits)
+
+
+def coalesced_word_planes(qtc: QuantTensorC) -> list:
+    """The buffer's segments back in the plane arrangement, as the int32
+    words the buffer holds (lo, hi, scale, bias; None for an absent
+    segment): q8_0's lo stays byte-packed, f32 scales stay bits."""
+    n_k, n_r = qtc.kp // qtc.tile_k, qtc.rp // qtc.tile_r
+    segs = qtc.seg_rows
+    b = qtc.buf
+    lead = b.shape[:-2]
+    b = b.reshape(*lead, n_r, n_k, sum(segs), qtc.tile_r).movedim(-4, -2)
+    out, off = [], 0  # b: [..., n_k, rows_tile, n_r, tile_r]
+    for seg in segs:
+        if not seg:
+            out.append(None)
+            continue
+        out.append(b[..., off : off + seg, :, :].reshape(
+            *lead, n_k * seg, n_r * qtc.tile_r))
+        off += seg
+    return out
+
+
+def uncoalesce_qt(qtc: QuantTensorC) -> QuantTensor:
+    """Exact inverse of coalesce_qt, back to the plane layout."""
+    lo, hi, sc, bias = coalesced_word_planes(qtc)
+    if qtc.fmt.lo_bits == 8:
+        lo = unpack_plane(lo, 8, signed=True).to(torch.int8)
+    if not qtc.scale_packed:
+        sc = sc.view(torch.float32)
+        bias = None if bias is None else bias.view(torch.float32)
+    return QuantTensor(qtc.fmt_name, qtc.k, qtc.r, lo, hi, sc, bias,
+                       qtc.splits)
+
+
+def dequant_c(qtc: QuantTensorC, trim: bool = True) -> torch.Tensor:
+    """Plain dequantization of the coalesced layout: f32 [..., K, R],
+    bit-equal to the reference's `dequant_c_jnp` (the same integer and
+    f16->f32 steps on the same words)."""
+    return dequant(uncoalesce_qt(qtc), trim)
 
 
 # ---------------------------------------------------------------------------

@@ -1,49 +1,75 @@
 """Fused dequantize -> matmul: y = x @ W for quantized or dense weights.
 
-The counterpart of `llm_tpu/ops/qmatmul.py`. A quantized weight on a CUDA
+The counterpart of `llm_tpu/ops/qmatmul.py`. A quantized weight, as planes
+(`QuantTensor`) or as the coalesced buffer (`QuantTensorC`), on a CUDA
 tensor goes through the hand-written kernel `csrc/qmatmul.cu` (the port of
-the TPU kernels K1 and K3); on a CPU tensor it goes through
-`qmatmul_plain`, which is `x @ dequant(W)` in f32 like the reference's XLA
-fallback. The kernel rounds x and each dequantized weight to bf16 and
-accumulates in f32, as the TPU kernel does, so kernel and plain version
-agree to bf16 rounding. There is no fallback: a CUDA tensor that the
-kernel does not take raises.
+the TPU kernels K1 over planes and K3 over the coalesced buffer); on a CPU
+tensor it goes through `qmatmul_plain`, which is `x @ dequant(W)` in f32
+like the reference's XLA fallback. The kernel rounds x and each
+dequantized weight to bf16 and accumulates in f32, as the TPU kernel does,
+so kernel and plain version agree to bf16 rounding; over the coalesced
+buffer it sums the same products in the same order as over the planes, so
+K3 on `coalesce_qt(W)` is bit-equal to K1 on W. There is no fallback: a
+CUDA tensor that the kernel does not take raises.
+
+`coalesce_tiles` and `coalesce_auto` are the reference's tiling rules,
+copied so that the port's coalesced buffers equal the reference's.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
 from llm_tpu_torch import _build
-from llm_tpu_torch.ops.packing import FORMAT_IDS, QuantTensor, dequant
+from llm_tpu_torch.ops.packing import (
+    FORMAT_IDS,
+    QFormat,
+    QuantTensor,
+    QuantTensorC,
+    _round_up,
+    coalesce_qt,
+    coalesced_seg_rows,
+    dequant,
+    dequant_c,
+    pad_r_qt,
+    unpack_scales_qt,
+)
 
-LAUNCHES = 0  # kernel launches through qmatmul (plain calls do not count)
+LAUNCHES = 0  # kernel launches through qmatmul, either layout
+LAUNCHES_COALESCED = 0  # those over a coalesced buffer (K3)
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "qmatmul_launch": [_C, _C, _C, _P, _P, _P, _P, _P, _P, _P,
-                       _C, _C, _C, _C, _C, _C, _P],
+    "qmatmul_launch": [_C, _C, _C, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C,
+                       _C, _C, _P, _P, _C, _C, _C, _C, _C, _C, _P],
 }
-_THREADS = 128  # output columns per block (csrc/qmatmul.cu kThreads)
+_THREADS = 128  # output columns per block (csrc/qmatmul_body.cuh kThreads)
 _UNIT = 32  # K elements per dequant unit (kUnit)
 _CHUNK_UNITS = 8  # units of x staged per pass (kChunk / kUnit)
 
+QWeight = (QuantTensor, QuantTensorC)
 
-def qmatmul_plain(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
+
+def qmatmul_plain(x: torch.Tensor, w) -> torch.Tensor:
     """x [M, K] @ dequant(w) [K, R] -> [M, R] f32: the plain version of the
     kernel (what the reference's XLA fallback computes)."""
-    return x.to(torch.float32) @ dequant(w)
+    wd = dequant_c(w) if isinstance(w, QuantTensorC) else dequant(w)
+    return x.to(torch.float32) @ wd
 
 
-def _plan(w: QuantTensor, M: int, device) -> tuple[int, int, int]:
+def plan(w, M: int, device) -> tuple[int, int, int]:
     """(rows of x per thread, K splits, 32-element units per split): split
-    K only when the (column, row) blocks alone would leave SMs idle."""
+    K only when the (column, row) blocks alone would leave SMs idle. The
+    blocks are counted over R rounded to 128, not the padded width, so a
+    coalesced buffer padded wider splits K as its planes do and sums the
+    same products in the same order."""
     mt = 1 if M == 1 else 16
-    blocks = (w.r_padded // _THREADS) * math.ceil(M / mt)
+    blocks = math.ceil(w.r / _THREADS) * math.ceil(M / mt)
     n_units = w.k_padded // _UNIT
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     splits = 1
@@ -54,54 +80,119 @@ def _plan(w: QuantTensor, M: int, device) -> tuple[int, int, int]:
     return mt, math.ceil(n_units / ups), ups
 
 
-def qmatmul_cuda(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
-    """Launch csrc/qmatmul.cu: x [M, K] (any float) @ dequant(w) -> [M, R]
-    f32. w's planes are one layer (a view of stacked planes is fine)."""
-    global LAUNCHES
-    dev = x.device
-    if x.dim() != 2 or x.shape[1] != w.k:
-        raise ValueError(f"qmatmul: x {tuple(x.shape)} vs weight K={w.k}")
+def _expect(t, dtype, shape, dev, what: str) -> None:
+    if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+            or not t.is_contiguous()):
+        raise ValueError(
+            f"qmatmul: {what} must be a contiguous {dtype} tensor of shape "
+            f"{shape} on {dev}; got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device}")
+
+
+def weight_args(w, dev) -> tuple:
+    """The kernel's weight arguments for one layer of `w` (planes or a
+    coalesced buffer), after checking device, dtype, shape and contiguity:
+    lo, hi, scale, bias pointers, then tile_k, tile_r, n_k, rows_tile and
+    the lo, hi and scale rows of a k-tile (tile_r 0 for planes)."""
+    fmt = w.fmt
     Kp, Rp = w.k_padded, w.r_padded
-    planes = [p for p in w.planes() if p is not None]
-    for p in planes:
-        if p.device != dev or p.dim() != 2 or not p.is_contiguous():
-            raise ValueError("qmatmul: weight planes must be contiguous 2-D "
-                             f"tensors on {dev}")
     if Rp % _THREADS or Kp % _UNIT:
         raise ValueError(f"qmatmul: padded shape ({Kp}, {Rp}) not supported")
-    if w.fmt.name.endswith("_k") and w.scale_packed:
+    if fmt.name.endswith("_k") and w.scale_packed:
         raise ValueError("qmatmul: K-quant scales must be f32")
-    M = x.shape[0]
-    xb = torch.zeros((M, Kp), dtype=torch.bfloat16, device=dev)
-    xb[:, : w.k] = x
-    y = torch.empty((M, w.r), dtype=torch.float32, device=dev)
-    if M == 0:
-        return y
-    mt, splits, ups = _plan(w, M, dev)
-    part = (torch.empty((splits, M, Rp), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
-    lib = _build.load("qmatmul", _SIGNATURES)
+    if isinstance(w, QuantTensorC):
+        if w.tile_k % _UNIT or w.tile_r % _THREADS or Kp % w.tile_k or \
+                Rp % w.tile_r:
+            raise ValueError(f"qmatmul: coalesced tiles ({w.tile_k}, "
+                             f"{w.tile_r}) not supported over ({Kp}, {Rp})")
+        segs = w.seg_rows
+        rows = sum(segs)
+        _expect(w.buf, torch.int32, (Rp // w.tile_r * w.n_k * rows, w.tile_r),
+                dev, "the coalesced buffer")
+        starts = [sum(segs[:i]) for i in range(4)]
+        base = w.buf.data_ptr()
+        seg = [_P(base + o * w.tile_r * 4 if n else 0)
+               for o, n in zip(starts, segs)]
+        return (*seg, w.tile_k, w.tile_r, w.n_k, rows, segs[0], segs[1],
+                segs[2])
+    g, packed = fmt.gsize, w.scale_packed
+    if fmt.lo_bits == 8:
+        _expect(w.lo, torch.int8, (Kp, Rp), dev, "the lo plane")
+    else:
+        _expect(w.lo, torch.int32, (Kp * fmt.lo_bits // 32, Rp), dev,
+                "the lo plane")
+    if fmt.hi_bits:
+        _expect(w.hi, torch.int32, (Kp * fmt.hi_bits // 32, Rp), dev,
+                "the hi plane")
+    sdt, srows = (torch.int32, Kp // g // 2) if packed else \
+        (torch.float32, Kp // g)
+    _expect(w.scale, sdt, (srows, Rp), dev, "the scale plane")
+    if fmt.has_bias:
+        _expect(w.bias, sdt, (srows, Rp), dev, "the bias plane")
     ptr = _build.ptr
-    err = lib.qmatmul_launch(
-        FORMAT_IDS[w.fmt_name], int(w.scale_packed), mt, ptr(xb), ptr(w.lo),
-        ptr(w.hi), ptr(w.scale), ptr(w.bias), ptr(y), ptr(part), M, Kp, Rp,
-        w.r, splits, ups, _build.stream_ptr(dev),
-    )
-    _build.check(err, "qmatmul_launch")
+    return (ptr(w.lo), ptr(w.hi), ptr(w.scale), ptr(w.bias), 0, 0, 0, 0, 0,
+            0, 0)
+
+
+def _count(coalesced: bool) -> None:
+    global LAUNCHES, LAUNCHES_COALESCED
     LAUNCHES += 1
-    return y
+    LAUNCHES_COALESCED += coalesced
+
+
+def operands(x: torch.Tensor, w, x_dtype=torch.bfloat16) -> tuple:
+    """The buffers of a launch for x [M, K] (M >= 1, any float) over one
+    layer of `w`: x zero-padded to Kp in `x_dtype`, the output y [M, R]
+    f32, the plan at M (mt, splits, ups) and the split scratch
+    [splits, M, Rp] f32 (None when K is not split)."""
+    if x.dim() != 2 or x.shape[1] != w.k or x.shape[0] == 0:
+        raise ValueError(f"qmatmul: x {tuple(x.shape)} vs weight K={w.k}")
+    dev, M = x.device, x.shape[0]
+    xp = torch.zeros((M, w.k_padded), dtype=x_dtype, device=dev)
+    xp[:, : w.k] = x
+    y = torch.empty((M, w.r), dtype=torch.float32, device=dev)
+    mt, splits, ups = plan(w, M, dev)
+    part = (torch.empty((splits, M, w.r_padded), dtype=torch.float32,
+                        device=dev) if splits > 1 else None)
+    return xp, y, (mt, splits, ups), part
+
+
+def prepare(x: torch.Tensor, w) -> _build.Launch:
+    """Check x [M, K] (M >= 1, any float) and a one-layer weight (planes or
+    a coalesced buffer) on one CUDA device, allocate the output y [M, R]
+    f32 and the split scratch, and return the kernel launch (not yet run).
+    Each call of the result launches the kernel and returns y."""
+    dev = x.device
+    args = weight_args(w, dev)
+    xb, y, (mt, splits, ups), part = operands(x, w)
+    lib = _build.load("qmatmul", _SIGNATURES)
+    coalesced = isinstance(w, QuantTensorC)
+    return _build.Launch(
+        lib.qmatmul_launch,
+        (FORMAT_IDS[w.fmt_name], int(w.scale_packed), mt, _build.ptr(xb),
+         *args, _build.ptr(y), _build.ptr(part), x.shape[0], w.k_padded,
+         w.r_padded, w.r, splits, ups),
+        dev, "qmatmul_launch", lambda: _count(coalesced), y, (xb, part, w))
+
+
+def qmatmul_cuda(x: torch.Tensor, w) -> torch.Tensor:
+    """Launch csrc/qmatmul.cu: x [M, K] (any float) @ dequant(w) -> [M, R]
+    f32. w is one layer (a view of a stacked weight is fine)."""
+    if x.shape[0] == 0:
+        return torch.empty((0, w.r), dtype=torch.float32, device=x.device)
+    return prepare(x, w)()
 
 
 def qmatmul(x: torch.Tensor, w, layer=None) -> torch.Tensor:
-    """y = x @ W for dense ([K, R] tensor) or quantized (QuantTensor) W.
+    """y = x @ W for dense ([K, R] tensor) or quantized (QuantTensor or
+    QuantTensorC) W.
 
     x: [..., K] float; returns [..., R] float32. `layer` selects one layer
-    of layer-stacked weights (a view: the kernel reads the layer's planes
-    in place).
+    of layer-stacked weights (a view: the kernel reads the layer in place).
     """
     if layer is not None:
-        w = w.layer(layer) if isinstance(w, QuantTensor) else w[layer]
-    if isinstance(w, QuantTensor):
+        w = w.layer(layer) if isinstance(w, QWeight) else w[layer]
+    if isinstance(w, QWeight):
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
         y = qmatmul_cuda(x2, w) if x2.is_cuda else qmatmul_plain(x2, w)
@@ -124,3 +215,93 @@ def quant_rows_lookup(w, ids: torch.Tensor) -> torch.Tensor:
                           cols(w.hi), cols(w.scale), cols(w.bias))
         return dequant(sub).t()
     return w[:, ids].to(torch.float32).t()
+
+
+# ---------------------------------------------------------------------------
+# coalesced tiling (the reference's rules; the TPU's VMEM sub-slicing is
+# copied only because coalesce_tiles returns it)
+
+
+def _pick_tile(n: int, pref: int, step: int) -> int:
+    """Largest multiple of `step` that divides n and is <= pref (n itself
+    as fallback when n has no such divisor)."""
+    t = min(pref, n)
+    t = (t // step) * step
+    while t >= step:
+        if n % t == 0:
+            return t
+        t -= step
+    return n
+
+
+def _pick_sub_c(segs, tile_k: int, target: int) -> int:
+    """Sub-slice count: every non-empty segment's sliced row count a
+    multiple of 8, and tile_k divided evenly."""
+    if target <= 0 or tile_k <= target:
+        return 1
+    for n in range(tile_k // target, 1, -1):
+        if tile_k % n:
+            continue
+        if all(s % n == 0 and (s // n) % 8 == 0 for s in segs if s):
+            return n
+    return 1
+
+
+def _sub_target_c(tile_r: int) -> int:
+    """Default K elements per dequant sub-slice (~2M elements a slice)."""
+    return max(512, (2048 * 256) // max(tile_r, 1))
+
+
+def coalesce_tiles(fmt: QFormat, Kp: int, Rp: int, packed: bool,
+                   sub_target: Optional[int] = None) -> tuple[int, int, int]:
+    """(tile_k, tile_r, sub_slices) for coalescing a weight: whole K when a
+    bounded sub-slicing exists, else the largest legal tile_k <= 2048;
+    tile_r <= 512 dividing Rp. Raises ValueError when no tile_k is legal."""
+    tile_r = _pick_tile(Rp, 512, 128)
+    if sub_target is None:
+        sub_target = _sub_target_c(tile_r)
+
+    def legal(tk):
+        segs = coalesced_seg_rows(fmt, tk, packed)
+        return Kp % tk == 0 and all(s % 8 == 0 for s in segs if s)
+
+    if legal(Kp):
+        segs = coalesced_seg_rows(fmt, Kp, packed)
+        n = _pick_sub_c(segs, Kp, sub_target)
+        if Kp <= max(2048, sub_target) or (
+            n > 1 and Kp // n <= max(2048, sub_target)
+        ):
+            return Kp, tile_r, n
+    for tk in range(min(2048, Kp), 63, -64):
+        if legal(tk):
+            segs = coalesced_seg_rows(fmt, tk, packed)
+            return tk, tile_r, _pick_sub_c(segs, tk, sub_target)
+    raise ValueError(f"no legal coalesce tile_k for {fmt.name} Kp={Kp}")
+
+
+def coalesce_auto(qt: QuantTensor, min_k: int = 2048) -> Optional[QuantTensorC]:
+    """QuantTensorC for `qt` (flat or stacked) under the reference's
+    tiling, or None where the reference keeps planes: Kp below `min_k`, or
+    no legal tiling. R is padded to the widest of 512, 256, 128 that wastes
+    at most 5% of the bytes; f16-packed scales are tried first, then the
+    lossless f32 expansion."""
+    if qt.k_padded < min_k:
+        return None
+    for mult in (512, 256, 128):
+        if (_round_up(qt.r_padded, mult) - qt.r_padded) * 20 <= qt.r_padded:
+            qt = pad_r_qt(qt, mult)
+            break
+
+    def cands():
+        yield qt
+        if qt.scale_packed:
+            yield unpack_scales_qt(qt)
+
+    for cand in cands():
+        try:
+            tk, tr, _ = coalesce_tiles(cand.fmt, cand.k_padded,
+                                       cand.r_padded, cand.scale_packed)
+        except ValueError:
+            continue
+        return coalesce_qt(cand, tk, tr)
+    return None

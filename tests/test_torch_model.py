@@ -30,7 +30,7 @@ from llm_tpu.ggml.types import GgmlType
 from llm_tpu.loader import ModelParameters as JModelParameters
 from llm_tpu.loader import load as j_load
 from llm_tpu.ops.packing import QuantTensor as JQuantTensor
-from llm_tpu.ops.packing import QuantTensorC, uncoalesce_qt
+from llm_tpu.ops.packing import QuantTensorC
 from llm_tpu.samplers import build_sampler_chain as j_chain
 from llm_tpu.testing import make_tiny_file
 from llm_tpu_torch import loader as tloader
@@ -62,11 +62,17 @@ def models(request, tmp_path_factory):
 
 
 def _leaf_to_numpy(v):
-    """One leaf of the JAX params as the port's weight carry takes it."""
+    """One leaf of the JAX params as the port's weight carry takes it: a
+    coalesced weight as its buffer, planes as planes."""
     if v is None:
         return None
     if isinstance(v, QuantTensorC):
-        v = uncoalesce_qt(v)
+        return {
+            "fmt_name": v.fmt_name, "k": v.k, "r": v.r, "kp": v.kp,
+            "rp": v.rp, "tile_k": v.tile_k, "tile_r": v.tile_r,
+            "scale_packed": v.scale_packed, "splits": v.splits,
+            "buf": np.asarray(v.buf),
+        }
     if isinstance(v, JQuantTensor):
         return {
             "fmt_name": v.fmt_name, "k": v.k, "r": v.r, "splits": v.splits,
@@ -233,7 +239,11 @@ def test_port_imports_no_jax_and_no_reference_package():
             if rel.parts[0] == "llm_tpu_torch":
                 modules.append(".".join(rel.parts).removesuffix(".__init__"))
     assert {"llm_tpu_torch.ops.paged_attention", "llm_tpu_torch.paged",
-            "llm_tpu_torch.serve", "llm_tpu_torch.server"} <= set(modules)
+            "llm_tpu_torch.serve", "llm_tpu_torch.server",
+            "llm_tpu_torch.ops.qmatmul_probe", "llm_tpu_torch.probes",
+            "llm_tpu_torch.probes.common", "llm_tpu_torch.probes.coalesced",
+            "llm_tpu_torch.probes.kernel_decompose",
+            "llm_tpu_torch.probes.dequant_variants"} <= set(modules)
     # importing every module of the port loads neither package
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -166,12 +166,16 @@ def test_overlong_and_empty_prompts_retire(models):
 
 
 def test_cancel_pending_and_running(models):
+    """Seeded streams of the default sampler chain with EoT banned: neither
+    can retire before the cancels (an unseeded stream could sample EoT)."""
     engine = _engine(TORCH, models, "f32", max_streams=1, n_batch=8)
     texts = []
+    eot = [(0, float("-inf"))]
     a = engine.submit(tserve.GenerationRequest(
-        prompt=[2, 3], max_tokens=20,
+        prompt=[2, 3], max_tokens=20, sampler=t_chain(bias=eot), seed=25,
         on_token=lambda rid, t: texts.append((rid, t))))
-    b = engine.submit(tserve.GenerationRequest(prompt=[4, 5], max_tokens=20))
+    b = engine.submit(tserve.GenerationRequest(
+        prompt=[4, 5], max_tokens=20, sampler=t_chain(bias=eot), seed=26))
     engine.step()
     engine.step()
     assert engine.cancel(b) and engine.cancel(a)
