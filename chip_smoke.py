@@ -7,27 +7,38 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
-1. build:   nvcc compiles csrc/qmatmul.cu, csrc/paged_attention.cu
-            (which also serves the dense cache's attention) and
-            csrc/qmatmul_probe.cu for sm_90a, all at once, into
-            build/kernels/.
+1. build:   nvcc compiles csrc/qmatmul.cu (the tensor-core kernel of
+            csrc/qmatmul_tc.cuh), csrc/paged_attention.cu (which also
+            serves the dense cache's attention) and csrc/qmatmul_probe.cu
+            (the scalar kernel the probes decompose) for sm_90a, all at
+            once, into build/kernels/; beside them,
+            `llm_tpu_torch.probes.kernel_report` compiles its own copies
+            for the compiler's report (registers, shared memory, spills of
+            every kernel; SASS instructions a weight of the dequant and of
+            the q4_0 kernels' main loop).
 2. kernels: each kernel's wrapper runs on the card at the LLaMA-7B shapes
             of the main paths (qmatmul at M = 1, 8, 16, 64 and 512; dense
             attention at B = 1 and 8; paged attention at B = 4-64) and is
             held against its plain PyTorch version on the same inputs;
             times of kernel, plain version, one PyTorch library call, and
-            the card's bound. K3 (qmatmul over the coalesced buffer) is
-            held bit-equal to K1 on the same weights for all 10 formats and
-            at the 7B projections, and timed at M = 1-512; every probe
-            stage, mode and tiling is held against its plain version, at a
-            small shape and at the 7B shape its probe runs it.
+            the card's bound. qmatmul is also held for all 10 formats (both
+            scale kinds) at a small shape at M = 1, 4, 8, 16, 64 and 512.
+            K3 (qmatmul over the coalesced buffer) is held bit-equal to K1
+            on the same weights for all 10 formats and at the 7B
+            projections, and timed at M = 1-512. The A/B: the tensor-core
+            kernel against the scalar kernel it replaced, on the same 7B
+            weights (planes and coalesced) at each M, in turns old, new,
+            new, old. Every probe stage, mode and tiling is held against
+            its plain version, at a small shape and at the 7B shape its
+            probe runs it.
 3. e2e:     a full-width random LLaMA-7B Q4_0 checkpoint (seed 0, ~3.9 GB,
             written under build/smoke/ and removed afterwards) is loaded
             on the card, and `InferenceSession.infer` answers three greedy
             prompts (16, 64 and 1100 tokens, 32 new tokens each) with the
-            launch counters set to 0 just before and read just after. The
-            first prefill and decode logits are then held against the
-            port's plain path on the same card.
+            launch counters set to 0 just before and read just after
+            (prompt chunks of 512 rows on qmatmul's wide path, decode steps
+            on its swapped path). The first prefill and decode logits are
+            then held against the port's plain path on the same card.
    coalesced: the model's layer weights coalesced on the card
             (`coalesce_layer_weights`) give the plane run's 16 greedy
             tokens, with 128 coalesced qmatmul launches a forward (counters
@@ -39,7 +50,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             hit); a dense engine (8 streams, bf16 cache) runs 8 requests
             directly. The launch counters are set to 0 just before each
             engine's run and read just after it: per forward the engine
-            ran, qmatmul must have launched 129 times, and per decode-shaped
+            ran, qmatmul must have launched 129 times (on its wide path for
+            forwards of more than 32 rows), and per decode-shaped
             (T=1) forward the engine's attention kernel 32 times (paged:
             also 32 per decode step the engine counted), the other attention
             kernel never. Then the first decode logits of 4
@@ -102,6 +114,7 @@ N_BATCH = 512
 #   acc); a stream with n_past = 0 gives exactly m = -1e30, l = 0, acc = 0.
 QM_TOL_PLAIN = 2.0**-7
 QM_TOL_BF16 = 1e-5
+SMALL_MS = (1, 4, 8, 16, 64, 512)  # M of the small per-format checks
 ATTN_TOL = 1e-5
 SERVE8_N_PAST = (0, 17, 100, 199, 256, 301, 333, 512)
 
@@ -251,18 +264,17 @@ def qmatmul_phase(dev, timer) -> list[dict]:
 
     rng = np.random.default_rng(1)
     recs = []
-    # every format the kernel instantiates, at a small shape
+    # every format the kernel instantiates, at a small shape, on every
+    # consumer path (M <= 8, <= 32: swapped; larger: wide)
     for t in packing.FORMATS:
         w = random_weight(t, 512, 256, rng, dev)
-        recs.append(check_qmatmul("small", w, 4, rng, dev, timer, False))
+        variants = [w]
         if w.scale_packed:  # the f32-scale instantiation of the format
-            wf = packing.QuantTensor(
-                w.fmt_name, w.k, w.r, w.lo, w.hi,
-                packing.expand_f16x2(w.scale).contiguous(),
-                None if w.bias is None
-                else packing.expand_f16x2(w.bias).contiguous())
-            recs.append(check_qmatmul("small", wf, 4, rng, dev, timer,
-                                      False))
+            variants.append(packing.unpack_scales_qt(w))
+        for v in variants:
+            for M in SMALL_MS:
+                recs.append(check_qmatmul("small", v, M, rng, dev, timer,
+                                          False))
     # the main path's shapes at 7B
     for name, K, R in SHAPES_7B:
         w = random_weight(GgmlType.Q4_0, K, R, rng, dev)
@@ -293,11 +305,12 @@ def k3_bit_equal(name, planes, coal, M, rng, dev, layer=None) -> dict:
 
 
 def coalesced_phase(dev, timer) -> tuple[list, list]:
-    """K3: bit-equal to K1 for every format at a small shape (flat and one
-    layer of a stack, f16-packed and f32 scales) and for Q4_0 at each 7B
-    projection at M = 1, 8 and n_batch (the coalesced `infer` run's decode
-    and its prompt chunk, padded to n_batch); then held against its plain
-    version and timed at M = 1, 8, 16, 64 and n_batch, as K1 is."""
+    """K3: bit-equal to K1 for every format at a small shape (flat at M =
+    1, 4, 16 and 64, and one layer of a stack; f16-packed and f32 scales)
+    and for Q4_0 at each 7B projection at M = 1, 8, 16, 64 and n_batch (the
+    coalesced `infer` run's decode and its prompt chunk, padded to n_batch;
+    the serving steps); then held against its plain version and timed at
+    M = 1, 8, 16, 64 and n_batch, as K1 is."""
     from llm_tpu_torch.ggml.types import GgmlType
     from llm_tpu_torch.ops import packing
     from llm_tpu_torch.ops import qmatmul as qm
@@ -313,7 +326,7 @@ def coalesced_phase(dev, timer) -> tuple[list, list]:
             tk, tr, _ = qm.coalesce_tiles(w.fmt, w.k_padded, w.r_padded,
                                           w.scale_packed)
             c = packing.coalesce_qt(w, tk, tr)
-            for M in (1, 4):
+            for M in (1, 4, 16, 64):
                 eq.append(k3_bit_equal("small", w, c, M, rng, dev))
             if i == 0:
                 st = packing.QuantTensor(w.fmt_name, w.k, w.r, *(
@@ -328,7 +341,7 @@ def coalesced_phase(dev, timer) -> tuple[list, list]:
         c = qm.coalesce_auto(w)
         if c is None:
             fail(f"{name}: the 7B weight did not coalesce")
-        for M in (1, 8, N_BATCH):
+        for M in (1, 8, 16, 64, N_BATCH):
             eq.append(k3_bit_equal(name, w, c, M, rng, dev))
         if name != "lm_head":  # the head stays planes on the main path
             for M in (1, 8, 16, 64, N_BATCH):
@@ -336,6 +349,48 @@ def coalesced_phase(dev, timer) -> tuple[list, list]:
         del w, c
     torch.cuda.empty_cache()
     return eq, recs
+
+
+AB_MS = (1, 8, 16, 64, N_BATCH)
+
+
+def ab_phase(dev, timer) -> list[dict]:
+    """The tensor-core kernel against the scalar kernel it replaced
+    (`qmatmul_probe.prepare_full`: one thread a column, f32 FMAs), in one
+    call on one card. Prepared launches (x already staged for each) at each
+    7B projection and M, over Q4_0 planes (K1) and `coalesce_auto`'s buffer
+    of the same weight (K3), timed in turns old, new, new, old; both held
+    against the plain version."""
+    from llm_tpu_torch.ggml.types import GgmlType
+    from llm_tpu_torch.ops import qmatmul as qm
+    from llm_tpu_torch.ops import qmatmul_probe as qp
+
+    rng = np.random.default_rng(12)
+    recs = []
+    for name, K, R in SHAPES_7B:
+        w = random_weight(GgmlType.Q4_0, K, R, rng, dev)
+        for layout, wt in (("planes", w), ("coalesced", qm.coalesce_auto(w))):
+            for M in AB_MS:
+                x = torch.from_numpy(rng.standard_normal((M, K)).astype(
+                    np.float32)).to(dev)
+                old, new = qp.prepare_full(x, wt), qm.prepare(x, wt)
+                held_old = qmatmul_held(old(), x, wt)
+                held_new = qmatmul_held(new(), x, wt)
+                t = [timer.ms(f) for f in (old, new, new, old)]
+                recs.append({
+                    "case": name, "layout": layout, "M": M, "K": K, "R": R,
+                    "path": qm.plan(w, M).path, "old_ms": [t[0], t[3]],
+                    "new_ms": [t[1], t[2]],
+                    "speedup": (t[0] + t[3]) / (t[1] + t[2]),
+                    "ok": held_old["ok"] and held_new["ok"],
+                    "max_abs_err": held_new["max_abs_err"],
+                    "max_abs_err_bf16_plain":
+                        held_new["max_abs_err_bf16_plain"],
+                    "old_max_abs_err_bf16_plain":
+                        held_old["max_abs_err_bf16_plain"]})
+        del w
+    torch.cuda.empty_cache()
+    return recs
 
 
 def check_attention(name, kv, W, n_past, hkv, rep, alibi, rng, dev, timer,
@@ -799,7 +854,9 @@ def e2e_phase(dev):
     # decode-shaped and reads the cache through the attention kernel too
     steps = sum(math.ceil(n / N_BATCH) + N_PREDICT for n in PROMPT_LENS)
     decode_steps = sum(N_PREDICT + (n % N_BATCH == 1) for n in PROMPT_LENS)
-    want = {"qmatmul": (4 * N_LAYER + 1) * steps,
+    per = 4 * N_LAYER + 1  # every chunk but a 1-token one runs 512 rows
+    want = {"qmatmul": per * steps, "qmatmul_swapped": per * decode_steps,
+            "qmatmul_wide": per * (steps - decode_steps),
             "dense_attention": N_LAYER * decode_steps, "paged_attention": 0}
     out["launches_expected"] = want
     if launches != want:
@@ -858,7 +915,10 @@ def coalesced_infer_phase(model, dev) -> dict:
     tokens = run.pop("new_ids")
     out["run"] = run
     forwards = math.ceil(len(prompt) / N_BATCH) + COALESCED_NEW
-    want = {"qmatmul": (4 * N_LAYER + 1) * forwards,
+    per = 4 * N_LAYER + 1  # the prompt: one chunk of 512 rows
+    want = {"qmatmul": per * forwards,
+            "qmatmul_swapped": per * COALESCED_NEW,
+            "qmatmul_wide": per * (forwards - COALESCED_NEW),
             "dense_attention": N_LAYER * COALESCED_NEW, "paged_attention": 0,
             "qmatmul_coalesced": 4 * N_LAYER * forwards}
     out.update(tokens=tokens, plane_tokens=plane_tokens, launches=launches,
@@ -961,13 +1021,17 @@ def step_summary(log, streams: int) -> dict:
 @contextlib.contextmanager
 def counted_forwards(module, name: str):
     """Count the forwards an engine runs through `module.<name>` (ids
-    [B, T]): all of them, and the decode-shaped ones (T = 1)."""
+    [B, T]): all of them, the decode-shaped ones (T = 1), and those whose
+    B * T rows take qmatmul's wide path."""
+    from llm_tpu_torch.ops import qmatmul as qm
+
     inner = getattr(module, name)
-    counts = {"forwards": 0, "t1_forwards": 0}
+    counts = {"forwards": 0, "t1_forwards": 0, "wide_forwards": 0}
 
     def wrapped(spec, params, ids, *a, **k):
         counts["forwards"] += 1
         counts["t1_forwards"] += ids.shape[-1] == 1
+        counts["wide_forwards"] += ids.numel() > qm.SWAPPED_MAX_M
         return inner(spec, params, ids, *a, **k)
 
     setattr(module, name, wrapped)
@@ -985,6 +1049,7 @@ def zero_launches() -> None:
 
     qm.LAUNCHES = da.LAUNCHES = pa.LAUNCHES = 0
     qm.LAUNCHES_COALESCED = qp.LAUNCHES = 0
+    qm.LAUNCHES_SWAPPED = qm.LAUNCHES_WIDE = 0
 
 
 def read_launches() -> dict:
@@ -992,17 +1057,24 @@ def read_launches() -> dict:
     from llm_tpu_torch.ops import paged_attention as pa
     from llm_tpu_torch.ops import qmatmul as qm
 
-    return {"qmatmul": qm.LAUNCHES, "dense_attention": da.LAUNCHES,
-            "paged_attention": pa.LAUNCHES}
+    return {"qmatmul": qm.LAUNCHES, "qmatmul_swapped": qm.LAUNCHES_SWAPPED,
+            "qmatmul_wide": qm.LAUNCHES_WIDE,
+            "dense_attention": da.LAUNCHES, "paged_attention": pa.LAUNCHES}
 
 
 def check_engine_launches(name, launches, counts, attention) -> dict:
     """Exact launch counts of one engine run: 129 qmatmul launches (4
-    projections x 32 layers + lm_head) per forward, 32 launches of the
-    engine's `attention` kernel per decode-shaped forward (the T=1 ones;
-    longer prefill chunks take its plain page pass or the torch prefill
-    attention), and none of the other attention kernel."""
-    want = {"qmatmul": (4 * N_LAYER + 1) * counts["forwards"],
+    projections x 32 layers + lm_head) per forward, on the wide path for
+    the forwards of more than 32 rows and on the swapped path for the rest,
+    32 launches of the engine's `attention` kernel per decode-shaped
+    forward (the T=1 ones; longer prefill chunks take its plain page pass
+    or the torch prefill attention), and none of the other attention
+    kernel."""
+    per = 4 * N_LAYER + 1
+    want = {"qmatmul": per * counts["forwards"],
+            "qmatmul_swapped": per * (counts["forwards"]
+                                      - counts["wide_forwards"]),
+            "qmatmul_wide": per * counts["wide_forwards"],
             "dense_attention": 0, "paged_attention": 0}
     want[attention] = N_LAYER * counts["t1_forwards"]
     if launches != want or not counts["t1_forwards"]:
@@ -1172,7 +1244,8 @@ def serve_phase(model, dev) -> dict:
             srv.warmup()  # loads the libraries; clears the server's metrics
             log = record_steps(engine)
             zero_launches()
-            counts.update(forwards=0, t1_forwards=0)  # not the warm-up's
+            # not the warm-up's
+            counts.update(forwards=0, t1_forwards=0, wide_forwards=0)
             dispatches0 = engine.decode_dispatches
             out.update(http_traffic(srv, log, rng, greedy))
         finally:
@@ -1541,8 +1614,32 @@ def probe_entries(probes, checks, dev, timer) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
+def step_by_m(recs, ab, layout: str) -> dict:
+    """Per M, times of one 7B step's launches (qkv, wo, gate_up, down x 32
+    layers, lm_head once where `recs` has it): the call's ms, bound, plain
+    and torch.matmul ms from `recs`, and the A/B's prepared-launch ms of the
+    new and the scalar kernel (each the mean of its two turns)."""
+    per = {"qkv": N_LAYER, "wo": N_LAYER, "gate_up": N_LAYER,
+           "down": N_LAYER, "lm_head": 1}
+    out = {}
+    for M in AB_MS:
+        rs = [r for r in recs if r["M"] == M and r["case"] in per]
+        cases = {r["case"] for r in rs}
+        abr = [r for r in ab if r["M"] == M and r["layout"] == layout
+               and r["case"] in cases]
+        row = {k: sum(r[k] * per[r["case"]] for r in rs)
+               for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+        row["ab_new_ms"] = sum(np.mean(r["new_ms"]) * per[r["case"]]
+                               for r in abr)
+        row["ab_old_ms"] = sum(np.mean(r["old_ms"]) * per[r["case"]]
+                               for r in abr)
+        row["launches"] = sum(per[c] for c in cases)
+        out[M] = row
+    return out
+
+
 def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
-                   cinf) -> list[dict]:
+                   cinf, ab) -> list[dict]:
     """One entry per kernel: times summed over the launches of one decode
     step at 7B (qmatmul: the 4 projections x 32 layers + lm_head at M=1;
     dense_attention: 32 layers at W=512, bf16 cache, full window;
@@ -1576,6 +1673,7 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
     entries.append({
         "name": "qmatmul_coalesced", "route": "cuda",
         "source": "llm_tpu_torch/csrc/qmatmul.cu",
+        "source_also": ["llm_tpu_torch/csrc/qmatmul_tc.cuh"],
         "replaces": "llm_tpu/ops/qmatmul.py:436",
         "replaces_also": ["llm_tpu/ops/qmatmul.py:475",
                           "llm_tpu/ops/qmatmul.py:268"],
@@ -1592,15 +1690,18 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
         "per": "one 7B decode token's coalesced launches: 128 at M=1 "
                "(lm_head stays planes)",
         "tolerance": "|y - plain| <= 2^-7 (|x| @ |W|); bit-equal to K1",
+        "by_M": step_by_m(k3recs, ab, "coalesced"),
     })
     for name, recs, all_recs, w, path, rep, extra in (
         ("qmatmul", dec, qrecs, qw, "infer", "llm_tpu/ops/qmatmul.py:560",
          {"source": "llm_tpu_torch/csrc/qmatmul.cu",
+          "source_also": ["llm_tpu_torch/csrc/qmatmul_tc.cuh"],
           "replaces_also": ["llm_tpu/ops/qmatmul.py:651",
                             "llm_tpu/ops/qmatmul.py:436",
                             "llm_tpu/ops/qmatmul.py:475"],
           "per": "one 7B decode token: 129 launches at M=1",
-          "tolerance": "|y - plain| <= 2^-7 (|x| @ |W|)"}),
+          "tolerance": "|y - plain| <= 2^-7 (|x| @ |W|)",
+          "by_M": step_by_m(qrecs, ab, "planes")}),
         ("dense_attention", attn, arecs, per_layer, "infer",
          "llm_tpu/ops/dense_attention.py:195",
          {"source": "llm_tpu_torch/csrc/paged_attention.cu",
@@ -1627,6 +1728,12 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
             else "operations",
             "library_ms": total("library_ms", recs, w), **extra,
         })
+    # qmatmul's launches by consumer path, in each path's own run
+    entries[1]["launches_by_consumer_path"] = {
+        name: {"swapped": ls["qmatmul_swapped"], "wide": ls["qmatmul_wide"]}
+        for name, ls in (("infer", e2e["launches"]),
+                         ("serve_paged", serve["paged_launches"]),
+                         ("serve_dense", serve["dense_launches"]))}
     return entries
 
 
@@ -1651,9 +1758,26 @@ def main() -> None:
                "cuda": torch.version.cuda}
 
     t_build = time.monotonic()
-    built = _build.build(["qmatmul", "paged_attention", "qmatmul_probe"])
+    # the compiler's report (registers, spills, SASS a weight), built
+    # beside the kernels and read before any timing, so that its compiles
+    # take no host time from the phases
+    report = subprocess.Popen(
+        [sys.executable, "-m", "llm_tpu_torch.probes.kernel_report"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        built = _build.build(["qmatmul", "paged_attention", "qmatmul_probe"])
+    except BaseException:
+        report.kill()
+        report.wait()
+        raise
     emit({"build": {"nvcc_s": built}})
     results["build"] = built
+    rep_out, rep_err = report.communicate()
+    if report.returncode != 0:
+        fail(f"kernel_report: {rep_err[-2000:]}")
+    results["kernel_report"] = json.loads(rep_out.strip().splitlines()[-1])
+    emit({k: results["kernel_report"][k]
+          for k in ("dequant_sass", "main_loop_sass")})
 
     phase_s = results["phase_s"] = {}
     clock = [t_build]
@@ -1669,12 +1793,16 @@ def main() -> None:
     lap("qmatmul")
     k3eq, k3recs = coalesced_phase(dev, timer)
     lap("qmatmul_coalesced")
+    ab = ab_phase(dev, timer)
+    results["qmatmul_ab"] = ab
+    emit({"qmatmul_ab": ab})
+    lap("qmatmul_ab")
     arecs = attention_phase(dev, timer)
     precs = paged_phase(dev, timer)
     lap("attention")
     checks = probe_checks(dev) + probe_checks_7b(dev)
     lap("probe_checks")
-    cases = qrecs + k3eq + k3recs + arecs + precs + checks
+    cases = qrecs + k3eq + k3recs + ab + arecs + precs + checks
     results["kernel_cases"] = cases
     emit({"kernel_cases": cases})
     bad = [r for r in cases if not r["ok"]]
@@ -1704,7 +1832,7 @@ def main() -> None:
     lap("probes")
 
     kernels = kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
-                             cinf)
+                             cinf, ab)
     kernels += probe_entries(probes, checks, dev, timer)
     del timer
     lap("kernel_entries")

@@ -1,7 +1,8 @@
-// The fused dequantize -> matmul kernel, shared by csrc/qmatmul.cu (the
-// production kernel, STAGE FULL, MODE BASE) and csrc/qmatmul_probe.cu (the
-// probe variants), so that a probe measures the production kernel's own
-// loads, grid and arithmetic.
+// The scalar fused dequantize -> matmul kernel (f32 FMAs, one thread a
+// column), the body of csrc/qmatmul_probe.cu only. It is no longer the
+// production kernel (that is csrc/qmatmul_tc.cuh, on the tensor cores):
+// the probes P2 and P3 keep decomposing the design they were written for,
+// and its FULL stage is the old side of chip_smoke.py's A/B.
 //
 //   y[M, R] f32 = bf16(x[M, Kp]) . bf16(dequant(W))     (f32 accumulation)
 //   dequant(W)[k, r] = (q[k, r] - zero) * scale[k/g, r] (+ bias[k/g, r])
@@ -46,14 +47,14 @@ constexpr int kThreads = 128;  // output columns per block
 constexpr int kChunk = 256;    // K elements of x staged per pass
 constexpr int kUnit = 32;      // K elements dequantized at once
 
-// How far a launch runs. FULL is the production kernel; the others stop
+// How far a launch runs. FULL is the whole kernel; the others stop
 // after a stage and leave one value a column (STREAM, UNPACK: a wrapping
 // uint32 sum of what they read; DEQUANT: the f32 sum of the weights), so
 // that every load reaches a store and none is dropped by the compiler.
 // They read no x.
 enum Stage : int { FULL = 0, STREAM = 1, UNPACK = 2, DEQUANT = 3 };
 
-// The dequant arithmetic of a FULL launch. BASE is the production one.
+// The dequant arithmetic of a FULL launch. BASE is the reference's.
 //   BF16:     w = bf16(bf16(q - zero) * bf16(scale))
 //   F32DOT:   w = (q - zero) * scale in f32, x not rounded either
 //   GHOIST:   per group, sum x * (q - zero) in f32, then one FMA by scale

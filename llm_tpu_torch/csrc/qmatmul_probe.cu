@@ -1,6 +1,11 @@
-// Probe variants of the qmatmul kernel (qmatmul_body.cuh), for the port's
-// chip probes (llm_tpu_torch/probes/):
+// Probe variants of the scalar qmatmul kernel (qmatmul_body.cuh: one thread
+// a column, scalar f32 FMAs), for the port's chip probes
+// (llm_tpu_torch/probes/). The production kernel is now qmatmul_tc.cuh;
+// these keep decomposing the design they were written for:
 //
+// - qmatmul_full_launch: that kernel whole (FULL, BASE) over planes or a
+//   coalesced buffer, for all 10 formats: the scalar K1 and K3, P2's `full`
+//   stage and the old side of chip_smoke.py's A/B against the new kernel.
 // - qmatmul_stage_launch: the kernel cut after a stage (STREAM, UNPACK or
 //   DEQUANT), over planes or a coalesced buffer, for q4_0, q8_0 (f16-packed
 //   scales) and q6_k. Replaces the stage kernels of
@@ -13,10 +18,11 @@
 //   scripts/probe_dequant_variants.py (make_call).
 //
 // What bounds them on the H100: the stages read the weight's packed bytes
-// and nothing else (3.35 TB/s); the modes are the production kernel's loop
-// with other arithmetic, so the same bounds as the production kernel.
+// and nothing else (3.35 TB/s); the modes are the scalar kernel's loop with
+// other arithmetic, so the same bounds as that kernel.
 
 #include "qmatmul_body.cuh"
+#include "qmatmul_formats.cuh"
 
 namespace {
 
@@ -90,12 +96,42 @@ cudaError_t stage_layout(bool coal, int stage, const qm::Weight& wt,
 
 }  // namespace
 
+// The scalar kernel whole (formerly the production entry point). fmt:
+// position in llm_tpu_torch.ops.packing.FORMATS; scale_packed: two f16
+// scales per word; mt: rows of x per thread (1 or 16); x bf16 [M, Kp]. lo/hi/scale/bias are
+// the planes, or with tile_r > 0 the segments of a coalesced buffer. With
+// splits > 1, `part` is scratch [splits, M, Rp] f32 and a second kernel
+// writes y. Returns cudaGetLastError().
+extern "C" int qmatmul_full_launch(int fmt, int scale_packed, int mt,
+                                   const void* x, const void* lo,
+                                   const void* hi, const void* scale,
+                                   const void* bias, int tile_k, int tile_r,
+                                   int n_k, int rows_tile, int lo_rows,
+                                   int hi_rows, int sc_rows, void* y,
+                                   void* part, int M, int Kp, int Rp, int R,
+                                   int splits, int units_per_split,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const qm::Weight wt =
+      qm::make_weight(lo, hi, scale, bias, Rp, tile_k, tile_r, n_k, rows_tile,
+                      lo_rows, hi_rows, sc_rows);
+  return static_cast<int>(with_format<qm::Fmt>(fmt, scale_packed != 0,
+                                               [&](auto f) {
+    using F = decltype(f);
+    if (tile_r > 0)
+      return qm::launch_full_mt<F, true, qm::BASE, __nv_bfloat16>(
+          mt, x, wt, y, part, M, Kp, R, splits, units_per_split, s);
+    return qm::launch_full_mt<F, false, qm::BASE, __nv_bfloat16>(
+        mt, x, wt, y, part, M, Kp, R, splits, units_per_split, s);
+  }));
+}
+
 // stage: qm::Stage (STREAM, UNPACK, DEQUANT). fmt: the FORMATS position of
 // q4_0 (0) or q8_0 (4), both with f16-packed scales, or q6_k (9). The
-// weight arguments are qmatmul_launch's. part: scratch [splits, mtiles, Rp]
-// of 4-byte values; out: [Rp] (uint32 bits for STREAM and UNPACK, f32 for
-// DEQUANT). mtiles, splits and units_per_split are those of the production
-// launch at the same M. Returns cudaGetLastError().
+// weight arguments are qmatmul_full_launch's. part: scratch [splits,
+// mtiles, Rp] of 4-byte values; out: [Rp] (uint32 bits for STREAM and
+// UNPACK, f32 for DEQUANT). mtiles, splits and units_per_split are those of
+// qmatmul_full_launch at the same M. Returns cudaGetLastError().
 extern "C" int qmatmul_stage_launch(int stage, int fmt, int scale_packed,
                                     const void* lo, const void* hi,
                                     const void* scale, const void* bias,
@@ -124,7 +160,7 @@ extern "C" int qmatmul_stage_launch(int stage, int fmt, int scale_packed,
 
 // mode: qm::Mode. A coalesced q4_0 buffer with f16-packed scales (tile_r >
 // 0); x is bf16 [M, Kp], or f32 for F32DOT. The other arguments are
-// qmatmul_launch's. Returns cudaGetLastError().
+// qmatmul_full_launch's. Returns cudaGetLastError().
 extern "C" int qmatmul_mode_launch(int mode, int mt, const void* x,
                                    const void* lo, const void* scale,
                                    int tile_k, int tile_r, int n_k,

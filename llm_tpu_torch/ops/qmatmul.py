@@ -3,14 +3,20 @@
 The counterpart of `llm_tpu/ops/qmatmul.py`. A quantized weight, as planes
 (`QuantTensor`) or as the coalesced buffer (`QuantTensorC`), on a CUDA
 tensor goes through the hand-written kernel `csrc/qmatmul.cu` (the port of
-the TPU kernels K1 over planes and K3 over the coalesced buffer); on a CPU
-tensor it goes through `qmatmul_plain`, which is `x @ dequant(W)` in f32
-like the reference's XLA fallback. The kernel rounds x and each
-dequantized weight to bf16 and accumulates in f32, as the TPU kernel does,
-so kernel and plain version agree to bf16 rounding; over the coalesced
-buffer it sums the same products in the same order as over the planes, so
-K3 on `coalesce_qt(W)` is bit-equal to K1 on W. There is no fallback: a
-CUDA tensor that the kernel does not take raises.
+the TPU kernels K1 over planes and K3 over the coalesced buffer, on the
+tensor cores: `csrc/qmatmul_tc.cuh`); on a CPU tensor it goes through
+`qmatmul_plain`, which is `x @ dequant(W)` in f32 like the reference's XLA
+fallback. The kernel rounds x and each dequantized weight to bf16 and
+accumulates in f32, as the TPU kernel does, so kernel and plain version
+agree to bf16 rounding; over the coalesced buffer it sums the same
+products in the same order as over the planes, so K3 on `coalesce_qt(W)`
+is bit-equal to K1 on W. There is no fallback: a CUDA tensor that the
+kernel does not take raises.
+
+`plan` picks the kernel's consumer path from M: swapped (M <= 32: the
+weight tile is the mma's A side, 8 or 16 tokens its B side, x read as f32
+where it is f32 already) or wide (x, cast to bf16, the A side, 128 tokens
+a block), and splits K where that shortens the launch.
 
 `coalesce_tiles` and `coalesce_auto` are the reference's tiling rules,
 copied so that the port's coalesced buffers equal the reference's.
@@ -20,7 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -41,18 +47,43 @@ from llm_tpu_torch.ops.packing import (
 
 LAUNCHES = 0  # kernel launches through qmatmul, either layout
 LAUNCHES_COALESCED = 0  # those over a coalesced buffer (K3)
+LAUNCHES_SWAPPED = 0  # those on the swapped path (M <= 32, x f32)
+LAUNCHES_WIDE = 0  # those on the wide path (M > 32, x bf16)
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "qmatmul_launch": [_C, _C, _C, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C,
-                       _C, _C, _P, _P, _C, _C, _C, _C, _C, _C, _P],
+    "qmatmul_launch": [_C, _C, _C, _P, _C, _P, _P, _P, _P, _C, _C, _C, _C,
+                       _C, _C, _C, _P, _P, _C, _C, _C, _C, _C, _C, _C, _P],
 }
-_THREADS = 128  # output columns per block (csrc/qmatmul_body.cuh kThreads)
-_UNIT = 32  # K elements per dequant unit (kUnit)
-_CHUNK_UNITS = 8  # units of x staged per pass (kChunk / kUnit)
+BN = 128  # weight columns a block (csrc/qmatmul_tc.cuh BN)
+BK = 64  # k a pipeline stage (BK)
+# tc::Path, and tokens a block
+PATHS = {"swapped8": 0, "swapped16": 1, "wide": 2}
+BM = {"swapped8": 8, "swapped16": 16, "wide": 128}
+STAGES = {"swapped8": 4, "swapped16": 4, "wide": 3}  # the ring's stages
+SWAPPED_MAX_M = 32  # above: the wide path
+# blocks an SM holds at most, by the kernels' __launch_bounds__ (registers)
+REG_BLOCKS = {"swapped8": 4, "swapped16": 4, "wide": 2}
+SM_SMEM = 228 * 1024  # shared memory of an H100 SM; a block reserves 1 KB
+# a block's pipeline fill, in stage times: what a plan charges a block on
+# top of its tiles
+FILL_TILES = 2
 
 QWeight = (QuantTensor, QuantTensorC)
+
+
+class Plan(NamedTuple):
+    """A launch's tiling: the consumer path, tokens a block (`bm`), blocks
+    over the tokens (`mtiles`) and over R rounded to BN (`rblocks`), K
+    splits and 64-k tiles a split."""
+
+    path: str
+    bm: int
+    mtiles: int
+    rblocks: int
+    splits: int
+    tiles_per_split: int
 
 
 def qmatmul_plain(x: torch.Tensor, w) -> torch.Tensor:
@@ -62,22 +93,60 @@ def qmatmul_plain(x: torch.Tensor, w) -> torch.Tensor:
     return x.to(torch.float32) @ wd
 
 
-def plan(w, M: int, device) -> tuple[int, int, int]:
-    """(rows of x per thread, K splits, 32-element units per split): split
-    K only when the (column, row) blocks alone would leave SMs idle. The
-    blocks are counted over R rounded to 128, not the padded width, so a
-    coalesced buffer padded wider splits K as its planes do and sums the
-    same products in the same order."""
-    mt = 1 if M == 1 else 16
-    blocks = math.ceil(w.r / _THREADS) * math.ceil(M / mt)
-    n_units = w.k_padded // _UNIT
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = 1
-    if blocks < 2 * sms:
-        splits = min(math.ceil(4 * sms / blocks), n_units)
-    ups = math.ceil(n_units / splits)
-    ups = math.ceil(ups / _CHUNK_UNITS) * _CHUNK_UNITS  # whole x chunks
-    return mt, math.ceil(n_units / ups), ups
+def smem_bytes(fmt: QFormat, path: str) -> int:
+    """Dynamic shared memory of a block (csrc/qmatmul_tc.cuh Swapped/Wide
+    SMEM), counting scale rows as f32 so that a format's packed and f32
+    instantiations plan alike: a ring of packed weight tiles and x tiles,
+    and the bf16 weight tile (two on the wide path; with x's bf16 B
+    fragments on the swapped one)."""
+    g = fmt.gsize
+    rows_bytes = BN * 4
+    tile = BK * BN * (fmt.lo_bits + fmt.hi_bits) // 8
+    tile += (BK // g) * rows_bytes * (2 if fmt.has_bias else 1)
+    x = BM[path] * BK * 2 if path == "wide" else BM[path] * (BK + 8) * 4
+    if path == "wide":  # two bf16 weight tiles
+        return STAGES[path] * (tile + x) + 2 * BN * BK * 2
+    # a bf16 weight tile and x as bf16 B fragments
+    return STAGES[path] * (tile + x) + BN * BK * 2 + BM[path] * BK * 2
+
+
+def blocks_per_sm(fmt: QFormat, path: str) -> int:
+    return min(REG_BLOCKS[path], SM_SMEM // (smem_bytes(fmt, path) + 1024))
+
+
+def plan(w, M: int, sms: int = 132) -> Plan:
+    """The tiling of y = x [M, K] @ w on a card of `sms` SMs. M <= 32 takes
+    the swapped path (8 or 16 tokens a block), larger M the wide one
+    (128).
+
+    K splits: a launch's time is taken as its waves (blocks over what the
+    SMs hold at once) times the 64-k tiles a block runs, plus its pipeline
+    fill; the plan takes the split of least time (the fewest splits among
+    equals). The wide path splits only to fill one wave: its partials are
+    large. It depends only on M, the format, K padded and R rounded to BN,
+    never on the padded width or the scale packing: a coalesced buffer
+    padded wider plans as its planes do and sums the same products in the
+    same order (K3 bit-equal to K1)."""
+    path = ("swapped8" if M <= 8 else "swapped16" if M <= SWAPPED_MAX_M
+            else "wide")
+    bm = BM[path]
+    mtiles = math.ceil(M / bm)
+    rblocks = math.ceil(w.r / BN)
+    n_kt = w.k_padded // BK
+    cap = blocks_per_sm(w.fmt, path) * sms
+    blocks = rblocks * mtiles
+    best = None
+    for s in range(1, n_kt + 1):
+        tps = math.ceil(n_kt / s)
+        splits = math.ceil(n_kt / tps)
+        waves = math.ceil(blocks * splits / cap)
+        if path == "wide" and splits > 1 and waves > 1:
+            break
+        cost = waves * (tps + FILL_TILES)
+        if best is None or cost < best[0]:
+            best = (cost, splits, tps)
+    _, splits, tps = best
+    return Plan(path, bm, mtiles, rblocks, splits, tps)
 
 
 def _expect(t, dtype, shape, dev, what: str) -> None:
@@ -93,15 +162,17 @@ def weight_args(w, dev) -> tuple:
     """The kernel's weight arguments for one layer of `w` (planes or a
     coalesced buffer), after checking device, dtype, shape and contiguity:
     lo, hi, scale, bias pointers, then tile_k, tile_r, n_k, rows_tile and
-    the lo, hi and scale rows of a k-tile (tile_r 0 for planes)."""
+    the lo, hi and scale rows of a k-tile (tile_r 0 for planes). The
+    checks are what every kernel over the layouts needs (Rp % 128, Kp and
+    tile_k % 32); `prepare` adds its own."""
     fmt = w.fmt
     Kp, Rp = w.k_padded, w.r_padded
-    if Rp % _THREADS or Kp % _UNIT:
+    if Rp % BN or Kp % 32:
         raise ValueError(f"qmatmul: padded shape ({Kp}, {Rp}) not supported")
     if fmt.name.endswith("_k") and w.scale_packed:
         raise ValueError("qmatmul: K-quant scales must be f32")
     if isinstance(w, QuantTensorC):
-        if w.tile_k % _UNIT or w.tile_r % _THREADS or Kp % w.tile_k or \
+        if w.tile_k % 32 or w.tile_r % BN or Kp % w.tile_k or \
                 Rp % w.tile_r:
             raise ValueError(f"qmatmul: coalesced tiles ({w.tile_k}, "
                              f"{w.tile_r}) not supported over ({Kp}, {Rp})")
@@ -134,45 +205,61 @@ def weight_args(w, dev) -> tuple:
             0, 0)
 
 
-def _count(coalesced: bool) -> None:
-    global LAUNCHES, LAUNCHES_COALESCED
+def _count(coalesced: bool, path: str) -> None:
+    global LAUNCHES, LAUNCHES_COALESCED, LAUNCHES_SWAPPED, LAUNCHES_WIDE
     LAUNCHES += 1
     LAUNCHES_COALESCED += coalesced
+    LAUNCHES_WIDE += path == "wide"
+    LAUNCHES_SWAPPED += path != "wide"
 
 
-def operands(x: torch.Tensor, w, x_dtype=torch.bfloat16) -> tuple:
+def operands(x: torch.Tensor, w, p: Plan) -> tuple:
     """The buffers of a launch for x [M, K] (M >= 1, any float) over one
-    layer of `w`: x zero-padded to Kp in `x_dtype`, the output y [M, R]
-    f32, the plan at M (mt, splits, ups) and the split scratch
-    [splits, M, Rp] f32 (None when K is not split)."""
+    layer of `w` on plan `p`: x as the kernel reads it (f32 on the swapped
+    paths, bf16 on the wide one; the kernel takes its columns past its
+    width, up to Kp, as zeros), the output y [M, R] f32 and the split
+    scratch [splits, M, R rounded to BN] f32 (None when K is not split). x is read in place where it is already of that type,
+    contiguous and 16-byte aligned (K is a multiple of 32); the wide path
+    casts it; a misaligned x is copied, zero-padded to Kp."""
     if x.dim() != 2 or x.shape[1] != w.k or x.shape[0] == 0:
         raise ValueError(f"qmatmul: x {tuple(x.shape)} vs weight K={w.k}")
     dev, M = x.device, x.shape[0]
-    xp = torch.zeros((M, w.k_padded), dtype=x_dtype, device=dev)
-    xp[:, : w.k] = x
+    dt = torch.bfloat16 if p.path == "wide" else torch.float32
+    xk = x.to(dt).contiguous()
+    if xk.data_ptr() % 16:
+        xk = torch.zeros((M, w.k_padded), dtype=dt, device=dev)
+        xk[:, : w.k] = x
     y = torch.empty((M, w.r), dtype=torch.float32, device=dev)
-    mt, splits, ups = plan(w, M, dev)
-    part = (torch.empty((splits, M, w.r_padded), dtype=torch.float32,
-                        device=dev) if splits > 1 else None)
-    return xp, y, (mt, splits, ups), part
+    part = (torch.empty((p.splits, M, p.rblocks * BN), dtype=torch.float32,
+                        device=dev) if p.splits > 1 else None)
+    return xk, y, part
 
 
 def prepare(x: torch.Tensor, w) -> _build.Launch:
     """Check x [M, K] (M >= 1, any float) and a one-layer weight (planes or
-    a coalesced buffer) on one CUDA device, allocate the output y [M, R]
-    f32 and the split scratch, and return the kernel launch (not yet run).
-    Each call of the result launches the kernel and returns y."""
+    a coalesced buffer) on one CUDA device, stage x as the kernel reads it,
+    allocate the output y [M, R] f32 and the split scratch, and return the
+    kernel launch (not yet run). Each call of the result launches the
+    kernel and returns y."""
     dev = x.device
     args = weight_args(w, dev)
-    xb, y, (mt, splits, ups), part = operands(x, w)
+    if w.k_padded % BK or (isinstance(w, QuantTensorC) and w.tile_k % BK):
+        raise ValueError(f"qmatmul: K padded to {w.k_padded} (tile_k "
+                         f"{getattr(w, 'tile_k', None)}) is not a multiple "
+                         f"of {BK}")
+    M = x.shape[0]
+    p = plan(w, M, torch.cuda.get_device_properties(dev).multi_processor_count)
+    xk, y, part = operands(x, w, p)
     lib = _build.load("qmatmul", _SIGNATURES)
     coalesced = isinstance(w, QuantTensorC)
     return _build.Launch(
         lib.qmatmul_launch,
-        (FORMAT_IDS[w.fmt_name], int(w.scale_packed), mt, _build.ptr(xb),
-         *args, _build.ptr(y), _build.ptr(part), x.shape[0], w.k_padded,
-         w.r_padded, w.r, splits, ups),
-        dev, "qmatmul_launch", lambda: _count(coalesced), y, (xb, part, w))
+        (FORMAT_IDS[w.fmt_name], int(w.scale_packed), PATHS[p.path],
+         _build.ptr(xk), xk.shape[1], *args, _build.ptr(y), _build.ptr(part),
+         M, w.k_padded, w.r_padded, w.r, p.mtiles, p.splits,
+         p.tiles_per_split),
+        dev, "qmatmul_launch", lambda: _count(coalesced, p.path), y,
+        (xk, part, w))
 
 
 def qmatmul_cuda(x: torch.Tensor, w) -> torch.Tensor:

@@ -3,9 +3,12 @@
 `scripts/probe_kernel_decompose.py` (P2), `scripts/probe_coalesced.py`'s
 stream-only pass (P1) and `scripts/probe_dequant_variants.py` (P3).
 
-The CUDA is `csrc/qmatmul_probe.cu`, which includes the production
-kernel's body (`csrc/qmatmul_body.cuh`): a probe runs the production
-kernel's own loads, grid and K split (`qmatmul.plan` at the same M).
+The CUDA is `csrc/qmatmul_probe.cu`, which includes the scalar kernel's
+body (`csrc/qmatmul_body.cuh`: one thread a column, f32 FMAs, the
+production kernel before the tensor-core one of `csrc/qmatmul_tc.cuh`): a
+probe runs that kernel's own loads, grid and K split (`plan` below at the
+same M), and `prepare_full` launches it whole (P2's `full`, and the old
+side of the A/B against the tensor-core kernel).
 
 Stages, one value a column of the padded width Rp, reading no x (P2's
 stream / unpack / dequant, and P1's `<name>_stream`), for q4_0 and q8_0
@@ -26,7 +29,7 @@ plain version: held to 1e-5 of the sum of |w| (f32 summation error over
 at most 11264 terms).
 
 Modes, y [M, R] over a coalesced q4_0 buffer with f16-packed scales (the
-reference probe's format): base (the production arithmetic), bf16,
+reference probe's format): base (the scalar kernel's arithmetic), bf16,
 f32dot, ghoist, noscale, nounpack (`csrc/qmatmul_body.cuh` Mode; noscale
 and nounpack are wrong on purpose). They compute the reference probe's
 numbers for its modes of the same names.
@@ -39,12 +42,14 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
 from llm_tpu_torch import _build
 from llm_tpu_torch.ops.packing import (
     FORMAT_IDS,
+    QuantTensor,
     QuantTensorC,
     _as_int32_bits,
     coalesced_word_planes,
@@ -53,7 +58,7 @@ from llm_tpu_torch.ops.packing import (
     uncoalesce_qt,
     unpack_q,
 )
-from llm_tpu_torch.ops.qmatmul import operands, plan, weight_args
+from llm_tpu_torch.ops.qmatmul import weight_args
 
 STAGES = {"stream": 1, "unpack": 2, "dequant": 3}
 MODES = {"base": 0, "bf16": 1, "f32dot": 2, "ghoist": 3, "noscale": 4,
@@ -61,11 +66,13 @@ MODES = {"base": 0, "bf16": 1, "f32dot": 2, "ghoist": 3, "noscale": 4,
 # (format, f16-packed scales) the stage kernels are built for
 STAGE_FORMATS = {("q4_0", True), ("q8_0", True), ("q6_k", False)}
 
-LAUNCHES = 0  # probe kernel launches (stages and modes; plain runs not)
+LAUNCHES = 0  # probe kernel launches (full, stages, modes; plain not)
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {
+    "qmatmul_full_launch": [_C, _C, _C, _P, _P, _P, _P, _P, _C, _C, _C, _C,
+                            _C, _C, _C, _P, _P, _C, _C, _C, _C, _C, _C, _P],
     "qmatmul_stage_launch": [_C, _C, _C, _P, _P, _P, _P, _C, _C, _C, _C, _C,
                              _C, _C, _P, _P, _C, _C, _C, _C, _C, _P],
     "qmatmul_mode_launch": [_C, _C, _P, _P, _P, _C, _C, _C, _C, _C, _C, _P,
@@ -80,6 +87,70 @@ def _count() -> None:
 
 def _lib():
     return _build.load("qmatmul_probe", _SIGNATURES)
+
+
+# ---------------------------------------------------------------------------
+# the scalar kernel's plan and operands
+
+_THREADS = 128  # output columns per block (csrc/qmatmul_body.cuh kThreads)
+_UNIT = 32  # K elements per dequant unit (kUnit)
+_CHUNK_UNITS = 8  # units of x staged per pass (kChunk / kUnit)
+
+
+def plan(w, M: int, sms: int = 132) -> tuple[int, int, int]:
+    """(rows of x per thread, K splits, 32-element units per split) of the
+    scalar kernel on a card of `sms` SMs: split K only when the (column,
+    row) blocks alone would leave SMs idle. The blocks are counted over R
+    rounded to 128, not the padded width, so a coalesced buffer padded
+    wider splits K as its planes do."""
+    mt = 1 if M == 1 else 16
+    blocks = math.ceil(w.r / _THREADS) * math.ceil(M / mt)
+    n_units = w.k_padded // _UNIT
+    splits = 1
+    if blocks < 2 * sms:
+        splits = min(math.ceil(4 * sms / blocks), n_units)
+    ups = math.ceil(n_units / splits)
+    ups = math.ceil(ups / _CHUNK_UNITS) * _CHUNK_UNITS  # whole x chunks
+    return mt, math.ceil(n_units / ups), ups
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def operands(x: torch.Tensor, w, x_dtype=torch.bfloat16) -> tuple:
+    """The buffers of a scalar-kernel launch for x [M, K] (M >= 1, any
+    float) over one layer of `w`: x zero-padded to Kp in `x_dtype`, the
+    output y [M, R] f32, the plan at M (mt, splits, ups) and the split
+    scratch [splits, M, Rp] f32 (None when K is not split)."""
+    if x.dim() != 2 or x.shape[1] != w.k or x.shape[0] == 0:
+        raise ValueError(f"qmatmul: x {tuple(x.shape)} vs weight K={w.k}")
+    dev, M = x.device, x.shape[0]
+    xp = torch.zeros((M, w.k_padded), dtype=x_dtype, device=dev)
+    xp[:, : w.k] = x
+    y = torch.empty((M, w.r), dtype=torch.float32, device=dev)
+    mt, splits, ups = plan(w, M, _sms(dev))
+    part: Optional[torch.Tensor] = (
+        torch.empty((splits, M, w.r_padded), dtype=torch.float32, device=dev)
+        if splits > 1 else None)
+    return xp, y, (mt, splits, ups), part
+
+
+def prepare_full(x: torch.Tensor, w) -> _build.Launch:
+    """The scalar kernel whole for x [M, K] over one layer of `w` (planes
+    or a coalesced buffer, any of the 10 formats) on the card (not yet
+    run); its result is y [M, R] f32, what `qmatmul.qmatmul` computes."""
+    if not isinstance(w, (QuantTensor, QuantTensorC)):
+        raise ValueError("prepare_full takes a quantized weight")
+    dev = x.device
+    args = weight_args(w, dev)
+    xp, y, (mt, splits, ups), part = operands(x, w)
+    return _build.Launch(
+        _lib().qmatmul_full_launch,
+        (FORMAT_IDS[w.fmt_name], int(w.scale_packed), mt, _build.ptr(xp),
+         *args, _build.ptr(y), _build.ptr(part), x.shape[0], w.k_padded,
+         w.r_padded, w.r, splits, ups),
+        dev, "qmatmul_full_launch", _count, y, (xp, part, w))
 
 
 # ---------------------------------------------------------------------------
@@ -121,7 +192,7 @@ def stage_plain(w, stage: str) -> torch.Tensor:
 
 def prepare_stage(w, stage: str, M: int) -> _build.Launch:
     """The stage kernel over one layer of `w` on the card, with the grid
-    and K split of the production launch at M rows of x (not yet run)."""
+    and K split of the scalar kernel at M rows of x (not yet run)."""
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}")
     if (w.fmt_name, w.scale_packed) not in STAGE_FORMATS:
@@ -130,7 +201,7 @@ def prepare_stage(w, stage: str, M: int) -> _build.Launch:
     dev = w.device
     args = weight_args(w, dev)
     Kp, Rp = w.k_padded, w.r_padded
-    mt, splits, ups = plan(w, M, dev)
+    mt, splits, ups = plan(w, M, _sms(dev))
     mtiles = math.ceil(M / mt)
     dt = torch.float32 if stage == "dequant" else torch.int32
     part = torch.empty((splits, mtiles, Rp), dtype=dt, device=dev)
@@ -144,7 +215,7 @@ def prepare_stage(w, stage: str, M: int) -> _build.Launch:
 
 def stage_run(w, stage: str, M: int = 8) -> torch.Tensor:
     """A stage over one layer of `w`: its kernel for a weight on the card
-    (grid of the production launch at M), else its plain version."""
+    (grid of the scalar kernel at M), else its plain version."""
     if w.device.type == "cuda":
         return prepare_stage(w, stage, M)()
     return stage_plain(w, stage)

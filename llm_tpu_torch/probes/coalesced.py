@@ -5,7 +5,8 @@ The port of `scripts/probe_coalesced.py` (its Pallas chains and the
 stream-only kernel `make_stream_chain`). Q4_0 at a 7B FFN shape, `up`
 (K=4096, R=11008) or `down` (K=11008, R=4096), M=8, stacked over L layers:
 
-    plane        the production kernel over planes (K1)
+    plane        the production kernel over planes (K1; the tensor-core
+                 kernel of csrc/qmatmul_tc.cuh, as are the K3 rows)
     coal2048     the kernel over the coalesced buffer (K3), the largest
                  legal tile_k <= 2048, coalesce_tiles' tile_r
     coalK        K3 at coalesce_tiles' own tiling (whole K), when it differs
@@ -15,7 +16,7 @@ stream-only kernel `make_stream_chain`). Q4_0 at a 7B FFN shape, `up`
     dense        torch.matmul on a bf16 [Kp, Rp] weight: the yardstick, as
                  the reference's jnp.dot was (not a kernel of the port)
     <name>_stream  the stream stage (ops/qmatmul_probe.py) over each
-                 coalesced buffer: its loads alone
+                 coalesced buffer: the scalar kernel's loads alone
 
 The tiling changes only where the kernel finds a word on the card: every
 128-column block still reads its columns' words, so the variants measure

@@ -3,8 +3,9 @@
 The port of `scripts/probe_dequant_variants.py` (its Pallas kernels,
 `make_call`). Q4_0 at the 7B FFN shape K=4096, R=11008 (packed at a
 1024-multiple, 11264), coalesced whole-K x 512 lanes, M=8, stacked over L
-layers. Every mode runs the production kernel's loads and loop
-(csrc/qmatmul_probe.cu over csrc/qmatmul_body.cuh) with another
+layers. Every mode runs the scalar kernel's loads and loop (the
+production kernel before the tensor-core one; csrc/qmatmul_probe.cu over
+csrc/qmatmul_body.cuh) with another
 arithmetic (ops/qmatmul_probe.py):
 
     base      unpack -> f32 convert -> f32 scale multiply -> bf16 -> FMA

@@ -1,25 +1,27 @@
-"""P2: where the qmatmul kernel's time goes on the card, stage by stage.
+"""P2: where the scalar qmatmul kernel's time goes on the card, stage by
+stage.
 
 The port of `scripts/probe_kernel_decompose.py` (its Pallas kernels,
 `make_probe` and `run_chain`). Four variants over the same Q4_0 planes,
-each with the production launch's grid and K split (`qmatmul.plan`) at
+each with the scalar kernel's grid and K split (`qmatmul_probe.plan`) at
 decode shape (M=8, K=R=4096), stacked over L layers:
 
     stream   every weight word the kernel loads (lo and scale), summed
     unpack   + the nibble extraction
     dequant  + zero point, scale and the bf16 rounding
-    full     + x staging and the FMAs: the production kernel (K1)
+    full     + x staging and the FMAs: the scalar kernel whole
 
-The first three are `ops/qmatmul_probe.py`'s stages (csrc/qmatmul_probe.cu,
-the production kernel's own body cut after a stage); full is
-`ops/qmatmul.py`'s launch. Reported as us a launch and GB/s of packed bytes
+All four are `ops/qmatmul_probe.py`'s launches (csrc/qmatmul_probe.cu: the
+scalar kernel of csrc/qmatmul_body.cuh, whole or cut after a stage), the
+design the probe was written to decompose; the production kernel is now
+the tensor-core one (csrc/qmatmul_tc.cuh), which P1 times. Reported as us a launch and GB/s of packed bytes
 (lo + scale planes); the differences between rows locate the time.
 
 Differences from the reference: its TPU tile arguments (`tile_r tile_k`)
 are gone (the card's kernel has its own grid); the stack holds L=24 layers
 so one pass reads 4x the 50 MB L2 (the reference's 4 layers, 38 MB, would
 be read from the L2); M=8 runs in the kernel's 16-row tiles, half of them
-padding, as on the main path. Timing is on the card (probes/common.py).
+padding. Timing is on the card (probes/common.py).
 
     python -m llm_tpu_torch.probes.kernel_decompose [--M 8] [--rounds 7]
 """
@@ -50,7 +52,7 @@ def variant_plain(variant: str, x: torch.Tensor, w) -> torch.Tensor:
 def variant_launch(variant: str, x: torch.Tensor, w):
     """The prepared launch of a variant over one layer, on the card."""
     if variant == "full":
-        return qm.prepare(x, w)
+        return qp.prepare_full(x, w)
     return qp.prepare_stage(w, variant, x.shape[0])
 
 
