@@ -30,7 +30,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             weights (planes and coalesced) at each M, in turns old, new,
             new, old. Every probe stage, mode and tiling is held against
             its plain version, at a small shape and at the 7B shape its
-            probe runs it.
+            probe runs it. The attention kernel is also held at small
+            shapes off the 7B ones (D 64 / 80 / 256, 4 / 8 / 71 query heads
+            a kv head, page 24, all four pools, ALiBi, n_past 0, mid-page
+            and full), and repeated launches, and a launch after one with
+            another grid, must give bit-equal results.
 3. e2e:     a full-width random LLaMA-7B Q4_0 checkpoint (seed 0, ~3.9 GB,
             written under build/smoke/ and removed afterwards) is loaded
             on the card, and `InferenceSession.infer` answers three greedy
@@ -57,8 +61,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             kernel never. Then the first decode logits of 4
             streams are held against the plain path and against the dense
             engine, on the same card, and torch.profiler traces a decode
-            step of each engine with every slot decoding, and a prefill
-            chunk of each.
+            step of each engine with every slot decoding (32 attention
+            kernels a step, as `infer`'s profiled decode step), and a
+            prefill chunk of each.
 5. probes:  P2 (`llm_tpu_torch.probes.kernel_decompose`, M = 8 and 1), P3
             (`dequant_variants`, every mode) and P1 (`coalesced`, up and
             down, every variant) at their 7B geometry with few rounds, each
@@ -116,6 +121,7 @@ QM_TOL_PLAIN = 2.0**-7
 QM_TOL_BF16 = 1e-5
 SMALL_MS = (1, 4, 8, 16, 64, 512)  # M of the small per-format checks
 ATTN_TOL = 1e-5
+ATTN_KERNEL = "paged_decode"  # the attention kernel's name in a profile
 SERVE8_N_PAST = (0, 17, 100, 199, 256, 301, 333, 512)
 
 
@@ -393,6 +399,24 @@ def ab_phase(dev, timer) -> list[dict]:
     return recs
 
 
+def attn_held(got, ref, npast) -> tuple[bool, list]:
+    """m, l and acc within ATTN_TOL relative (of the largest |value|, at
+    least 1), and the exact constants of the streams with no past."""
+    from llm_tpu_torch.ops.paged_attention import NEG_INF
+
+    errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+    ok = all(e <= ATTN_TOL * max(1.0, float(b.abs().max()))
+             for e, b in zip(errs, ref))
+    empty = npast == 0  # the constants the caller's merge relies on
+    ok = ok and bool((got[0][empty] == NEG_INF).all()) and bool(
+        (got[1][empty] == 0).all()) and bool((got[2][empty] == 0).all())
+    return ok, errs
+
+
+def num_sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def check_attention(name, kv, W, n_past, hkv, rep, alibi, rng, dev, timer,
                     timed) -> dict:
     """The dense pass over a [2, B, hkv, 2048, D] cache, one stream per
@@ -425,15 +449,7 @@ def check_attention(name, kv, W, n_past, hkv, rep, alibi, rng, dev, timer,
     args = (spec, ck, cv, ks, vs, npast, W, layer, qf, slopes)
     got = da.dense_attention_pass(*args)
     torch.cuda.synchronize()
-    ref = da.dense_attention_plain(*args)
-    errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
-    scales = [float(b.abs().max()) for b in ref]
-    ok = (errs[0] <= ATTN_TOL * max(1.0, abs(scales[0]))
-          and errs[1] <= ATTN_TOL * max(1.0, scales[1])
-          and errs[2] <= ATTN_TOL * max(1.0, scales[2]))
-    empty = npast == 0  # the constants the caller's merge relies on
-    ok = ok and bool((got[0][empty] == da.NEG_INF).all()) and bool(
-        (got[1][empty] == 0).all()) and bool((got[2][empty] == 0).all())
+    ok, errs = attn_held(got, da.dense_attention_plain(*args), npast)
     rec = {"case": name, "kv": kv, "W": W, "B": B, "n_past": list(n_past),
            "Hkv": hkv, "rep": rep, "alibi": alibi, "ok": bool(ok),
            "max_abs_err": max(errs), "errs_m_l_acc": errs}
@@ -464,22 +480,24 @@ def check_attention(name, kv, W, n_past, hkv, rep, alibi, rng, dev, timer,
     return rec
 
 
+# (name, cache, W, n_past of the streams, Hkv, rep, ALiBi, timed) of the
+# dense cache's checks: B=1 at W 512 and 2048 (empty, mid-window, full),
+# GQA with ALiBi, and the dense engine's decode step (8 slots, one empty)
+DENSE_CASES = [
+    ("7b", kv, W, (n_past,), H, 1, False, n_past == W)
+    for kv in ("bf16", "int8") for W in (512, 2048)
+    for n_past in (0, W // 2 + 3, W)
+] + [("gqa_alibi", "bf16", 1536, (1100,), 8, 4, True, True)] + [
+    ("serve8", kv, 512, SERVE8_N_PAST, H, 1, False, True)
+    for kv in ("bf16", "int8")
+]
+
+
 def attention_phase(dev, timer) -> list[dict]:
     rng = np.random.default_rng(2)
-    recs = []
-    for kv in ("bf16", "int8"):
-        for W in (512, 2048):
-            for n_past in (0, W // 2 + 3, W):
-                recs.append(check_attention(
-                    "7b", kv, W, [n_past], H, 1, False, rng, dev, timer,
-                    timed=n_past == W))
-    recs.append(check_attention("gqa_alibi", "bf16", 1536, [1100], 8, 4,
-                                True, rng, dev, timer, timed=True))
-    # the dense engine's decode step: 8 slots, one empty, window 512
-    for kv in ("bf16", "int8"):
-        recs.append(check_attention(
-            "serve8", kv, 512, SERVE8_N_PAST, H, 1, False, rng, dev, timer,
-            timed=True))
+    recs = [check_attention(name, kv, W, list(n_past), hkv, rep, alibi, rng,
+                            dev, timer, timed)
+            for name, kv, W, n_past, hkv, rep, alibi, timed in DENSE_CASES]
     recs.append(check_slot_view(dev))
     return recs
 
@@ -505,10 +523,8 @@ def check_slot_view(dev) -> dict:
     got = da.dense_attention_pass(spec, *view, None, None, npast, 512, 1, qf)
     same = da.dense_attention_pass(spec, *copy, None, None, npast, 512, 1, qf)
     ref = da.dense_attention_plain(spec, *view, None, None, npast, 512, 1, qf)
-    errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
-    ok = all(torch.equal(a, b) for a, b in zip(got, same)) and all(
-        e <= ATTN_TOL * max(1.0, float(b.abs().max()))
-        for e, b in zip(errs, ref))
+    held, errs = attn_held(got, ref, npast)
+    ok = held and all(torch.equal(a, b) for a, b in zip(got, same))
     return {"case": "slot_view", "kv": "bf16", "W": 512, "n_past": 300,
             "ok": bool(ok), "max_abs_err": max(errs), "errs_m_l_acc": errs}
 
@@ -528,12 +544,11 @@ PAGED_CASES = [
 PAGED_LAYER = 5
 
 
-def paged_inputs(kv, page, B, n_past_spec, hkv, rep, alibi, rng, dev):
-    """A 32-layer pool holding each stream's pages at shuffled physical
-    ids, its tables (trash page 0 past each stream's pages, plus two spare
-    columns), n_past, q and the ALiBi slopes."""
-    from llm_tpu_torch.ops.layers import alibi_slopes
-
+def paged_inputs(kv, page, B, n_past_spec, hkv, rep, alibi, rng, dev,
+                 layers=N_LAYER):
+    """A pool of `layers` layers holding each stream's pages at shuffled
+    physical ids, its tables (trash page 0 past each stream's pages, plus
+    two spare columns), n_past, q and the ALiBi slopes."""
     kind, top = n_past_spec
     if kind == "at":  # the reference bench's geometry, one stream mid-page
         n_past = np.full(B, top)
@@ -542,6 +557,14 @@ def paged_inputs(kv, page, B, n_past_spec, hkv, rep, alibi, rng, dev):
         n_past = rng.integers(1, top + 1, B)
         n_past[1] = top
     n_past[0] = 0
+    return paged_pool(kv, page, n_past, hkv, rep, alibi, rng, dev, D, layers)
+
+
+def paged_pool(kv, page, n_past, hkv, rep, alibi, rng, dev, d, layers):
+    """`paged_inputs` for the given n_past [B] and head dim `d`."""
+    from llm_tpu_torch.ops.layers import alibi_slopes
+
+    B = len(n_past)
     pages = [-(-int(n) // page) for n in n_past]
     wp = max(pages)
     NP = 1 + sum(pages)
@@ -552,12 +575,12 @@ def paged_inputs(kv, page, B, n_past_spec, hkv, rep, alibi, rng, dev):
         tables[b, :n] = perm[at : at + n]
         at += n
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
-    shape = (N_LAYER, NP, hkv, page, D)
+    shape = (layers, NP, hkv, page, d)
     ks = vs = None
     if kv in ("int8", "int4"):
         lo, hi, dt = (-127, 128, torch.int8) if kv == "int8" else \
             (0, 256, torch.uint8)
-        cshape = shape if kv == "int8" else shape[:-1] + (D // 2,)
+        cshape = shape if kv == "int8" else shape[:-1] + (d // 2,)
         pk = torch.randint(lo, hi, cshape, generator=g, device=dev, dtype=dt)
         pv = torch.randint(lo, hi, cshape, generator=g, device=dev, dtype=dt)
         ks = torch.rand(shape[:-1], generator=g, device=dev) * 0.02
@@ -566,7 +589,7 @@ def paged_inputs(kv, page, B, n_past_spec, hkv, rep, alibi, rng, dev):
         dt = torch.bfloat16 if kv == "bf16" else torch.float32
         pk = torch.randn(shape, generator=g, device=dev).to(dt)
         pv = torch.randn(shape, generator=g, device=dev).to(dt)
-    qf = torch.randn((B, 1, hkv, rep, D), generator=g, device=dev)
+    qf = torch.randn((B, 1, hkv, rep, d), generator=g, device=dev)
     slopes = (alibi_slopes(hkv * rep, 8.0, dev).reshape(hkv, rep)
               if alibi else None)
     return (pk, pv, ks, vs, torch.from_numpy(tables).to(dev),
@@ -587,16 +610,14 @@ def check_paged(case, rng, dev, timer) -> dict:
     got = pa.paged_attention_pass(*args)
     torch.cuda.synchronize()
     ref = pa.paged_attention_plain(*args)
-    errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
-    scales = [float(b.abs().max()) for b in ref]
-    ok = all(e <= ATTN_TOL * max(1.0, s) for e, s in zip(errs, scales))
-    empty = npast == 0  # the constants the caller's merge relies on
-    ok = ok and bool((got[0][empty] == pa.NEG_INF).all()) and bool(
-        (got[1][empty] == 0).all()) and bool((got[2][empty] == 0).all())
+    ok, errs = attn_held(got, ref, npast)
     rec = {"case": name, "kv": kv, "page": page, "B": B, "Hkv": hkv,
            "rep": rep, "alibi": alibi, "window_pages": wp,
            "n_past_max": int(npast.max()), "n_past_sum": int(npast.sum()),
            "ok": bool(ok), "max_abs_err": max(errs), "errs_m_l_acc": errs}
+    plan = pa.launch_plan(B, hkv, rep, D, page, wp * page, pk.dtype,
+                          num_sms())
+    rec["plan"] = dict(plan._asdict(), smem=plan.smem.total)
     rec["ms"] = timer.ms(lambda: pa.paged_attention_pass(*args))
     rec["plain_ms"] = timer.ms(lambda: pa.paged_attention_plain(*args))
     rec["library_ms"] = None
@@ -637,6 +658,137 @@ def paged_phase(dev, timer) -> list[dict]:
     recs = [check_paged(c, rng, dev, timer) for c in PAGED_CASES]
     torch.cuda.empty_cache()
     return recs
+
+
+# the kernel away from the 7B shapes: head dims 64 / 80 / 256, 4 / 8 / 71
+# query heads a kv head (71: Falcon-7B's one kv head), page 24 (no
+# power-of-two chunk), all four pools, with and without ALiBi; streams with
+# no past, mid-page, a full window and one position
+MATRIX_D = (64, 80, 256)
+MATRIX_REP = (4, 8, 71)
+MATRIX_PAGE = 24
+POOLS = ("bf16", "f32", "int8", "int4")
+
+
+def matrix_case(kv, d, rep, alibi, n_past, rng, dev) -> dict:
+    from types import SimpleNamespace
+
+    from llm_tpu_torch.ops import paged_attention as pa
+
+    hkv = 1 if rep == 71 else 2
+    page = MATRIX_PAGE
+    pk, pv, ks, vs, tables, npast, slopes, wp, qf = paged_pool(
+        kv, page, np.asarray(n_past), hkv, rep, alibi, rng, dev, d, 2)
+    spec = SimpleNamespace(kq_scale=1.0 / math.sqrt(d))
+    args = (spec, pk, pv, ks, vs, tables, npast, slopes, wp, 1, qf)
+    got = pa.paged_attention_pass(*args)
+    torch.cuda.synchronize()
+    ok, errs = attn_held(got, pa.paged_attention_plain(*args), npast)
+    plan = pa.launch_plan(len(n_past), hkv, rep, d, page, wp * page,
+                          pk.dtype, num_sms())
+    return {"case": "matrix", "kv": kv, "D": d, "rep": rep, "Hkv": hkv,
+            "alibi": alibi, "page": page, "B": len(n_past),
+            "tile": plan.tile, "tps": plan.tps, "pipe": plan.pipe,
+            "vec": plan.vec, "ok": bool(ok),
+            "max_abs_err": max(errs), "errs_m_l_acc": errs}
+
+
+def dense_matrix_case(kv, d, rep, rng, dev) -> dict:
+    """The dense cache at head dim d: S = 100 positions, window 100."""
+    from types import SimpleNamespace
+
+    from llm_tpu_torch.ops import dense_attention as da
+    from llm_tpu_torch.ops.layers import alibi_slopes
+
+    S, hkv, n_past = 100, 2, [0, 37, 100]
+    shape = (2, len(n_past), hkv, S, d)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    ks = vs = None
+    if kv == "int8":
+        ck, cv = (torch.randint(-127, 128, shape, generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(shape[:-1], generator=g, device=dev) * 0.02
+                  for _ in range(2))
+    else:
+        dt = torch.bfloat16 if kv == "bf16" else torch.float32
+        ck, cv = (torch.randn(shape, generator=g, device=dev).to(dt)
+                  for _ in range(2))
+    qf = torch.randn((len(n_past), 1, hkv, rep, d), generator=g, device=dev)
+    npast = torch.tensor(n_past, dtype=torch.int32, device=dev)
+    slopes = alibi_slopes(hkv * rep, 8.0, dev).reshape(hkv, rep)
+    spec = SimpleNamespace(kq_scale=1.0 / math.sqrt(d))
+    args = (spec, ck, cv, ks, vs, npast, S, 1, qf, slopes)
+    got = da.dense_attention_pass(*args)
+    torch.cuda.synchronize()
+    ok, errs = attn_held(got, da.dense_attention_plain(*args), npast)
+    return {"case": "matrix_dense", "kv": kv, "D": d, "rep": rep,
+            "alibi": True, "W": S, "ok": bool(ok), "max_abs_err": max(errs),
+            "errs_m_l_acc": errs}
+
+
+def attention_matrix(dev) -> list[dict]:
+    rng = np.random.default_rng(7)
+    full = 4 * MATRIX_PAGE
+    recs = [matrix_case(kv, d, rep, alibi, [0, MATRIX_PAGE + 5, full, 1],
+                        rng, dev)
+            for d in MATRIX_D for rep in MATRIX_REP for kv in POOLS
+            for alibi in (False, True)]
+    # 160 streams: few splits a stream, each a loop over several tiles
+    many = [(0, MATRIX_PAGE + 5, 8 * MATRIX_PAGE, 1, 100)[i % 5]
+            for i in range(160)]
+    recs += [matrix_case(kv, 80, 4, True, many, rng, dev) for kv in POOLS]
+    recs += [dense_matrix_case(kv, d, 4, rng, dev) for d in MATRIX_D
+             for kv in ("bf16", "f32", "int8")]
+    torch.cuda.empty_cache()
+    return recs
+
+
+def check_repeat(dev) -> dict:
+    """Two launches on the same inputs, and a launch after one with
+    another grid, give bit-equal m, l and acc: the chunks merge in a fixed
+    order, and every ticket is back at 0 after a launch."""
+    from types import SimpleNamespace
+
+    from llm_tpu_torch.ops import dense_attention as da
+    from llm_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.default_rng(8)
+    spec = SimpleNamespace(kq_scale=1.0 / math.sqrt(D))
+    layers = PAGED_LAYER + 1
+
+    def paged(inputs):
+        pk, pv, ks, vs, tables, npast, slopes, wp, qf = inputs
+        return lambda: pa.paged_attention_pass(
+            spec, pk, pv, ks, vs, tables, npast, slopes, wp, PAGED_LAYER, qf)
+
+    a = paged(paged_inputs("bf16", 256, 64, ("at", 200), H, 1, False, rng,
+                           dev, layers))
+    b = paged(paged_inputs("int8", 16, 16, ("upto", 2000), H, 1, False, rng,
+                           dev, layers))
+    g = torch.Generator(device=dev).manual_seed(9)
+    ck = torch.randn((2, 1, H, CTX, D), generator=g, device=dev).bfloat16()
+    cv = torch.randn((2, 1, H, CTX, D), generator=g, device=dev).bfloat16()
+    qf = torch.randn((1, 1, H, 1, D), generator=g, device=dev)
+    npast = torch.tensor([CTX - 7], dtype=torch.int32, device=dev)
+
+    def dense(W):
+        return lambda: da.dense_attention_pass(spec, ck, cv, None, None,
+                                               npast, W, 1, qf)
+
+    out = {"case": "repeat", "ok": True}
+    for name, fn, other in (("paged", a, b), ("dense", dense(512),
+                                               dense(2048))):
+        first, second = fn(), fn()
+        other()
+        third = fn()
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) and torch.equal(x, z)
+                   for x, y, z in zip(first, second, third))
+        out[name] = bool(same)
+        out["ok"] = out["ok"] and same
+    out["max_abs_err"] = 0.0 if out["ok"] else float("nan")
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -751,7 +903,16 @@ def decode_profile(model, prompt: list[int], steps: int = 4) -> dict:
     step()  # prefill
     out = step_profile(step, steps)
     out["window"] = window_bucket(state["n"], spec.n_ctx)
+    attention_launches_held("infer decode", out)
     return out
+
+
+def attention_launches_held(name, profile) -> None:
+    """A profiled decode step launches the attention kernel once a layer."""
+    got = profile["attention_launches_per_step"]
+    if got != N_LAYER:
+        fail(f"{name}: {got} attention kernels a profiled decode step, "
+             f"not {N_LAYER}")
 
 
 def step_profile(step, steps: int = 4) -> dict:
@@ -797,6 +958,8 @@ def step_profile(step, steps: int = 4) -> dict:
         "device_busy_share": (busy_us / 1e3 / steps / wall_ms
                               if kernels else None),  # None: none traced
         "device_launches_per_step": len(kernels) / steps,
+        "attention_launches_per_step": sum(
+            c for k, (_, c) in by_name.items() if ATTN_KERNEL in k) / steps,
         "top_device": [{"kernel": k[:80], "ms_per_step": t / 1e3 / steps,
                         "launches_per_step": c / steps}
                        for k, (t, c) in top[:8]],
@@ -1152,6 +1315,7 @@ def engine_step_profile(engine, rng, prompt_len: int = 64) -> dict:
     out = step_profile(engine.step)
     out["streams"] = engine.max_streams
     out["n_past_max"] = max(s.n_past for s in engine.slots)
+    attention_launches_held(type(engine).__name__, out)
     return out
 
 
@@ -1638,6 +1802,19 @@ def step_by_m(recs, ab, layout: str) -> dict:
     return out
 
 
+def attn_by_case(recs, label) -> dict:
+    """Per timed attention case, ms of a 7B step's 32 launches: kernel,
+    bound, plain and SDPA (bf16 only); and one launch's kernel ms."""
+    out = {}
+    for r in recs:
+        row = {k: (None if r.get(k) is None else N_LAYER * r[k])
+               for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+        row["ms_one_launch"] = r["ms"]
+        row["bound_by"] = r["bound_by"]
+        out[label(r)] = row
+    return out
+
+
 def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
                    cinf, ab) -> list[dict]:
     """One entry per kernel: times summed over the launches of one decode
@@ -1706,13 +1883,19 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
          "llm_tpu/ops/dense_attention.py:195",
          {"source": "llm_tpu_torch/csrc/paged_attention.cu",
           "per": "one 7B decode token: 32 launches, W=512, bf16 cache",
-          "tolerance": "m, l, acc within 1e-5 relative"}),
+          "tolerance": "m, l, acc within 1e-5 relative",
+          "by_case": attn_by_case(
+              [r for r in arecs if "ms" in r],
+              lambda r: f"{r['case']}_{r['kv']}_B{r['B']}_W{r['W']}")}),
         ("paged_attention", paged, precs, per_layer, "serve_paged",
          "llm_tpu/ops/paged_attention.py:224",
          {"source": "llm_tpu_torch/csrc/paged_attention.cu",
           "per": "one 7B decode step of 64 streams at n_past 200: 32 "
                  "launches, bf16 pool, page 256",
-          "tolerance": "m, l, acc within 1e-5 relative; n_past 0 exact"}),
+          "tolerance": "m, l, acc within 1e-5 relative; n_past 0 exact",
+          "by_case": attn_by_case(
+              precs, lambda r: f"{r['case']}_{r['kv']}_page{r['page']}"
+                               f"_rep{r['rep']}")}),
     ):
         by_path = {"infer": e2e["launches"][name],
                    "serve_paged": serve["paged_launches"][name],
@@ -1799,10 +1982,11 @@ def main() -> None:
     lap("qmatmul_ab")
     arecs = attention_phase(dev, timer)
     precs = paged_phase(dev, timer)
+    mrecs = attention_matrix(dev) + [check_repeat(dev)]
     lap("attention")
     checks = probe_checks(dev) + probe_checks_7b(dev)
     lap("probe_checks")
-    cases = qrecs + k3eq + k3recs + ab + arecs + precs + checks
+    cases = qrecs + k3eq + k3recs + ab + arecs + precs + mrecs + checks
     results["kernel_cases"] = cases
     emit({"kernel_cases": cases})
     bad = [r for r in cases if not r["ok"]]

@@ -1,14 +1,14 @@
 // T=1 decode attention over the paged KV pool, as online-softmax partials.
 //
-// Replaces the TPU kernels of llm_tpu/ops/paged_attention.py
-// (_paged_attention_call, body _make_kernel; entry paged_attention_pass)
-// and of llm_tpu/ops/dense_attention.py (_dense_attention_call; entry
+// Replaces the TPU kernels K4, llm_tpu/ops/paged_attention.py
+// (_paged_attention_call, body _make_kernel; entry paged_attention_pass),
+// and K2, llm_tpu/ops/dense_attention.py (_dense_attention_call; entry
 // dense_attention_pass): one layer of the dense cache [B, Hkv, S, D] is a
-// pool of B pages of S positions whose page tables are [b].
+// pool of B pages of S positions whose page tables are [b] (tables NULL).
 // For each stream b and kv head h, over the logical positions [0, W) of
 // layer l (the wrapper passes the layer's base pointer of the pool
 // [L, NP, Hkv, page, Dp]), position p = j * page + o is read from physical
-// page tables[b, min(j, P - 1)]:
+// page tables[b, min(j, P - 1)] (clamped to the pool):
 //
 //   s[r, p] = q[b, h, r] . k[page, h, o] * kq_scale (* k_scale[page, h, o])
 //             (+ slope[h, r] * p)                masked for p >= n_past[b]
@@ -19,62 +19,162 @@
 // nothing, so n_past = 0 gives m = -1e30, l = 0, acc = 0, which the
 // caller's merge with the new token's own key relies on. Pools: bf16, f32,
 // int8 codes, or int4 codes packed planar into D/2 bytes a row (low nibble
-// element d, high nibble element d + D/2, both sign-extended).
+// element j, high nibble element j + D/2, both sign-extended).
 //
-// What bounds it on the H100: the pool bytes of the positions below n_past
-// (K and V rows read once each, plus their scales, 3.35 TB/s); the
-// arithmetic is 4*D flops per key and head.
+// What bounds it on the H100: the bytes of the K and V rows below n_past
+// (plus their f32 scales for int8 and int4) over 3.35 TB/s, at every pool
+// and LLaMA-7B shape: 4*D f32 operations a key and query head against 4*D
+// bytes (bf16), 2*D (int8) or D (int4) of K and V. Only int4 at rep >= 4
+// and GQA come near the FP32 line (67 TFLOP/s). In practice the int8 and
+// int4 pools are bound by the lanes' decode and FMA issue, not the bytes:
+// a key costs about as much there as a bf16 key (PERF.md).
 //
-// Design, simple first: one block per (b, kv head, chunk of logical
-// positions), so B=1 x 32 heads still fills the card when the window is cut
-// into chunks. Positions resolve to rows of the pool through the page table
-// (the entry clamped to P - 1, as the Pallas index map does, and the page
-// id to the pool). When the page size is a multiple of the chunk, a chunk
-// lies within one page: one lookup gives its first row and the others
-// follow it. Otherwise the block resolves each position into shared memory
-// first. Keys at or past n_past are never read: a chunk wholly past n_past
-// writes the masked partials and returns. Warps take keys in turn, lanes across D,
-// and a shuffle reduction gives each of the rep query heads' scores; one
-// warp a head takes the chunk's max, exponentials and sum; the block then
-// forms acc with threads across (head, d), reading V rows coalesced. A
-// second kernel merges the chunks in a fixed order: deterministic, so
-// greedy tokens repeat from run to run.
+// Design. One launch a call; one block of 128 threads per (b, kv head,
+// split of the window); as few splits as give each SM 4 blocks, so that
+// B=1 x 32 heads still fills 132 SMs.
+// - K and V in flight together: a block looks up each page of its split
+//   once (a tile divides the page size or is a multiple of it, or the
+//   window lies in one page), then walks its tiles (about 16 KB of K and V
+//   rows) with cp.async 16-byte copies of the K rows, V rows and scales of
+//   a tile in one group, two tiles in flight: tile t + 1 lands while tile t
+//   is scored. Only rows below n_past are copied.
+// - Whole rows in 16-byte loads: a row is read from shared memory by a group
+//   of G lanes (power of two), each taking VW bytes (16, or 8 / 4 where the
+//   row's byte count asks for it; NV = 2 vectors a lane for f32 rows of
+//   more than 512 bytes). At D = 128: G = 16 bf16, 8 int8, 4 int4, 32 f32.
+// - q held in registers for HA query heads of the kv head: one K vector
+//   serves all of them, and a score takes log2(G) shuffles a head and key
+//   (below 32 elements a lane, two keys a row group at a time: two chains
+//   in flight, and the first shuffle serves both, so log2(G) a key pair).
+//   Where q and acc of every head fit (HA * elements a lane <= 32: rep <= 4
+//   at bf16 D = 128) the block loops over tiles with an online softmax; else
+//   (GQA rep 8, Falcon's 71 heads) a block takes one tile and loops over
+//   head groups (HA * elements <= 64), reading K again from shared memory,
+//   never from device memory.
+// - P.V in the same lane groups: each lane accumulates HA x its d-slice in
+//   f32 registers over its keys, rescaled when a tile raises the running
+//   max; the row groups of a warp reduce by shuffles and the four warps
+//   through shared memory, once a block (a head group without the loop).
+// - Decode in registers, exact: bf16 halves shifted into f32 words; int8
+//   and int4 codes biased to unsigned and placed by PRMT into the mantissa
+//   of 2^23 (0x4B000000), then 2^23 + bias subtracted (one PRMT and one FADD
+//   an element, no integer conversion).
+// - f32 arithmetic throughout on the FP32 pipes: the k scale multiplies the
+//   score and the v scale the probability, as the reference folds them,
+//   and a score rounds as the reference's (no contraction of the ALiBi
+//   term: at positions near 1000 one ulp moves acc by 1e-5).
+// - The split merge in the same launch: a block with more than one active
+//   split in its (b, h) writes its partials to scratch, fences and takes a
+//   ticket; the block that draws the last ticket merges the splits in the
+//   order 0 .. nsa-1 (reading past L1) and sets the counter back to 0. A
+//   single active split writes m, l, acc directly; splits wholly at or past
+//   n_past return at once. Deterministic: greedy tokens repeat.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxDPerLane = 8;  // D <= 256
+// q and acc floats a lane holds: heads x elements, both at once with the
+// tile loop, one at a time without it
+constexpr int kRegFloats = 64;
 constexpr float kNegInf = -1e30f;
 
-// element d of one pool row (half = D / 2, used by packed int4 rows only)
-__device__ __forceinline__ float elem(const __nv_bfloat16* row, int d, int) {
-  return __bfloat162float(row[d]);
+// what a lane's VW-byte vector of a row holds
+template <typename KV, int VW>
+struct Row {
+  static constexpr bool kInt4 = false;
+  static constexpr int kElems = VW / (int)sizeof(KV);  // elements a vector
+  static constexpr int kPerWord = 4 / (int)sizeof(KV);
+};
+template <int VW>
+struct Row<uint8_t, VW> {  // planar int4: a byte holds elements j, j + D/2
+  static constexpr bool kInt4 = true;
+  static constexpr int kElems = 2 * VW;
+  static constexpr int kPerWord = 8;
+};
+
+// element e of a vector whose first byte is byte b0 of the row -> d
+template <typename KV, int VW>
+__device__ __forceinline__ int elem_d(int b0, int e, int half) {
+  if constexpr (Row<KV, VW>::kInt4)
+    return e < VW ? b0 + e : half + b0 + (e - VW);
+  else
+    return b0 / (int)sizeof(KV) + e;
 }
-__device__ __forceinline__ float elem(const float* row, int d, int) {
-  return row[d];
-}
-__device__ __forceinline__ float elem(const int8_t* row, int d, int) {
-  return static_cast<float>(row[d]);
-}
-__device__ __forceinline__ float elem(const uint8_t* row, int d, int half) {
-  const int n = (d < half ? row[d] : row[d - half] >> 4) & 0xF;
-  return static_cast<float>(n < 8 ? n : n - 16);
+// element k of word w -> its index e in the vector
+template <typename KV, int VW>
+__device__ __forceinline__ constexpr int word_e(int w, int k) {
+  if constexpr (Row<KV, VW>::kInt4)
+    return k < 4 ? 4 * w + k : VW + 4 * w + (k - 4);
+  else
+    return w * Row<KV, VW>::kPerWord + k;
 }
 
-// the pool row of position p of stream b, kv head h; no table (NULL):
-// stream b reads page b
-__device__ __forceinline__ int64_t pool_row(const int* tables, int b, int h,
-                                            int p, int NP, int Hkv, int page,
-                                            int P) {
-  const int j = p / page;
-  int phys = tables ? tables[(int64_t)b * P + min(j, P - 1)] : b;
-  phys = min(max(phys, 0), NP - 1);
-  return ((int64_t)phys * Hkv + h) * page + (p - j * page);
+// an unsigned byte u (0..255) of x placed in 2^23's mantissa: 2^23 + u
+__device__ __forceinline__ float magic_byte(uint32_t x, int i) {
+  return __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440u + i));
+}
+
+// decode one 32-bit word of a row into its kPerWord f32 values (exact)
+__device__ __forceinline__ void decode_word(__nv_bfloat16*, uint32_t w,
+                                            float* f) {
+  f[0] = __uint_as_float(w << 16);
+  f[1] = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ void decode_word(float*, uint32_t w, float* f) {
+  f[0] = __uint_as_float(w);
+}
+__device__ __forceinline__ void decode_word(int8_t*, uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;  // signed code c -> c + 128
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = magic_byte(u, i) - 8388736.f;
+}
+__device__ __forceinline__ void decode_word(uint8_t*, uint32_t w, float* f) {
+  // nibble n -> (n ^ 8) = its sign-extended value + 8
+  const uint32_t lo = (w & 0x0F0F0F0Fu) ^ 0x08080808u;
+  const uint32_t hi = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[i] = magic_byte(lo, i) - 8388616.f;
+    f[4 + i] = magic_byte(hi, i) - 8388616.f;
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void load_words(const unsigned char* p,
+                                           uint32_t* w) {
+  if constexpr (VW == 16) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+  } else if constexpr (VW == 8) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    w[0] = x.x; w[1] = x.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(N));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -89,212 +189,516 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// CONTIG: page % chunk == 0, so the chunk's rows are consecutive
-template <typename KV, bool QUANT, bool ALIBI, bool CONTIG>
-__global__ void __launch_bounds__(kThreads) paged_chunk(
-    const float* __restrict__ q, const KV* __restrict__ k,
-    const KV* __restrict__ v, const float* __restrict__ ks,
-    const float* __restrict__ vs, const int* __restrict__ tables,
-    const int* __restrict__ n_past, const float* __restrict__ slopes,
-    float* __restrict__ pm, float* __restrict__ pl, float* __restrict__ pacc,
-    int NP, int Hkv, int rep, int D, int Dp, int page, int P, int W,
-    int chunk, float kq_scale) {
-  extern __shared__ int64_t smem[];
-  int64_t* rows = smem;  // [chunk] pool rows (not CONTIG)
-  float* qs = reinterpret_cast<float*>(smem + chunk);  // [rep, D]
-  float* ps = qs + rep * D;  // [rep, chunk]: scores, then probabilities
-  const int bh = blockIdx.x, c = blockIdx.y, nc = gridDim.y;
-  const int b = bh / Hkv, h = bh - b * Hkv;
-  const int p0 = c * chunk, p1 = min(p0 + chunk, min(n_past[b], W));
-  const int n = p1 - p0;
-  const int64_t part = (int64_t)bh * nc + c;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int half = D / 2;
+// query heads a lane may hold in registers: a power of two, at most 8
+__host__ __device__ constexpr int heads_cap(int elems) {
+  return elems >= kRegFloats ? 1 : (kRegFloats / elems > 8 ? 8
+                                                           : kRegFloats / elems);
+}
+// Byte offsets of the block's shared-memory regions, and their total, as
+// the wrapper lays them out (ops/paged_attention.smem_layout, the one owner
+// of the layout): per stage (1, or 2 with a tile loop) the K rows of a tile
+// at kst a stage (stage 0's region also holds the cross-warp sum of acc
+// once the scores are done), the V rows at v (vst a stage), the k and v
+// scales at ks and vs (sst a stage); then q, the scores of a tile, the
+// running m, l and rescale factor of each head, the split's page rows, the
+// merge's m and l of each split, a flag.
+struct Smem {
+  int kst, vst, sst, v, ks, vs, q, p, stats, pages, merge, flag, total;
+};
 
-  if (n <= 0) {  // every key of the chunk is masked
-    for (int i = threadIdx.x; i < rep * D; i += kThreads)
-      pacc[part * rep * D + i] = 0.f;
-    for (int r = threadIdx.x; r < rep; r += kThreads) {
-      pm[part * rep + r] = kNegInf;
-      pl[part * rep + r] = 0.f;
+struct Args {
+  const float* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const int* tables;
+  const int* n_past;
+  const float* slopes;
+  float* part;
+  int* tickets;
+  float* m;
+  float* l;
+  float* acc;
+  int NP, Hkv, rep, D, page, P, W, tile, tps, G;
+  float kq_scale;
+  Smem L;
+};
+
+// G lanes a row (power of two), VW bytes a lane and vector, NV vectors a
+// lane, HA query heads in registers at a time (q for the scores, acc for
+// P.V). PIPE: a block loops over its tiles with the next tile's copies in
+// flight and holds q and acc of all rep <= HA heads in registers across
+// them (HA * elements <= 32 each); else one tile a block, its heads in
+// groups of HA (HA * elements <= 64). With one head, 6 blocks an SM: the
+// int4 kernel would take 116 registers and 4 blocks, and run 13% slower.
+template <typename KV, int VW, int NV, int HA, bool PIPE>
+__global__ void __launch_bounds__(kThreads, HA == 1 ? 6 : 4)
+    paged_decode(const Args a) {
+  using R = Row<KV, VW>;
+  constexpr bool QUANT = sizeof(KV) == 1;
+  constexpr int E = NV * R::kElems;  // elements a lane
+  constexpr int WORDS = VW / 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int rep = a.rep, D = a.D, page = a.page, tile = a.tile, G = a.G;
+  const int bh = blockIdx.x, s = blockIdx.y, nsplit = gridDim.y;
+  const int b = bh / a.Hkv, h = bh - b * a.Hkv;
+  const int tid = threadIdx.x;
+  const int span = tile * a.tps, P0 = s * span, j0 = P0 / page;
+  const int npg = (P0 + span - 1) / page - j0 + 1;
+  const int rb = (R::kInt4 ? D / 2 : D * (int)sizeof(KV));  // row bytes
+  const int stages = a.tps > 1 ? 2 : 1;
+  const Smem& L = a.L;
+  int64_t* pages = reinterpret_cast<int64_t*>(smem + L.pages);
+  // one table lookup a page of the split, issued beside n_past's load
+  for (int t = tid; t < npg; t += kThreads) {
+    const int col = min(j0 + t, a.P - 1);
+    int phys = a.tables ? a.tables[(int64_t)b * a.P + col] : b;
+    phys = min(max(phys, 0), a.NP - 1);
+    pages[t] = ((int64_t)phys * a.Hkv + h) * page;
+  }
+  const int valid = min(a.n_past[b], a.W);
+  const int nsa = valid > 0 ? (valid + span - 1) / span : 0;  // active
+  const int64_t rD = (int64_t)rep * D;
+  if (s >= nsa) {  // every key of the split is masked
+    if (s == 0) {  // no past at all: the exact constants
+      for (int i = tid; i < rD; i += kThreads) a.acc[bh * rD + i] = 0.f;
+      for (int r = tid; r < rep; r += kThreads) {
+        a.m[(int64_t)bh * rep + r] = kNegInf;
+        a.l[(int64_t)bh * rep + r] = 0.f;
+      }
     }
     return;
   }
-
-  int64_t row0 = 0;
-  if constexpr (CONTIG) {
-    row0 = pool_row(tables, b, h, p0, NP, Hkv, page, P);
-  } else {
-    for (int i = threadIdx.x; i < n; i += kThreads)
-      rows[i] = pool_row(tables, b, h, p0 + i, NP, Hkv, page, P);
+  const int nk = min(span, valid - P0);  // keys of the split
+  const int nt = (nk + tile - 1) / tile;  // its tiles
+  const int vpr = rb / VW;  // vectors a row
+  float* qs = reinterpret_cast<float*>(smem + L.q);
+  float* ps = reinterpret_cast<float*>(smem + L.p);
+  float* m_run = reinterpret_cast<float*>(smem + L.stats);
+  float* l_run = m_run + rep;
+  float* corr = l_run + rep;
+  for (int r = tid; r < rep; r += kThreads) {
+    m_run[r] = kNegInf;
+    l_run[r] = 0.f;
   }
-  auto row_at = [&](int i) -> int64_t {
-    if constexpr (CONTIG) return row0 + i;
-    else return rows[i];
+  __syncthreads();
+  auto row_of = [&](int p) -> int64_t {
+    const int j = p / page;
+    return pages[j - j0] + (p - j * page);
   };
-  for (int i = threadIdx.x; i < rep * D; i += kThreads)
-    qs[i] = q[(int64_t)bh * rep * D + i];
-  __syncthreads();
 
-  // scores
-  for (int i = warp; i < n; i += kWarps) {
-    const int64_t row = row_at(i);
-    const KV* kr_ = k + row * Dp;
-    float kr[kMaxDPerLane];
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gl = lane & (G - 1);  // lane in its row group
+  const int rg = tid / G, RG = kThreads / G;  // row group, row groups
+  const int half = D / 2;
+  bool has[NV];
+  int b0[NV];
 #pragma unroll
-    for (int t = 0; t < kMaxDPerLane; ++t) {
-      const int d = lane + 32 * t;
-      kr[t] = d < D ? elem(kr_, d, half) : 0.f;
-    }
-    for (int r = 0; r < rep; ++r) {
-      float s = 0.f;
+  for (int t = 0; t < NV; ++t) {
+    has[t] = gl + t * G < vpr;
+    b0[t] = (gl + t * G) * VW;
+  }
+
+  // the K rows, V rows and scales of tile t into stage t % stages: a row
+  // group a row, each lane its vectors
+  const unsigned char* kb = static_cast<const unsigned char*>(a.k);
+  const unsigned char* vb = static_cast<const unsigned char*>(a.v);
+  auto issue = [&](int t) {
+    const int st = t & (stages - 1), p0 = P0 + t * tile;
+    const int n = min(tile, nk - t * tile);
+    unsigned char* kd = smem + st * L.kst;
+    unsigned char* vd = smem + L.v + st * L.vst;
+    float* kss = reinterpret_cast<float*>(smem + L.ks + st * L.sst);
+    float* vss = reinterpret_cast<float*>(smem + L.vs + st * L.sst);
+    for (int i = rg; i < n; i += RG) {
+      const int64_t row = row_of(p0 + i);
 #pragma unroll
-      for (int t = 0; t < kMaxDPerLane; ++t) {
-        const int d = lane + 32 * t;
-        if (d < D) s += qs[r * D + d] * kr[t];
+      for (int u = 0; u < NV; ++u) {
+        if (!has[u]) continue;
+        cp_async<VW>(kd + i * rb + b0[u], kb + row * rb + b0[u]);
+        cp_async<VW>(vd + i * rb + b0[u], vb + row * rb + b0[u]);
       }
-      s = warp_sum(s);
+      if constexpr (QUANT) {
+        if (gl == 0) {
+          cp_async<4>(kss + i, a.ks + row);
+          cp_async<4>(vss + i, a.vs + row);
+        }
+      }
+    }
+  };
+  for (int x = tid; x < rD / 4; x += kThreads)
+    cp_async<16>(qs + 4 * x, a.q + bh * rD + 4 * x);
+  issue(0);
+  cp_commit();
+  if (nt > 1) issue(1);
+  cp_commit();
+
+  // a single split writes the results, else scratch [B*Hkv, nsplit, rep,
+  // D + 2]: acc, then m and l
+  const bool direct = nsa == 1;
+  float* pb = a.part + (int64_t)bh * nsplit * rep * (D + 2);
+  const int64_t stride = (int64_t)rep * (D + 2);
+  float* dacc = direct ? a.acc + bh * rD : pb + s * stride;
+  float* dm = direct ? a.m + (int64_t)bh * rep : pb + s * stride + rD;
+  float* dl = direct ? a.l + (int64_t)bh * rep : dm + rep;
+  float* red = reinterpret_cast<float*>(smem);  // [kWarps, min(rep, HA), D]
+  const int ha = min(rep, HA);
+
+  // the lane's acc of its row group over a group of heads: summed over the
+  // row groups of its warp by shuffles, then over the warps in order
+  float acc[HA][E];
+  auto reduce_acc = [&](int r0) {
+#pragma unroll
+    for (int hh = 0; hh < HA; ++hh)
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        for (int o = G; o < 32; o <<= 1)
+          acc[hh][e] += __shfl_xor_sync(0xffffffffu, acc[hh][e], o);
+    const int nh = min(HA, rep - r0);  // heads of this group
+    if (lane < G) {
+#pragma unroll
+      for (int hh = 0; hh < HA; ++hh) {
+        if (hh >= nh) break;
+#pragma unroll
+        for (int t = 0; t < NV; ++t) {
+          if (!has[t]) continue;
+#pragma unroll
+          for (int e = 0; e < R::kElems; ++e)
+            red[(warp * ha + hh) * D + elem_d<KV, VW>(b0[t], e, half)] =
+                acc[hh][t * R::kElems + e];
+        }
+      }
+    }
+    __syncthreads();
+    for (int x = tid; x < nh * D; x += kThreads) {
+      float sum = red[x];
+#pragma unroll
+      for (int w2 = 1; w2 < kWarps; ++w2) sum += red[w2 * ha * D + x];
+      dacc[r0 * D + x] = sum;
+    }
+    __syncthreads();
+  };
+  if constexpr (PIPE) {
+#pragma unroll
+    for (int hh = 0; hh < HA; ++hh)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[hh][e] = 0.f;
+  }
+
+  for (int t = 0; t < nt; ++t) {
+    const int st = t & (stages - 1), p0 = P0 + t * tile;
+    const int n = min(tile, nk - t * tile);
+    const unsigned char* ksm = smem + st * L.kst;
+    const unsigned char* vsm = smem + L.v + st * L.vst;
+    const float* kss = reinterpret_cast<const float*>(smem + L.ks + st * L.sst);
+    const float* vss = reinterpret_cast<const float*>(smem + L.vs + st * L.sst);
+    cp_wait<1>();
+    __syncthreads();
+
+    // scores: a row group takes keys rg, rg + RG, ...; every lane of a warp
+    // runs the same trips so that the shuffles see the whole warp
+    for (int r0 = 0; r0 < rep; r0 += HA) {
+      float qr[HA][E];
+#pragma unroll
+      for (int hh = 0; hh < HA; ++hh)
+#pragma unroll
+        for (int u = 0; u < NV; ++u)
+#pragma unroll
+          for (int e = 0; e < R::kElems; ++e)
+            qr[hh][u * R::kElems + e] =
+                (has[u] && r0 + hh < rep)
+                    ? qs[(r0 + hh) * D + elem_d<KV, VW>(b0[u], e, half)]
+                    : 0.f;
+      // q . k of key i for the HA heads, two accumulators a head
+      auto dot_key = [&](int i, float (&dot)[HA]) {
+        float odd[HA];
+#pragma unroll
+        for (int hh = 0; hh < HA; ++hh) dot[hh] = odd[hh] = 0.f;
+        if (i >= n) return;
+#pragma unroll
+        for (int u = 0; u < NV; ++u) {
+          if (!has[u]) continue;
+          uint32_t w[WORDS];
+          load_words<VW>(ksm + i * rb + b0[u], w);
+#pragma unroll
+          for (int wi = 0; wi < WORDS; ++wi) {
+            float f[R::kPerWord];
+            decode_word(static_cast<KV*>(nullptr), w[wi], f);
+#pragma unroll
+            for (int kk = 0; kk < R::kPerWord; ++kk)
+#pragma unroll
+              for (int hh = 0; hh < HA; ++hh) {
+                float& acc_ = (wi & 1) ? odd[hh] : dot[hh];
+                acc_ = fmaf(qr[hh][u * R::kElems + word_e<KV, VW>(wi, kk)],
+                            f[kk], acc_);
+              }
+          }
+        }
+#pragma unroll
+        for (int hh = 0; hh < HA; ++hh) dot[hh] += odd[hh];
+      };
+      // the score of key i, rounded as the reference rounds it: the dot
+      // times kq_scale (times the k scale), plus the slope times the
+      // position
+      auto store = [&](int i, const float (&dot)[HA]) {
+        if (i >= n) return;
+#pragma unroll
+        for (int hh = 0; hh < HA; ++hh) {
+          const int r = r0 + hh;
+          if (r >= rep) break;
+          float sc = __fmul_rn(dot[hh], a.kq_scale);
+          if constexpr (QUANT) sc = __fmul_rn(sc, kss[i]);
+          if (a.slopes)
+            sc = __fadd_rn(sc, __fmul_rn(a.slopes[h * rep + r],
+                                         static_cast<float>(p0 + i)));
+          ps[r * tile + i] = sc;
+        }
+      };
+      if constexpr (E >= 32) {  // a key a row group at a time
+        for (int i0 = 0; i0 < n; i0 += RG) {
+          float d[HA];
+          dot_key(i0 + rg, d);
+#pragma unroll
+          for (int hh = 0; hh < HA; ++hh)
+            for (int o = G >> 1; o > 0; o >>= 1)
+              d[hh] += __shfl_xor_sync(0xffffffffu, d[hh], o);
+          if (gl == 0) store(i0 + rg, d);
+        }
+      } else {  // two keys: independent chains, and their sums share a step
+        for (int i0 = 0; i0 < n; i0 += 2 * RG) {
+          float d0[HA], d1[HA];
+          dot_key(i0 + rg, d0);
+          dot_key(i0 + RG + rg, d1);
+          // the upper half of the group keeps key 1, the lower key 0; each
+          // sends the other key's partial sum across, then one sum remains
+          const bool upper = G > 1 && (gl & (G >> 1));
+#pragma unroll
+          for (int hh = 0; hh < HA; ++hh) {
+            if (G > 1) {
+              const float send = upper ? d0[hh] : d1[hh];
+              d0[hh] = (upper ? d1[hh] : d0[hh]) +
+                       __shfl_xor_sync(0xffffffffu, send, G >> 1);
+            }
+            for (int o = G >> 2; o > 0; o >>= 1)
+              d0[hh] += __shfl_xor_sync(0xffffffffu, d0[hh], o);
+          }
+          if (G == 1) {
+            store(i0 + rg, d0);
+            store(i0 + RG + rg, d1);
+          } else if ((gl & ((G >> 1) - 1)) == 0) {
+            store(i0 + (upper ? RG : 0) + rg, d0);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // the online softmax over the tile, a warp a head: m, the rescale of
+    // what came before, the exponentials and l
+    for (int r = warp; r < rep; r += kWarps) {
+      float mx = kNegInf;
+      for (int i = lane; i < n; i += 32) mx = fmaxf(mx, ps[r * tile + i]);
+      mx = fmaxf(m_run[r], warp_max(mx));
+      float sum = 0.f;
+      for (int i = lane; i < n; i += 32) {
+        const float e = expf(ps[r * tile + i] - mx);
+        ps[r * tile + i] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
       if (lane == 0) {
-        float sc = s * kq_scale;
-        if constexpr (QUANT) sc = sc * ks[row];
-        if constexpr (ALIBI)
-          sc = sc + slopes[h * rep + r] * static_cast<float>(p0 + i);
-        ps[r * chunk + i] = sc;
+        const float c = expf(m_run[r] - mx);
+        corr[r] = c;
+        l_run[r] = l_run[r] * c + sum;
+        m_run[r] = mx;
       }
     }
+    __syncthreads();
+
+    // acc = acc * corr + P.V over the tile, HA heads at a time
+    for (int r0 = 0; r0 < rep; r0 += HA) {
+#pragma unroll
+      for (int hh = 0; hh < HA; ++hh) {
+        const float c = PIPE && r0 + hh < rep ? corr[r0 + hh] : 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[hh][e] = PIPE ? acc[hh][e] * c : 0.f;
+      }
+#pragma unroll 2
+      for (int i = rg; i < n; i += RG) {
+        float pr[HA];
+#pragma unroll
+        for (int hh = 0; hh < HA; ++hh) {
+          pr[hh] = r0 + hh < rep ? ps[(r0 + hh) * tile + i] : 0.f;
+          if constexpr (QUANT) pr[hh] = pr[hh] * vss[i];
+        }
+#pragma unroll
+        for (int u = 0; u < NV; ++u) {
+          if (!has[u]) continue;
+          uint32_t w[WORDS];
+          load_words<VW>(vsm + i * rb + b0[u], w);
+#pragma unroll
+          for (int wi = 0; wi < WORDS; ++wi) {
+            float f[R::kPerWord];
+            decode_word(static_cast<KV*>(nullptr), w[wi], f);
+#pragma unroll
+            for (int kk = 0; kk < R::kPerWord; ++kk)
+#pragma unroll
+              for (int hh = 0; hh < HA; ++hh) {
+                float& ac = acc[hh][u * R::kElems + word_e<KV, VW>(wi, kk)];
+                ac = fmaf(pr[hh], f[kk], ac);
+              }
+          }
+        }
+      }
+      if constexpr (!PIPE) reduce_acc(r0);  // one tile: K is done with
+    }
+    __syncthreads();  // every lane is done with this stage
+    if (t + 2 < nt) issue(t + 2);
+    cp_commit();
+  }
+  if constexpr (PIPE) {
+    cp_wait<0>();
+    reduce_acc(0);
+  }
+  for (int r = tid; r < rep; r += kThreads) {
+    dm[r] = m_run[r];
+    dl[r] = l_run[r];
+  }
+  if (direct) return;
+
+  // the ticket: the last active split of (b, h) merges them all in order
+  int* flag = reinterpret_cast<int*>(smem + L.flag);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(a.tickets + bh, 1) == nsa - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  // m_c and l_c of every split into shared memory, read past L1
+  float* mf = reinterpret_cast<float*>(smem + L.merge);  // [nsa, rep]
+  float* lc = mf + nsa * rep;                             // [nsa, rep]
+  for (int x = tid; x < nsa * rep; x += kThreads) {
+    const int c = x / rep, r = x - c * rep;
+    mf[x] = __ldcg(pb + c * stride + rD + r);
+    lc[x] = __ldcg(pb + c * stride + rD + rep + r);
   }
   __syncthreads();
-
-  // chunk max, exponentials, sum (every position here is below n_past)
+  // m = max_c m_c (a warp a head); m_c -> f_c = e^(m_c - m)
   for (int r = warp; r < rep; r += kWarps) {
     float mx = kNegInf;
-    for (int i = lane; i < n; i += 32) mx = fmaxf(mx, ps[r * chunk + i]);
+    for (int c = lane; c < nsa; c += 32) mx = fmaxf(mx, mf[c * rep + r]);
     mx = warp_max(mx);
-    float sum = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const float e = expf(ps[r * chunk + i] - mx);
-      ps[r * chunk + i] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      pm[part * rep + r] = mx;
-      pl[part * rep + r] = sum;
-    }
+    for (int c = lane; c < nsa; c += 32)
+      mf[c * rep + r] = expf(mf[c * rep + r] - mx);
+    if (lane == 0) a.m[(int64_t)bh * rep + r] = mx;
   }
   __syncthreads();
-
-  // acc over the chunk
-  for (int i = threadIdx.x; i < rep * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    float a = 0.f;
-    for (int t = 0; t < n; ++t) {
-      const int64_t row = row_at(t);
-      float pr = ps[r * chunk + t];
-      if constexpr (QUANT) pr = pr * vs[row];
-      a += pr * elem(v + row * Dp, d, half);
+  // l = sum_c l_c f_c, acc = sum_c acc_c f_c, in the order c = 0 .. nsa-1
+  for (int x = tid; x < rD; x += kThreads) {
+    const int r = x / D, d = x - r * D;
+    float sum = 0.f, ls = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < nsa; ++c) {
+      const float f = mf[c * rep + r];
+      sum += __ldcg(pb + c * stride + x) * f;
+      if (d == 0) ls += lc[c * rep + r] * f;
     }
-    pacc[(part * rep + r) * D + d] = a;
+    a.acc[bh * rD + x] = sum;
+    if (d == 0) a.l[(int64_t)bh * rep + r] = ls;
   }
+  if (tid == 0) a.tickets[bh] = 0;
 }
 
-// merge the chunks of each (b, h) in order: m = max_c m_c,
-// l = sum_c l_c e^(m_c - m), acc = sum_c acc_c e^(m_c - m)
-__global__ void merge_chunks(const float* __restrict__ pm,
-                             const float* __restrict__ pl,
-                             const float* __restrict__ pacc,
-                             float* __restrict__ m, float* __restrict__ l,
-                             float* __restrict__ acc, int nc, int rep, int D) {
-  const int bh = blockIdx.x;
-  for (int i = threadIdx.x; i < rep * D; i += blockDim.x) {
-    const int r = i / D, d = i - r * D;
-    float mx = kNegInf;
-    for (int c = 0; c < nc; ++c)
-      mx = fmaxf(mx, pm[((int64_t)bh * nc + c) * rep + r]);
-    float ls = 0.f, a = 0.f;
-    for (int c = 0; c < nc; ++c) {
-      const int64_t j = ((int64_t)bh * nc + c) * rep + r;
-      const float f = expf(pm[j] - mx);
-      ls += pl[j] * f;
-      a += pacc[j * D + d] * f;
-    }
-    acc[((int64_t)bh * rep + r) * D + d] = a;
-    if (d == 0) {
-      m[(int64_t)bh * rep + r] = mx;
-      l[(int64_t)bh * rep + r] = ls;
-    }
-  }
-}
-
-template <typename KV, bool QUANT, bool ALIBI, bool CONTIG>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
-                   const void* vs, const void* tables, const void* n_past,
-                   const void* slopes, void* pm, void* pl, void* pacc, int BH,
-                   int NP, int Hkv, int rep, int D, int Dp, int page, int P,
-                   int W, int chunk, float kq_scale, cudaStream_t s) {
-  auto kern = paged_chunk<KV, QUANT, ALIBI, CONTIG>;
-  const size_t smem = sizeof(int64_t) * (size_t)chunk +
-                      sizeof(float) * (size_t)rep * (D + chunk);
-  if (smem > 48 * 1024) {
+template <typename KV, int VW, int NV, int HA, bool PIPE>
+cudaError_t launch(const Args& a, int BH, int nsplit, cudaStream_t s) {
+  const int rb = Row<KV, VW>::kInt4 ? a.D / 2 : a.D * (int)sizeof(KV);
+  // the splits cover the window, and a tile loop needs every head in
+  // registers
+  if ((int64_t)nsplit * a.tile * a.tps < a.W || (a.G & (a.G - 1)) ||
+      a.G > 32 || rb % VW || (rb / VW + a.G - 1) / a.G > NV ||
+      (a.tps > 1 && (!PIPE || a.rep > HA)))
+    return cudaErrorInvalidValue;
+  auto kern = paged_decode<KV, VW, NV, HA, PIPE>;
+  if (a.L.total > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, a.L.total);
     if (e != cudaSuccess) return e;
   }
-  dim3 grid(BH, (W + chunk - 1) / chunk);
-  kern<<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(tables),
-      static_cast<const int*>(n_past), static_cast<const float*>(slopes),
-      static_cast<float*>(pm), static_cast<float*>(pl),
-      static_cast<float*>(pacc), NP, Hkv, rep, D, Dp, page, P, W, chunk,
-      kq_scale);
-  return cudaSuccess;
+  kern<<<dim3(BH, nsplit), kThreads, a.L.total, s>>>(a);
+  return cudaGetLastError();
+}
+
+// heads: HA, a power of two; a tile loop (pipe) holds q and acc of every
+// head (HA * elements <= 32), one tile a block takes HA = heads_cap
+template <typename KV, int VW, int NV>
+cudaError_t dispatch(const Args& a, int BH, int nsplit, int heads, bool pipe,
+                     cudaStream_t s) {
+  constexpr int E = NV * Row<KV, VW>::kElems;
+  constexpr int CAP = heads_cap(E);
+  if (!pipe) {
+    if (heads != CAP) return cudaErrorInvalidValue;
+    return launch<KV, VW, NV, CAP, false>(a, BH, nsplit, s);
+  }
+#define PA_HA(H)                                                \
+  if (heads == H) {                                             \
+    if constexpr (H * E <= kRegFloats / 2)                      \
+      return launch<KV, VW, NV, H, true>(a, BH, nsplit, s);     \
+  }
+  PA_HA(1)
+  PA_HA(2)
+  PA_HA(4)
+  PA_HA(8)
+#undef PA_HA
+  return cudaErrorInvalidValue;
+}
+
+int by_layout(int kv_dtype, int vec, int nv, const Args& a, int BH,
+              int nsplit, int heads, int pipe, cudaStream_t s) {
+  cudaError_t e = cudaErrorInvalidValue;
+#define PA(T, VW, NV) e = dispatch<T, VW, NV>(a, BH, nsplit, heads, pipe, s)
+  if (kv_dtype == 0 && vec == 16 && nv == 1) PA(__nv_bfloat16, 16, 1);
+  else if (kv_dtype == 1 && vec == 16 && nv == 1) PA(float, 16, 1);
+  else if (kv_dtype == 1 && vec == 16 && nv == 2) PA(float, 16, 2);
+  else if (kv_dtype == 2 && vec == 16 && nv == 1) PA(int8_t, 16, 1);
+  else if (kv_dtype == 2 && vec == 8 && nv == 1) PA(int8_t, 8, 1);
+  else if (kv_dtype == 3 && vec == 16 && nv == 1) PA(uint8_t, 16, 1);
+  else if (kv_dtype == 3 && vec == 8 && nv == 1) PA(uint8_t, 8, 1);
+  else if (kv_dtype == 3 && vec == 4 && nv == 1) PA(uint8_t, 4, 1);
+#undef PA
+  return static_cast<int>(e);
 }
 
 }  // namespace
 
 // kv_dtype: 0 bf16, 1 f32, 2 int8, 3 int4 (uint8 rows of D/2 bytes); for
 // 2 and 3, ks/vs are the f32 scales [NP, Hkv, page] of the layer. k/v are
-// the layer's pool [NP, Hkv, page, Dp]; tables [B, P] int32, or NULL for
-// one page a stream (page b: the dense cache); n_past [B] int32; slopes
-// [Hkv, rep] or NULL. Scratch pm/pl [B*Hkv, nc, rep] and pacc
-// [B*Hkv, nc, rep, D] with nc = ceil(W/chunk). Outputs m/l [B, Hkv, rep]
-// and acc [B, Hkv, rep, D], all f32. Returns cudaGetLastError().
+// the layer's pool [NP, Hkv, page, Dp], their base aligned to vec bytes;
+// tables [B, P] int32, or NULL for one page a stream (page b: the dense
+// cache); n_past [B] int32; slopes [Hkv, rep] or NULL; q [B, Hkv, rep, D]
+// f32. The plan (ops/paged_attention.launch_plan): tile (positions a
+// stage), tps (tiles a block), nsplit (splits of the window, the grid's y),
+// vec (16, 8 or 4 bytes), nv (vectors a lane), lanes (G), heads (HA), pipe,
+// and smem, the 13 ints of Smem. part: f32 scratch [B*Hkv, nsplit, rep,
+// D + 2] (unused when nsplit is 1); tickets: int32 [B*Hkv], zero before
+// the launch and zero after it. Outputs m/l [B, Hkv, rep] and acc
+// [B, Hkv, rep, D], f32. Returns the launch's cudaError_t.
 extern "C" int paged_attention_launch(
     int kv_dtype, const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* tables, const void* n_past,
-    const void* slopes, void* pm, void* pl, void* pacc, void* m, void* l,
+    const void* slopes, void* part, void* tickets, void* m, void* l,
     void* acc, int B, int NP, int Hkv, int rep, int D, int page, int P, int W,
-    int chunk, float kq_scale, void* stream) {
+    int tile, int tps, int nsplit, int vec, int nv, int lanes, int heads,
+    int pipe, const int* smem, float kq_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool alibi = slopes != nullptr, contig = page % chunk == 0;
-  const int BH = B * Hkv;
-#define PA(T, QU, AL, CO, DP)                                               \
-  launch<T, QU, AL, CO>(q, k, v, ks, vs, tables, n_past, slopes, pm, pl,   \
-                        pacc, BH, NP, Hkv, rep, D, DP, page, P, W, chunk,  \
-                        kq_scale, s)
-#define PA4(T, QU, DP)                                                      \
-  (alibi ? (contig ? PA(T, QU, true, true, DP) : PA(T, QU, true, false, DP)) \
-         : (contig ? PA(T, QU, false, true, DP)                             \
-                   : PA(T, QU, false, false, DP)))
-  cudaError_t e;
-  switch (kv_dtype) {
-    case 0: e = PA4(__nv_bfloat16, false, D); break;
-    case 1: e = PA4(float, false, D); break;
-    case 2: e = PA4(int8_t, true, D); break;
-    case 3: e = PA4(uint8_t, true, D / 2); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef PA4
-#undef PA
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  merge_chunks<<<BH, kThreads, 0, s>>>(
-      static_cast<const float*>(pm), static_cast<const float*>(pl),
-      static_cast<const float*>(pacc), static_cast<float*>(m),
-      static_cast<float*>(l), static_cast<float*>(acc), (W + chunk - 1) / chunk,
-      rep, D);
-  return static_cast<int>(cudaGetLastError());
+  Args a{static_cast<const float*>(q), k, v,
+         static_cast<const float*>(ks), static_cast<const float*>(vs),
+         static_cast<const int*>(tables), static_cast<const int*>(n_past),
+         static_cast<const float*>(slopes), static_cast<float*>(part),
+         static_cast<int*>(tickets), static_cast<float*>(m),
+         static_cast<float*>(l), static_cast<float*>(acc), NP, Hkv, rep, D,
+         page, P, W, tile, tps, lanes, kq_scale};
+  memcpy(&a.L, smem, sizeof(Smem));
+  return by_layout(kv_dtype, vec, nv, a, B * Hkv, nsplit, heads, pipe, s);
 }

@@ -2,8 +2,8 @@
 that has nvcc (the card's).
 
 1. Registers, shared memory and spills of every kernel instantiation of
-   `csrc/qmatmul.cu` and `csrc/qmatmul_probe.cu` (`nvcc -Xptxas -v`),
-   by kernel, format, layout and path.
+   `csrc/qmatmul.cu`, `csrc/qmatmul_probe.cu` and `csrc/paged_attention.cu`
+   (`nvcc -Xptxas -v`), by kernel, format, layout and path.
 2. The SASS instructions the producer's dequant spends a weight: two
    kernels are compiled from `csrc/qmatmul_tc.cuh`, one that runs
    `dequant_unit` (32 weights a thread) on a packed tile in shared memory
@@ -252,14 +252,15 @@ def main(argv=None) -> None:
     jobs = {name: ([*flags, "-Xptxas", "-v", "-cubin", "-o",
                     str(out / f"{name}.cubin"),
                     str(_build.CSRC / f"{name}.cu")], out / f"{name}.log")
-            for name in ("qmatmul", "qmatmul_probe")}
+            for name in ("qmatmul", "qmatmul_probe", "paged_attention")}
     jobs["dequant_only"] = ([*flags, "-cubin", "-o",
                              str(out / "dequant_only.cubin"),
                              str(dequant_source(out))],
                             out / "dequant_only.log")
     logs = _nvcc(jobs)
     res = {"ptxas": {n: ptxas_table(logs[n])
-                     for n in ("qmatmul", "qmatmul_probe")},
+                     for n in ("qmatmul", "qmatmul_probe",
+                               "paged_attention")},
            "dequant_sass": dequant_sass(out / "dequant_only.cubin"),
            "main_loop_sass": main_loops(out / "qmatmul.cubin")}
     print(json.dumps(res), flush=True)
