@@ -43,6 +43,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             (prompt chunks of 512 rows on qmatmul's wide path, decode steps
             on its swapped path). The first prefill and decode logits are
             then held against the port's plain path on the same card.
+   device_sampling: the same model (no second load) through
+            `InferenceSession.infer_device`, whose T=1 decode step runs as
+            a captured CUDA graph replayed once a token: one captured step
+            bit-equal to the eager step on the same state (logits and
+            token, greedy and top-k with penalties); greedy tokens (the
+            host chain's repetition slot and the EoT ban as device
+            sampler) of the three e2e prompts, 32 new each in blocks of 8,
+            equal to the e2e phase's host-sampled tokens; two seeded top-k
+            40 / temperature 0.8 / repetition 1.3 runs equal, a mirostat-2
+            run with a finite mu; every capture counted 129 qmatmul and 32
+            attention launches. Decode ms a token of the device path
+            (blocks of 8 and 32) and of host-sampled `infer` in the same
+            run (CUDA events), the busy share of two profiled 32-token
+            blocks, launches and replays a token, capture seconds and the
+            graph pool's bytes.
    coalesced: the model's layer weights coalesced on the card
             (`coalesce_layer_weights`) give the plane run's 16 greedy
             tokens, with 128 coalesced qmatmul launches a forward (counters
@@ -966,6 +981,12 @@ def step_profile(step, steps: int = 4) -> dict:
     }
 
 
+def e2e_prompts() -> list[list[int]]:
+    """The e2e phase's prompts (PROMPT_LENS tokens, seed 3)."""
+    rng = np.random.default_rng(3)
+    return [rng.integers(1, V, n).tolist() for n in PROMPT_LENS]
+
+
 def e2e_phase(dev):
     from llm_tpu_torch import loader
     from llm_tpu_torch.ggml.types import GgmlType
@@ -997,8 +1018,7 @@ def e2e_phase(dev):
         fail(f"loaded spec {spec}")
     out["weights_bytes"] = torch.cuda.memory_allocated(dev)
 
-    rng = np.random.default_rng(3)
-    prompts = [rng.integers(1, V, n).tolist() for n in PROMPT_LENS]
+    prompts = e2e_prompts()
     online = count_online_prefills()
     # warm-up: first launches load the libraries and the allocator
     greedy_prompt_run(model, prompts[0][:4])
@@ -1038,6 +1058,253 @@ def e2e_phase(dev):
     out["prefill_logits"] = compare_logits("prefill", pre_k, pre_p)
     out["decode_logits"] = compare_logits("decode", dec_k, dec_p)
     return out, model
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: on-device sampling, the decode step as a CUDA graph
+
+
+DS_STEPS = 8  # --decode-steps of the phase's runs: 4 blocks of 32 tokens
+DS_LAUNCHES = {"qmatmul": 4 * N_LAYER + 1, "dense_attention": N_LAYER}
+
+
+def ds_session(model):
+    from llm_tpu_torch import session as S
+
+    return S.InferenceSession(model, S.InferenceSessionConfig(
+        memory_k_type=S.ModelKVMemoryType.Float16,
+        memory_v_type=S.ModelKVMemoryType.Float16, n_batch=N_BATCH))
+
+
+def ds_samplers(model) -> dict:
+    """The phase's DeviceSamplers, each with EoT banned as the e2e phase
+    bans it. "greedy" is the device form of the e2e phase's host chain
+    `topk:k=1`, whose default slots put Repetition (1.3 over the last 64
+    tokens) before the top-k."""
+    from llm_tpu_torch.ops.sampling import DeviceSampler
+
+    ban = ((model.eot_token_id(), float("-inf")),)
+    return {
+        "greedy": DeviceSampler(kind="greedy", repeat_penalty=1.3,
+                                penalty_last_n=64, bias=ban),
+        "topk_penalty": DeviceSampler(kind="sample", temperature=0.8,
+                                      top_k=40, repeat_penalty=1.3, bias=ban),
+        "mirostat2": DeviceSampler(kind="sample", temperature=0.8, mirostat=2,
+                                   bias=ban),
+    }
+
+
+def graph_records(sess) -> list[dict]:
+    """What each decode graph of a session's cache recorded."""
+    return [{"window": key[1], "capacity": key[-1], "capture_s": g.capture_s,
+             "pool_bytes": g.pool_bytes, "launches_per_replay": g.launches,
+             "replays": g.replays}
+            for key, g in sess.cache.graphs.items()]
+
+
+def launches_held(name, recs) -> None:
+    """Every capture counted 129 qmatmul and 32 attention launches."""
+    for r in recs:
+        if r["launches_per_replay"] != DS_LAUNCHES:
+            fail(f"{name}: a captured decode step counted "
+                 f"{r['launches_per_replay']} launches, not {DS_LAUNCHES}")
+
+
+def replay_vs_eager(model, prompt, sampler, dev) -> dict:
+    """One decode step after `prompt`, eagerly and as a captured graph
+    replay, on the same state and uniforms: logits and token bit-equal."""
+    from llm_tpu_torch.models.forward import decode_loop, window_bucket
+    from llm_tpu_torch.ops.sampling import penalty_state
+
+    spec = model.spec
+    sess = ds_session(model)
+    sess.feed_prompt(prompt)
+    n = sess.n_past
+    window = window_bucket(n + 1, spec.n_ctx)
+    u = None
+    if sampler.kind != "greedy":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        u = torch.rand((1, V), generator=gen, device=dev).clamp_min_(1e-20)
+    pst = None
+    if sampler.has_penalties:
+        pst = {k: v[0] for k, v in penalty_state(
+            [sess.tokens], sampler.penalty_last_n, V, device=dev).items()}
+    outs = [decode_loop(spec, model.params, sess.last_logits, n, sess.cache,
+                        1, window, sampler, penalty_state=pst, uniforms=u,
+                        graph=graph) for graph in (False, True)]
+    torch.cuda.synchronize()
+    (te, le, _, _), (tg, lg, _, _) = outs
+    rec = {"token": int(tg[0]), "eager_token": int(te[0]),
+           "logits_bit_equal": bool(torch.equal(le, lg)),
+           "max_abs_diff": float((le - lg).abs().max()),
+           "graphs": graph_records(sess)}
+    if not bool(torch.isfinite(lg).all()):
+        fail("device sampling: non-finite logits from the replay")
+    if int(te[0]) != int(tg[0]) or not rec["logits_bit_equal"]:
+        fail(f"device sampling: replay differs from the eager step: {rec}")
+    launches_held("replay_vs_eager", rec["graphs"])
+    return rec
+
+
+def events_ms(fn) -> tuple[float, float]:
+    """(device ms by CUDA events, host wall ms) of fn(), which ends with
+    the host reading its result."""
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.monotonic()
+    e0.record()
+    fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1), 1e3 * (time.monotonic() - t0)
+
+
+def device_sampling_phase(model, dev, e2e) -> dict:
+    """`infer_device` on the loaded 7B model (no second load): the replay
+    of a captured decode step against the eager step; greedy tokens of the
+    e2e prompts against the e2e phase's host-sampled ones; seeded sampled
+    runs that repeat and a mirostat-2 run; decode ms a token of the device
+    path and of host-sampled `infer` in the same run (CUDA events), the
+    busy share of a profiled block, graph capture seconds and pool bytes,
+    launches and replays a token."""
+    from llm_tpu_torch.samplers import build_sampler_chain
+
+    out = {}
+    smp = ds_samplers(model)
+    prompts = e2e_prompts()
+    mid = prompts[1]  # the 64-token prompt
+    out["replay_vs_eager"] = {name: replay_vs_eager(model, mid, smp[name],
+                                                    dev)
+                              for name in ("greedy", "topk_penalty")}
+
+    # greedy tokens equal the host-sampled e2e runs'
+    runs, graphs = [], []
+    for prompt, host in zip(prompts, e2e["runs"]):
+        sess = ds_session(model)
+        dev_ms, wall_ms = events_ms(lambda: sess.infer_device(
+            prompt, N_PREDICT, sampler=smp["greedy"], n_steps=DS_STEPS,
+            halt_on_eot=False))
+        new = sess.tokens[len(prompt):]
+        recs = graph_records(sess)
+        runs.append({"prompt_tokens": len(prompt), "new_ids": new,
+                     "call_device_ms": dev_ms, "call_wall_ms": wall_ms,
+                     "graphs": recs})
+        graphs += recs
+        if new != host["new_ids"]:
+            fail(f"device sampling, prompt of {len(prompt)}: greedy tokens "
+                 f"{new} != host-sampled {host['new_ids']}")
+        if not np.isfinite(sess.last_logits).all():
+            fail("device sampling: non-finite logits")
+        del sess
+    launches_held("greedy runs", graphs)
+    out["greedy_runs"] = runs
+
+    # decode ms a token, device path against host-sampled infer, steady
+    # state (graphs captured before the timed calls), the 64-token prompt
+    timing = {}
+    for steps in (DS_STEPS, 32):
+        sess = ds_session(model)
+        sess.infer_device(mid, steps, sampler=smp["greedy"], n_steps=steps,
+                          halt_on_eot=False)  # captures
+        before = sum(g.replays for g in sess.cache.graphs.values())
+        dev_ms, wall_ms = events_ms(lambda: sess.infer_device(
+            [], N_PREDICT, sampler=smp["greedy"], n_steps=steps,
+            halt_on_eot=False))
+        replays = sum(g.replays for g in sess.cache.graphs.values()) - before
+        timing[f"device_steps{steps}"] = {
+            "ms_per_token": dev_ms / N_PREDICT,
+            "wall_ms_per_token": wall_ms / N_PREDICT,
+            "replays_per_token": replays / N_PREDICT,
+            "launches_per_token": sum(DS_LAUNCHES.values())
+            * replays / N_PREDICT,
+            "graphs": graph_records(sess)}
+        if steps == 32:
+            block = step_profile(lambda: sess.infer_device(
+                [], 32, sampler=smp["greedy"], n_steps=32,
+                halt_on_eot=False), steps=2)
+            busy = block["device_busy_share"]
+            per = {
+                "wall_ms_per_token": block["wall_ms_per_step"] / 32,
+                "device_ms_per_token": (block["device_ms_per_step"] / 32
+                                        if busy is not None else None),
+                "device_busy_share": busy,
+                "device_launches_per_token":
+                    block["device_launches_per_step"] / 32,
+                "attention_launches_per_token":
+                    block["attention_launches_per_step"] / 32,
+                "top_device": [{"kernel": r["kernel"],
+                                "ms_per_token": r["ms_per_step"] / 32,
+                                "launches_per_token":
+                                    r["launches_per_step"] / 32}
+                               for r in block["top_device"]],
+                "busy_share_how": (
+                    "union of the kernel intervals torch.profiler recorded "
+                    "over two 32-token blocks, over the untraced wall time "
+                    "of a block" if busy is not None else
+                    "not measured: torch.profiler recorded no kernel of the "
+                    "graph replays"),
+            }
+            timing["profile_per_token"] = per
+        del sess
+    host = ds_session(model)
+    chain = build_sampler_chain(["topk:k=1"],
+                                bias=[(model.eot_token_id(), float("-inf"))])
+    host.feed_prompt(mid)
+    rng = np.random.default_rng(0)
+    from llm_tpu_torch.session import InferenceParameters
+
+    params = InferenceParameters(sampler=chain)
+    host.infer_next_token(rng, params)  # warm
+    dev_ms, wall_ms = events_ms(lambda: [host.infer_next_token(rng, params)
+                                         for _ in range(N_PREDICT)])
+    timing["host_infer"] = {"ms_per_token": dev_ms / N_PREDICT,
+                            "wall_ms_per_token": wall_ms / N_PREDICT}
+    del host
+    out["timing"] = timing
+    caps = [g for t in (timing["device_steps8"], timing["device_steps32"])
+            for g in t["graphs"]]
+    prof = timing["profile_per_token"]
+    out["summary"] = {
+        "device_ms_per_token": {
+            f"steps{n}": timing[f"device_steps{n}"]["ms_per_token"]
+            for n in (DS_STEPS, 32)},
+        "host_infer_ms_per_token": timing["host_infer"]["ms_per_token"],
+        "replays_per_token": timing["device_steps32"]["replays_per_token"],
+        "k1_k2_launches_per_token":
+            timing["device_steps32"]["launches_per_token"],
+        "profiled_launches_per_token": prof["device_launches_per_token"],
+        "device_busy_share": prof["device_busy_share"],
+        "busy_share_how": prof["busy_share_how"],
+        "capture_s": [g["capture_s"] for g in caps],
+        "pool_bytes": [g["pool_bytes"] for g in caps],
+    }
+    emit({"device_sampling_summary": out["summary"]})
+
+    # seeded sampled runs repeat; mirostat 2 ends with a finite mu
+    sampled = []
+    for _ in range(2):
+        sess = ds_session(model)
+        sess.infer_device(mid, N_PREDICT, sampler=smp["topk_penalty"],
+                          n_steps=DS_STEPS, seed=1, halt_on_eot=False)
+        sampled.append(sess.tokens[len(mid):])
+        launches_held("sampled run", graph_records(sess))
+        del sess
+    out["sampled_ids"] = sampled
+    if sampled[0] != sampled[1] or len(sampled[0]) != N_PREDICT:
+        fail(f"device sampling: seeded runs differ: {sampled}")
+    sess = ds_session(model)
+    sess.infer_device(mid, N_PREDICT, sampler=smp["mirostat2"],
+                      n_steps=DS_STEPS, seed=1, halt_on_eot=False)
+    out["mirostat2"] = {"new_ids": sess.tokens[len(mid):],
+                        "mu": sess._mirostat_mu}
+    launches_held("mirostat run", graph_records(sess))
+    if not math.isfinite(sess._mirostat_mu):
+        fail(f"device sampling: mirostat mu {sess._mirostat_mu}")
+    del sess
+    torch.cuda.empty_cache()
+    return out
 
 
 COALESCED_NEW = 16
@@ -1816,7 +2083,7 @@ def attn_by_case(recs, label) -> dict:
 
 
 def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
-                   cinf, ab) -> list[dict]:
+                   cinf, ab, dsamp) -> list[dict]:
     """One entry per kernel: times summed over the launches of one decode
     step at 7B (qmatmul: the 4 projections x 32 layers + lm_head at M=1;
     dense_attention: 32 layers at W=512, bf16 cache, full window;
@@ -1824,7 +2091,8 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
     page 256). `launches` counts the main path that runs the kernel most:
     `infer` for qmatmul and dense_attention, the paged server for
     paged_attention; `launches_by_path` has the count of each path's own
-    run: `infer`, the paged server and the dense engine."""
+    run: `infer`, the paged server and the dense engine, and for qmatmul
+    and dense_attention the device-sampling path's graph replays."""
     per_token = {"qkv": N_LAYER, "wo": N_LAYER, "gate_up": N_LAYER,
                  "down": N_LAYER, "lm_head": 1}
     dec = [r for r in qrecs if r["M"] == 1 and r["case"] in per_token]
@@ -1911,6 +2179,13 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
             else "operations",
             "library_ms": total("library_ms", recs, w), **extra,
         })
+    # the device-sampling path's launches: each capture's count times the
+    # replays of the greedy runs (a replay is not seen by the counters)
+    replays = sum(g["replays"] for r in dsamp["greedy_runs"]
+                  for g in r["graphs"])
+    for e in entries[1:3]:
+        e["launches_by_path"]["device_sampling"] = \
+            DS_LAUNCHES[e["name"]] * replays
     # qmatmul's launches by consumer path, in each path's own run
     entries[1]["launches_by_consumer_path"] = {
         name: {"swapped": ls["qmatmul_swapped"], "wide": ls["qmatmul_wide"]}
@@ -1998,6 +2273,11 @@ def main() -> None:
     emit({"e2e": e2e})
     lap("e2e")
 
+    dsamp = device_sampling_phase(model, dev, e2e)
+    results["device_sampling"] = dsamp
+    emit({"device_sampling": dsamp})
+    lap("device_sampling")
+
     cinf = coalesced_infer_phase(model, dev)
     results["infer_coalesced"] = cinf
     emit({"infer_coalesced": cinf})
@@ -2016,7 +2296,7 @@ def main() -> None:
     lap("probes")
 
     kernels = kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
-                             cinf, ab)
+                             cinf, ab, dsamp)
     kernels += probe_entries(probes, checks, dev, timer)
     del timer
     lap("kernel_entries")

@@ -8,6 +8,7 @@ card; `--device cpu` runs the plain paths on the CPU).
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from pathlib import Path
 from typing import Optional
@@ -73,6 +74,15 @@ def add_generate_args(p: argparse.ArgumentParser) -> None:
                    help="comma-separated TOKEN_ID=BIAS overrides")
     g.add_argument("--ignore-eos", action="store_true",
                    help="bias the EOT token to -inf so generation never stops")
+    g.add_argument("--device-sampling", action="store_true",
+                   help="sample on the device, N tokens a block (greedy, or "
+                        "temperature/top-k/top-p/min-p/tailfree/"
+                        "locallytypical/topa/mirostat1/mirostat2/repetition/"
+                        "freqpresence from -s); on the card each token is "
+                        "one CUDA graph replay. seqrepetition stays "
+                        "host-only")
+    g.add_argument("--decode-steps", type=int, default=32,
+                   help="tokens generated per block with --device-sampling")
 
 
 def add_prompt_args(p: argparse.ArgumentParser) -> None:
@@ -178,6 +188,104 @@ def inference_parameters(args, model):
     return InferenceParameters(sampler=sampler)
 
 
+def _kv_get(kv: dict, field: str, default):
+    """Prefix-match option keys as the host chain does
+    (field.startswith(key)), so freqpresence:freq=0.7 means the same on
+    both paths."""
+    for k, v in kv.items():
+        if field.startswith(k.strip().lower()):
+            return v
+    return default
+
+
+def _primary(kv: dict, rest: str, field: str, default):
+    """The host DSL's rule: a keyless part is the sampler's primary value;
+    else the prefix-matched key=value; else the host class default."""
+    for part in filter(None, rest.split(":")):
+        if "=" not in part:
+            return part.strip()
+    return _kv_get(kv, field, default)
+
+
+def device_sampler(args, model):
+    """(DeviceSampler, halt_on_eot) from the sampler DSL options,
+    --token-bias and --ignore-eos. Raises SystemExit for a sampler the
+    device path lacks and for an invalid mirostat combination."""
+    from llm_tpu_torch.ops.sampling import DeviceSampler
+    from llm_tpu_torch.tokenizer import TokenBias
+
+    temp, topk, topp, minp = None, 0, 1.0, 0.0
+    rep, last_n, freq, pres = 1.0, 64, 0.0, 0.0
+    tfz, typ, topa = 1.0, 1.0, (0.0, 0.0)
+    miro, mtau, meta, mm = 0, 5.0, 0.1, 100
+    for opt in args.sampler_options:
+        name, _, rest = opt.partition(":")
+        key = name.strip().lower().replace("-", "").replace("_", "")
+        kv = dict(kvp.split("=", 1) for kvp in rest.split(":") if "=" in kvp)
+        if key == "temperature":
+            temp = float(_primary(kv, rest, "temperature", 0.8))
+        elif key == "topk":
+            topk = int(_primary(kv, rest, "k", 40))
+        elif key == "topp":
+            topp = float(_primary(kv, rest, "p", 0.95))
+        elif key == "minp":
+            minp = float(_primary(kv, rest, "p", 0.0))
+        elif key == "tailfree":
+            tfz = float(_primary(kv, rest, "z", 1.0))
+        elif key == "locallytypical":
+            typ = float(_primary(kv, rest, "p", 1.0))
+        elif key == "topa":
+            topa = (float(_kv_get(kv, "a1", 0.0)),
+                    float(_kv_get(kv, "a2", 0.0)))
+        elif key in ("mirostat1", "mirostat2"):
+            miro = 1 if key == "mirostat1" else 2
+            mtau = float(_kv_get(kv, "tau", 5.0))
+            meta = float(_kv_get(kv, "eta", 0.1))
+            mm = int(_kv_get(kv, "m", 100))
+            if temp is None:
+                temp = 0.8  # the mirostat terminal still samples
+        elif key == "repetition":
+            rep = float(_kv_get(kv, "penalty", 1.3))
+            last_n = int(_kv_get(kv, "last_n", last_n))
+        elif key == "freqpresence":
+            freq = float(_kv_get(kv, "frequency", 0.0))
+            pres = float(_kv_get(kv, "presence", 0.0))
+            last_n = int(_kv_get(kv, "last_n", last_n))
+        else:
+            raise SystemExit(
+                f"sampler {name!r} is not available on the device "
+                "path (--device-sampling); drop the flag to use the "
+                "host chain"
+            )
+    # --token-bias / --ignore-eos ride the flat bias, with the host chain's
+    # precedence
+    if args.token_bias:
+        bias = tuple(TokenBias.from_str(args.token_bias))
+    elif args.ignore_eos:
+        bias = ((model.eot_token_id(), float("-inf")),)
+    else:
+        bias = ()
+    eot = model.eot_token_id()
+    halt_on_eot = not any(t == eot and b == float("-inf") for t, b in bias)
+    penalties = dict(repeat_penalty=rep, frequency_penalty=freq,
+                     presence_penalty=pres, penalty_last_n=last_n)
+    if (temp is None and topk == 0 and topp >= 1.0 and minp <= 0.0
+            and tfz >= 1.0 and typ >= 1.0 and topa == (0.0, 0.0)
+            and miro == 0):
+        return DeviceSampler(kind="greedy", bias=bias, **penalties), \
+            halt_on_eot
+    try:
+        sampler = DeviceSampler(
+            kind="sample", temperature=temp or 0.8, top_k=topk, top_p=topp,
+            min_p=minp, tail_free_z=tfz, typical_p=typ, top_a=topa,
+            mirostat=miro, mirostat_tau=mtau, mirostat_eta=meta,
+            mirostat_m=mm, bias=bias, **penalties,
+        )
+    except ValueError as e:
+        raise SystemExit(f"invalid sampler combination: {e}")
+    return sampler, halt_on_eot
+
+
 def _print_token(text: str) -> None:
     sys.stdout.write(text)
     sys.stdout.flush()
@@ -198,6 +306,31 @@ def cmd_infer(args) -> None:
         elif r.kind == "inferred_token":
             _print_token(r.text)
         return S.InferenceFeedback.Continue
+
+    if args.device_sampling:
+        sampler, halt_on_eot = device_sampler(args, model)
+        try:
+            stats = sess.infer_device(
+                prompt,
+                args.num_predict if args.num_predict is not None else 2**31,
+                sampler=sampler,
+                n_steps=args.decode_steps,
+                # an unseeded run varies from run to run, as the host path's
+                # default_rng(None) does
+                seed=(args.seed if args.seed is not None
+                      else int.from_bytes(os.urandom(4), "little")),
+                callback=_print_token,
+                halt_on_eot=halt_on_eot,
+            )
+            print()
+            if args.stats:
+                print()
+                print(stats)
+                print()
+        except S.ContextFull:
+            print()
+            print("Context window full, stopping inference.", file=sys.stderr)
+        return
 
     try:
         stats = sess.infer(

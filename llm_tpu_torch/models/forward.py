@@ -15,22 +15,27 @@ The counterpart of `llm_tpu/models/forward.py`:
   scores, or a block-wise online softmax when the scores would exceed
   _ONLINE_MIN_SCORE_BYTES.
 - The new keys/values of all layers are written to the cache after the
-  layer loop, at each stream's own n_past.
+  layer loop, at each stream's own n_past, read from a device tensor: one
+  copy per cache tensor and stream.
 - KQ numerics mirror ggml: scale 1/sqrt(n_embd/n_head), optional ALiBi added
   after scaling, causal mask, f32 softmax.
+- `decode_loop` generates n_steps tokens with on-device sampling; on the
+  card its T=1 step is a captured CUDA graph, replayed once a token.
 """
 
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
-from typing import Optional, Sequence
+import time
+from dataclasses import dataclass, field
+from typing import Optional, Sequence, Union
 
 import torch
 
 from llm_tpu_torch.models.params import LayerParams, ModelParams
 from llm_tpu_torch.models.spec import ModelSpec
 from llm_tpu_torch.ops import dense_attention
+from llm_tpu_torch.ops import qmatmul as qmatmul_mod
 from llm_tpu_torch.ops.dense_attention import online_cache_pass_batched
 from llm_tpu_torch.ops.layers import (
     alibi_slopes,
@@ -42,6 +47,11 @@ from llm_tpu_torch.ops.layers import (
 )
 from llm_tpu_torch.ops.packing import split_fused
 from llm_tpu_torch.ops.qmatmul import qmatmul, quant_rows_lookup
+from llm_tpu_torch.ops.sampling import (
+    DeviceSampler,
+    bias_vector,
+    device_sample_step,
+)
 
 NEG_INF = -1e30
 
@@ -51,12 +61,14 @@ class KVCache:
     """Dense KV cache, absolute positions, head-major [L, B, H_kv, S, D],
     with K stored after rope. With k_scale/v_scale present the cache is
     INT8: k/v hold int8 codes and the scales are per (position, kv-head) f32
-    amax/127."""
+    amax/127. `graphs` holds the decode-step CUDA graphs captured over
+    this cache (`decode_loop`), which hold its tensors' addresses."""
 
     k: torch.Tensor  # [L, B, H_kv, S, D]
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None  # [L, B, H_kv, S]
     v_scale: Optional[torch.Tensor] = None
+    graphs: dict = field(default_factory=dict, repr=False, compare=False)
 
 
 def init_cache(spec: ModelSpec, dtype=torch.bfloat16, device=None) -> KVCache:
@@ -161,11 +173,21 @@ def _ffn(spec: ModelSpec, layer: LayerParams, x: torch.Tensor) -> torch.Tensor:
 
 
 def _slopes(spec: ModelSpec, device) -> Optional[torch.Tensor]:
+    """ALiBi slopes [H_kv, rep] of `spec` on `device` (None without ALiBi),
+    built once per geometry and device: a forward, and so a captured decode
+    step, copies nothing from the host for them. Callers must not write to
+    the result."""
     if spec.alibi_bias_max <= 0.0:
         return None
-    return alibi_slopes(spec.n_head, spec.alibi_bias_max, device).reshape(
-        spec.n_head_kv, spec.n_head // spec.n_head_kv
-    )
+    return _slopes_on(spec.n_head, spec.n_head_kv, spec.alibi_bias_max,
+                      torch.device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _slopes_on(n_head: int, n_head_kv: int, bias_max: float,
+               device: torch.device) -> torch.Tensor:
+    return alibi_slopes(n_head, bias_max, device).reshape(
+        n_head_kv, n_head // n_head_kv)
 
 
 def _attention_batched(
@@ -343,30 +365,34 @@ def run_layers_batched(spec: ModelSpec, layers: LayerParams, h, positions,
 
 
 def write_cache_batched(cache: KVCache, k_news: list, v_news: list,
-                        n_past: Sequence[int],
+                        n_past: torch.Tensor,
                         write_mask: Optional[Sequence[bool]] = None
                         ) -> KVCache:
-    """Write each layer's new K/V rows [B, T, H, D] (or (codes, scales) when
-    int8) into the cache in place, at each stream's own n_past. Streams
-    with write_mask False are skipped. Like the reference's
-    dynamic_update_slice, a start that would run past the end is clamped
-    to S - T."""
+    """Write the new K/V rows [B, T, H, D] of every layer (or (codes,
+    scales) when int8) into the cache in place, at each stream's own
+    position n_past [B] (an int tensor on the cache's device): one copy
+    per cache tensor and stream, all layers at once. Streams with
+    write_mask False are skipped. Like the reference's dynamic_update_slice,
+    a start that would run past the end is clamped to S - T."""
     quantized = cache.k_scale is not None
     S = cache.k.shape[3]
-    for b, p in enumerate(n_past):
-        if write_mask is not None and not write_mask[b]:
-            continue
-        for l, (kn, vn) in enumerate(zip(k_news, v_news)):
-            if quantized:
-                pairs = ((cache.k, kn[0]), (cache.v, vn[0]),
-                         (cache.k_scale, kn[1]), (cache.v_scale, vn[1]))
-            else:
-                pairs = ((cache.k, kn), (cache.v, vn))
-            for dst, new in pairs:
-                T = new.shape[1]
-                start = min(max(int(p), 0), S - T)
-                # new [B, T, H(, D)] -> the cache's head-major [H, T(, D)]
-                dst[l, b, :, start : start + T] = new[b].transpose(0, 1)
+    if quantized:
+        pairs = ((cache.k, [kn[0] for kn in k_news]),
+                 (cache.v, [vn[0] for vn in v_news]),
+                 (cache.k_scale, [kn[1] for kn in k_news]),
+                 (cache.v_scale, [vn[1] for vn in v_news]))
+    else:
+        pairs = ((cache.k, k_news), (cache.v, v_news))
+    T = k_news[0][0].shape[1] if quantized else k_news[0].shape[1]
+    ar = torch.arange(T, dtype=torch.int64, device=cache.k.device)
+    start = torch.clamp(n_past.to(torch.int64), 0, S - T)
+    for dst, news in pairs:
+        # [L, B, T, H(, D)] -> the cache's head-major [L, B, H, T(, D)]
+        new = torch.stack(news).to(dst.dtype).transpose(2, 3)
+        for b in range(new.shape[1]):
+            if write_mask is not None and not write_mask[b]:
+                continue
+            dst[:, b].index_copy_(2, start[b] + ar, new[:, b])
     return cache
 
 
@@ -401,7 +427,7 @@ def forward_batched(
     spec: ModelSpec,
     params: ModelParams,
     ids: torch.Tensor,  # [B, T] int
-    n_past: Sequence[int],  # [B] host ints
+    n_past: Union[Sequence[int], torch.Tensor],  # [B]
     cache: KVCache,  # [L, B, H_kv, S, D]
     window: Optional[int] = None,
     write_mask: Optional[Sequence[bool]] = None,
@@ -409,14 +435,19 @@ def forward_batched(
     """Batched forward over B independent streams sharing the weights.
 
     Returns (logits [B, T, V] f32, hidden [B, T, E] f32, cache), the cache
-    updated in place. `window` bounds cache reads and must cover
-    max(n_past); `write_mask` (default all True) skips the cache write of
-    masked streams."""
+    updated in place. `n_past`: host ints, or an int32 tensor on the
+    cache's device, which the step reads without a host sync (the decode
+    graph's form). `window` bounds cache reads and must cover max(n_past);
+    `write_mask` (default all True) skips the cache write of masked
+    streams."""
     dev = cache.k.device
     ids = torch.as_tensor(ids, device=dev)
     B, T = ids.shape
-    n_past_host = [int(p) for p in n_past]
-    npast = torch.tensor(n_past_host, dtype=torch.int32, device=dev)
+    if isinstance(n_past, torch.Tensor):
+        npast = n_past.to(device=dev, dtype=torch.int32)
+    else:
+        npast = torch.tensor([int(p) for p in n_past], dtype=torch.int32,
+                             device=dev)
     positions = npast[:, None] + torch.arange(T, dtype=torch.int32,
                                               device=dev)[None, :]
     h = embed_batched(spec, params, ids, positions)
@@ -424,7 +455,7 @@ def forward_batched(
     W = cache.k.shape[3] if window is None else min(window, cache.k.shape[3])
     h, k_news, v_news = run_layers_batched(spec, params.layers, h, positions,
                                            npast, cache, W)
-    write_cache_batched(cache, k_news, v_news, n_past_host, write_mask)
+    write_cache_batched(cache, k_news, v_news, npast, write_mask)
     logits, h = head_batched(spec, params, h)
     return logits, h, cache
 
@@ -469,3 +500,217 @@ def window_bucket(n_past: int, n_ctx: int, granule: int = 512) -> int:
         return n_ctx
     w = ((max(n_past, 1) + granule - 1) // granule) * granule
     return min(n_ctx, max(w, granule))
+
+
+# ---------------------------------------------------------------------------
+# the on-device decode loop
+
+
+_WARMUPS = 2  # eager steps on the capture stream before a capture
+_MAX_GRAPHS = 8  # decode graphs kept per cache; the oldest is dropped
+
+
+@dataclass(eq=False)
+class DecodeGraph:
+    """One captured T=1 decode step over one cache and its static buffers
+    (`state`): logits [V], npast [1], the step index [1], the tokens and
+    the mu after each step [cap], the penalty window and mu, and the
+    uniforms [cap, V]. A replay reads and writes only these, the weights
+    and the cache."""
+
+    state: dict = field(repr=False)
+    bias: Optional[torch.Tensor] = field(repr=False)  # the flat bias [V]
+    params: object = field(repr=False)  # the weights the graph points at
+    graph: object = None  # torch.cuda.CUDAGraph, once captured
+    capture_s: float = 0.0  # host seconds of the capture itself
+    pool_bytes: int = 0  # device memory the capture reserved
+    # kernel launches one replay makes, as the wrappers counted them while
+    # the step was captured (they count calls, so they never see a replay)
+    launches: dict = field(default_factory=dict)
+    replays: int = 0
+
+
+def _step_state(spec, sampler, penalty_state, has_mu: bool, cap: int,
+                dev) -> dict:
+    """The static buffers of a decode step (see DecodeGraph)."""
+    V = spec.n_vocab
+    st = {
+        "logits": torch.zeros(V, dtype=torch.float32, device=dev),
+        "npast": torch.zeros(1, dtype=torch.int32, device=dev),
+        "i": torch.zeros(1, dtype=torch.int64, device=dev),
+        "toks": torch.zeros(cap, dtype=torch.int32, device=dev),
+    }
+    if sampler.kind != "greedy":
+        st["u"] = torch.full((cap, V), 0.5, dtype=torch.float32, device=dev)
+    for k, v in (penalty_state or {}).items():
+        st[k] = (torch.zeros((), dtype=torch.float32, device=dev) if k == "mu"
+                 else torch.zeros_like(torch.as_tensor(v), device=dev))
+    if has_mu:
+        st["mu_steps"] = torch.zeros(cap, dtype=torch.float32, device=dev)
+    return st
+
+
+def _load_state(st: dict, last_logits, n_past: int, penalty_state,
+                u: Optional[torch.Tensor]) -> None:
+    """Copy a block's inputs into the static buffers."""
+    st["logits"].copy_(torch.as_tensor(last_logits, dtype=torch.float32))
+    st["npast"].fill_(n_past)
+    st["i"].zero_()
+    for k, v in (penalty_state or {}).items():
+        st[k].copy_(torch.as_tensor(v))
+    if u is not None:
+        st["u"][: u.shape[0]].copy_(u)
+
+
+_PENALTY_KEYS = ("counts", "ring", "pos", "mu")
+
+
+def _decode_step(spec, params, cache: KVCache, window: int, sampler,
+                 st: dict, bias) -> None:
+    """One token, on the buffers of `st` in place: sample from the logits
+    with the step's uniforms, evaluate the token at npast, store it (and
+    mu) at the step index, advance both. No host sync and no host copy:
+    the graph captures exactly this."""
+    i = st["i"]
+    u = st["u"].index_select(0, i)[0] if "u" in st else None
+    pst = {k: st[k] for k in _PENALTY_KEYS if k in st} or None
+    tok, pst = device_sample_step(st["logits"], u, sampler, pst, bias)
+    logits, _, _ = forward_batched(spec, params, tok.view(1, 1), st["npast"],
+                                   cache, window)
+    st["logits"].copy_(logits[0, -1])
+    st["toks"].index_copy_(0, i, tok.view(1))
+    if "mu_steps" in st:
+        st["mu_steps"].index_copy_(0, i, pst["mu"].view(1))
+    for k, v in (pst or {}).items():
+        st[k].copy_(v)
+    st["npast"].add_(1)
+    i.add_(1)
+
+
+def _capture(g: DecodeGraph, spec, params, cache: KVCache, window: int,
+             sampler) -> None:
+    """Warm the step up eagerly on a side stream (builds and loads the
+    kernels, sizes the attention workspace of that stream), then capture
+    one step on it. The warm-up writes the cache row at npast, which no
+    read sees before the first replay overwrites it. Raises if the capture
+    fails: there is no eager fallback on the card."""
+    dev = cache.k.device
+    st = g.state
+    npast = st["npast"].clone()
+    s = torch.cuda.Stream(dev)
+    s.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(s):
+        for _ in range(_WARMUPS):
+            # each warm-up is a first step: the index stays in the buffers
+            st["i"].zero_()
+            st["npast"].copy_(npast)
+            _decode_step(spec, params, cache, window, sampler, st, g.bias)
+    torch.cuda.current_stream(dev).wait_stream(s)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    q0, a0 = qmatmul_mod.LAUNCHES, dense_attention.LAUNCHES
+    t0 = time.monotonic()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        _decode_step(spec, params, cache, window, sampler, st, g.bias)
+    torch.cuda.synchronize(dev)
+    g.capture_s = time.monotonic() - t0
+    g.launches = {"qmatmul": qmatmul_mod.LAUNCHES - q0,
+                  "dense_attention": dense_attention.LAUNCHES - a0}
+    g.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+    g.graph = graph
+
+
+def _graph_for(spec, params, cache: KVCache, window: int, sampler,
+               penalty_state, has_mu: bool, n_steps: int) -> DecodeGraph:
+    """The cache's decode graph for this static key (window, sampler, the
+    penalty state's shapes, mu trajectory, capacity), made (not yet
+    captured) when missing; the most recently used come last."""
+    cap = 1 << (n_steps - 1).bit_length()
+    shapes = tuple((k, tuple(torch.as_tensor(v).shape))
+                   for k, v in sorted((penalty_state or {}).items()))
+    key = (id(params), window, sampler, shapes, has_mu, cap)
+    g = cache.graphs.pop(key, None)
+    if g is None:
+        dev = cache.k.device
+        g = DecodeGraph(
+            _step_state(spec, sampler, penalty_state, has_mu, cap, dev),
+            bias_vector(sampler, spec.n_vocab, dev), params)
+        while len(cache.graphs) >= _MAX_GRAPHS:
+            cache.graphs.pop(next(iter(cache.graphs)))
+    cache.graphs[key] = g
+    return g
+
+
+@torch.no_grad()
+def decode_loop(spec, params, last_logits, n_past, cache: KVCache,
+                n_steps: int, window: Optional[int] = None, sampler=None,
+                key: Optional[torch.Generator] = None, penalty_state=None,
+                return_state: bool = False,
+                uniforms: Optional[torch.Tensor] = None, graph: bool = True):
+    """Generate `n_steps` tokens on the device: per step, sample from the
+    current logits, evaluate the token, take its logits (the reference's
+    `decode_loop`, one dispatch). The host reads the tokens once a block.
+
+    Returns (tokens [n_steps] int32, final logits [V] f32, new n_past (an
+    int32 tensor), cache); with `return_state` also the sampler state, with
+    `mu_steps` [n_steps] (mu after each step) when it carries mirostat's
+    "mu". The host checks the tokens for EoT and rewinds n_past past any
+    overshoot (cache rows at and past n_past are masked). `window` must
+    cover n_past + n_steps.
+
+    `sampler`: a DeviceSampler (None: greedy). `key`: the torch.Generator,
+    on the cache's device, that the block's uniforms [n_steps, V] are drawn
+    from (None: seed 0); `uniforms` hands them over instead. On the card
+    the step runs as a CUDA graph, captured at the first call with this
+    cache and static key (`cache.graphs`) and replayed once a token;
+    `graph=False` runs the same step eagerly there (the CPU always does).
+    """
+    n_past = int(n_past)
+    _check_window(window, n_past, extra=n_steps)
+    sampler = sampler or DeviceSampler.greedy()
+    dev = cache.k.device
+    S = cache.k.shape[3]
+    W = S if window is None else min(window, S)
+    has_mu = (return_state and isinstance(penalty_state, dict)
+              and "mu" in penalty_state)
+    u = None
+    if sampler.kind != "greedy":
+        if uniforms is not None:
+            u = torch.as_tensor(uniforms, dtype=torch.float32).to(dev)
+            if u.shape != (n_steps, spec.n_vocab):
+                raise ValueError(f"uniforms {tuple(u.shape)}, expected "
+                                 f"{(n_steps, spec.n_vocab)}")
+        else:
+            if key is None:
+                key = torch.Generator(device=dev)
+                key.manual_seed(0)
+            # the reference's uniform(minval=1e-20, maxval=1.0)
+            u = torch.rand((n_steps, spec.n_vocab), generator=key,
+                           device=dev).clamp_min_(1e-20)
+    if graph and dev.type == "cuda":
+        g = _graph_for(spec, params, cache, W, sampler, penalty_state, has_mu,
+                       n_steps)
+        st = g.state
+        if g.graph is None:
+            _load_state(st, last_logits, n_past, penalty_state, u)
+            _capture(g, spec, params, cache, W, sampler)
+        _load_state(st, last_logits, n_past, penalty_state, u)
+        for _ in range(n_steps):
+            g.graph.replay()
+        g.replays += n_steps
+    else:
+        st = _step_state(spec, sampler, penalty_state, has_mu, n_steps, dev)
+        _load_state(st, last_logits, n_past, penalty_state, u)
+        bias = bias_vector(sampler, spec.n_vocab, dev)
+        for _ in range(n_steps):
+            _decode_step(spec, params, cache, W, sampler, st, bias)
+    toks = st["toks"][:n_steps].clone()
+    out = (toks, st["logits"].clone(), st["npast"][0].clone(), cache)
+    if not return_state:
+        return out
+    pst = {k: st[k].clone() for k in _PENALTY_KEYS if k in st}
+    if has_mu:
+        pst["mu_steps"] = st["mu_steps"][:n_steps].clone()
+    return (*out, pst)

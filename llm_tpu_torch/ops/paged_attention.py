@@ -258,20 +258,35 @@ def launch_plan(B: int, Hkv: int, rep: int, D: int, page: int, W: int,
 
 
 _SMS: dict = {}  # device index -> SM count
-_WORK: dict = {}  # (device index, stream) -> [partials scratch, tickets]
+_WORK: dict = {}  # (device index, stream) -> [partials, tickets, retired]
 
 
 def _workspace(dev, stream: int, n_part: int, n_tickets: int):
     """f32 scratch of at least `n_part` and int32 tickets (zero) of at least
     `n_tickets`, kept per device and stream and grown as needed. The kernel
-    leaves every ticket at zero."""
+    leaves every ticket at zero. A buffer that is outgrown stays allocated
+    (`retired`): a CUDA graph captured on this stream may still launch the
+    kernel on it. Growing during a capture raises: a captured step must be
+    run once on its capture stream first, so that its workspace is not
+    taken from the graph's private pool."""
     key = (dev.index, stream)
-    work = _WORK.setdefault(key, [None, None])
-    if work[0] is None or work[0].numel() < n_part:
+    work = _WORK.setdefault(key, [None, None, []])
+    grow_part = work[0] is None or work[0].numel() < n_part
+    grow_tickets = work[1] is None or work[1].numel() < n_tickets
+    if (grow_part or grow_tickets) and \
+            torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("paged_attention: the workspace would grow during "
+                           "a CUDA graph capture; run the step on the capture "
+                           "stream first")
+    if grow_part:
+        if work[0] is not None:
+            work[2].append(work[0])
         work[0] = torch.empty(max(n_part, 1), dtype=torch.float32, device=dev)
-    if work[1] is None or work[1].numel() < n_tickets:
+    if grow_tickets:
+        if work[1] is not None:
+            work[2].append(work[1])
         work[1] = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
-    return work
+    return work[0], work[1]
 
 
 def partials_cuda(kq_scale: float, k, v, ks, vs, tables, npast, slopes,

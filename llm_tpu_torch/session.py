@@ -1,6 +1,6 @@
-"""InferenceSession: KV cache + prompt feeding + host-sampled generation.
+"""InferenceSession: KV cache + prompt feeding + generation.
 
-The counterpart of `llm_tpu/session.py` for the `infer` path:
+The counterpart of `llm_tpu/session.py` for the `infer` paths:
 
 - feed_prompt: chunks of n_batch with the ContextFull guard; each chunk is
   padded up to the n_batch bucket (padding beyond n_past is written to the
@@ -8,10 +8,13 @@ The counterpart of `llm_tpu/session.py` for the `infer` path:
   context end so the write never runs past it.
 - infer_next_token: sample on the host -> push -> evaluate -> EndOfText on
   EoT.
+- infer_device: on-device sampling, n_steps tokens a block through
+  `forward.decode_loop` (on the card, one CUDA graph replay a token); the
+  host reads the tokens once a block.
 - rewind: pop tokens and decrement n_past; cache entries are indexed by
   absolute position, so the cache needs no invalidation.
 
-Snapshots, perplexity and on-device sampling are not ported yet.
+Snapshots and perplexity are not ported yet.
 """
 
 from __future__ import annotations
@@ -157,6 +160,9 @@ class InferenceSession:
         self.tokens: list[TokenId] = []
         self.decoded_tokens: bytearray = bytearray()
         self.last_logits: np.ndarray = np.zeros(model.spec.n_vocab, np.float32)
+        # infer_device's mirostat mu, and the sampler it belongs to
+        self._mirostat_mu: Optional[float] = None
+        self._mirostat_sampler = None
 
     # -- evaluation ---------------------------------------------------------
 
@@ -348,6 +354,107 @@ class InferenceSession:
                 ) is InferenceFeedback.Halt:
                     break
             tokens_processed += 1
+
+        stats.predict_duration = time.monotonic() - start_at
+        stats.predict_tokens = self.n_past
+        return stats
+
+    def infer_device(
+        self,
+        prompt: Union[str, Sequence[TokenId], Prompt],
+        maximum_token_count: int,
+        sampler=None,  # ops.sampling.DeviceSampler; None = greedy
+        n_steps: int = 32,
+        seed: int = 0,
+        callback: Optional[Callable[[str], None]] = None,
+        halt_on_eot: bool = True,
+    ) -> InferenceStats:
+        """Generate with on-device sampling, n_steps tokens a block: the
+        host reads the tokens once a block instead of sampling every token.
+
+        Covers greedy, temperature, top-k, top-p, min-p, tail-free,
+        locally-typical, top-a, the flat bias, the windowed repetition /
+        frequency / presence penalties and the mirostat 1/2 terminals (mu
+        persists on the session across blocks and calls with the same
+        sampler). `seed` seeds a torch.Generator on the model's device.
+        `halt_on_eot=False` generates through EoT (the CLI sets it when a
+        -inf bias bans EoT)."""
+        from llm_tpu_torch.models.forward import decode_loop
+        from llm_tpu_torch.ops.sampling import (
+            mirostat_mu_init,
+            penalty_state,
+        )
+
+        model = self.model
+        spec = model.spec
+        dev = self.cache.k.device
+        stats = InferenceStats()
+        start_at = time.monotonic()
+
+        p = Prompt.of(prompt)
+        if not p.is_empty():
+            self.feed_prompt(p)
+        stats.feed_prompt_duration = time.monotonic() - start_at
+        stats.prompt_tokens = self.n_past
+
+        eot = model.eot_token_id()
+        key = torch.Generator(device=dev)
+        key.manual_seed(seed)
+        buf = TokenUtf8Buffer()
+        remaining = maximum_token_count
+        while remaining > 0:
+            steps = min(n_steps, remaining, spec.n_ctx - 1 - self.n_past)
+            if steps <= 0:
+                break
+            window = window_bucket(self.n_past + steps, spec.n_ctx)
+            pstate = None
+            if sampler is not None and sampler.has_penalties:
+                # the penalty window from the session history, a block at a
+                # time; the loop updates it on the device
+                st = penalty_state([self.tokens], sampler.penalty_last_n,
+                                   spec.n_vocab, device=dev)
+                pstate = {k: v[0] for k, v in st.items()}
+            miro = sampler is not None and sampler.mirostat != 0
+            if miro:
+                # a different sampler starts afresh at 2 * tau
+                if (self._mirostat_mu is None
+                        or self._mirostat_sampler != sampler):
+                    self._mirostat_mu = mirostat_mu_init(sampler)
+                    self._mirostat_sampler = sampler
+                pstate = {**(pstate or {}), "mu": torch.tensor(
+                    self._mirostat_mu, dtype=torch.float32)}
+            out = decode_loop(spec, model.params, self.last_logits,
+                              self.n_past, self.cache, steps, window, sampler,
+                              key, pstate, return_state=miro)
+            toks = out[0].cpu().numpy()
+            hit = (np.nonzero(toks == eot)[0] if halt_on_eot
+                   else np.array([], np.int64))
+            n_keep = int(hit[0]) + 1 if hit.size else steps
+            if miro:
+                # mu at the truncation point: the block-final mu folds in
+                # the surprises of overshoot tokens the host discards
+                self._mirostat_mu = float(out[4]["mu_steps"][n_keep - 1])
+            for t in toks[:n_keep]:
+                t = int(t)
+                self.tokens.append(t)
+                piece = self._diff_decode(self.tokens, t)
+                self.decoded_tokens.extend(piece)
+                if t != eot:
+                    text = buf.push(piece)
+                    if text and callback:
+                        callback(text)
+            self.n_past += n_keep
+            remaining -= n_keep
+            if hit.size and n_keep < steps:
+                # EoT mid-block: the loop's final logits are the block's
+                # end, not the truncation point's; evaluate the last kept
+                # token again (it rewrites the same cache row)
+                self.n_past -= 1
+                self._evaluate([int(toks[n_keep - 1])], None)
+                break
+            self.last_logits = out[1].cpu().numpy()
+            if hit.size:
+                break
 
         stats.predict_duration = time.monotonic() - start_at
         stats.predict_tokens = self.n_past

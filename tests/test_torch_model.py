@@ -243,7 +243,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "llm_tpu_torch.ops.qmatmul_probe", "llm_tpu_torch.probes",
             "llm_tpu_torch.probes.common", "llm_tpu_torch.probes.coalesced",
             "llm_tpu_torch.probes.kernel_decompose",
-            "llm_tpu_torch.probes.dequant_variants"} <= set(modules)
+            "llm_tpu_torch.probes.dequant_variants",
+            "llm_tpu_torch.ops.sampling"} <= set(modules)
     # importing every module of the port loads neither package
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
