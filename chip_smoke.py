@@ -79,6 +79,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             step of each engine with every slot decoding (32 attention
             kernels a step, as `infer`'s profiled decode step), and a
             prefill chunk of each.
+   multi_step: the same model served with multi-step decode. The paged
+            engine of the serve phase behind `LlmServer(multi_step=16)`
+            answers the serve phase's 16 concurrent greedy completions
+            (the same prompts; the host chain's repetition 1.3 and the EoT
+            ban as device sampler): every text equals the host-stepped
+            serve phase's (where a token differs, its top-2 margin must be
+            within 2^-8 of the row's largest logit), no completion ends in
+            an engine error, no block fell back to `step()`, the graph
+            replays equal the blocks' steps, and each capture counted 129
+            qmatmul and 32 paged-attention launches. Then the decode loops
+            are driven directly over whole blocks of 16 (CUDA events after
+            capture, one block profiled): `paged_decode_loop` at 16
+            streams (the serve prompts' positions) and at 64 streams (the
+            reference bench's paged-serve-64: page 256, 65 pages, n_past
+            200, one window page), `decode_loop_batched` at 8 streams over
+            a bf16 cache; ms a step, tok/s, the step's bound, busy share,
+            replays and launches a block, capture seconds and graph pool
+            bytes. One captured step is held bit-equal to the eager step
+            (paged int8 greedy and a per-stream sampled mix; dense bf16
+            with a masked slot, whose rows must stay).
 5. probes:  P2 (`llm_tpu_torch.probes.kernel_decompose`, M = 8 and 1), P3
             (`dequant_variants`, every mode) and P1 (`coalesced`, up and
             down, every variant) at their 7B geometry with few rounds, each
@@ -98,6 +118,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -1065,7 +1086,8 @@ def e2e_phase(dev):
 
 
 DS_STEPS = 8  # --decode-steps of the phase's runs: 4 blocks of 32 tokens
-DS_LAUNCHES = {"qmatmul": 4 * N_LAYER + 1, "dense_attention": N_LAYER}
+DS_LAUNCHES = {"qmatmul": 4 * N_LAYER + 1, "dense_attention": N_LAYER,
+               "paged_attention": 0}
 
 
 def ds_session(model):
@@ -1621,6 +1643,7 @@ def http_traffic(srv, log, rng, greedy) -> dict:
     ttft = np.array(srv.loop._ttft_ms)
     out["concurrent"] = {
         "requests": len(bodies), "prompt_tokens": [int(n) for n in lens],
+        "texts": [r["text"] for r in results],
         "wall_s": wall,
         "generated_tok_s": SERVE_STREAMS * SERVE_NEW / wall,
         "ttft_ms_median": float(np.median(ttft)),
@@ -1766,6 +1789,471 @@ def serve_phase(model, dev) -> dict:
         Engine(model, max_streams=1, kv_dtype=torch.bfloat16, n_batch=64),
         rng)
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: multi-step serving, the batched T=1 step as a CUDA graph
+
+
+MS_STEPS = 16  # tokens a block (--multi-step 16)
+MS_DENSE_STREAMS = 8
+MS_B64, MS_B64_PAST = 64, 200  # the reference bench's paged-serve-64 row
+MS_TIMED_BLOCKS = 3
+
+
+def weight_traffic(model) -> tuple[int, float]:
+    """(bytes of every matmul weight's planes, FLOPs of one token through
+    them): what a decode step must read once, and compute per stream."""
+    from dataclasses import fields as dc_fields
+
+    from llm_tpu_torch.ops.packing import QuantTensor
+
+    params = model.params
+    ws = [(getattr(params.layers, f.name), N_LAYER)
+          for f in dc_fields(params.layers)]
+    ws.append((params.lm_head if params.lm_head is not None else params.wte,
+               1))
+    ws = [(w, n) for w, n in ws if isinstance(w, QuantTensor)]
+    return (sum(plane_bytes(w) for w, _ in ws),
+            sum(2.0 * w.k * w.r * n for w, n in ws))
+
+
+def kv_row_bytes(kv: str) -> int:
+    """Bytes of one position's K and V rows over every layer and kv head."""
+    per = {"int8": D + 4, "bf16": 2 * D}[kv]
+    return 2 * N_LAYER * H * per
+
+
+def graph_stats(graphs: dict) -> list[dict]:
+    return [{"key": [str(k) for k in key[:3]], "capture_s": g.capture_s,
+             "pool_bytes": g.pool_bytes, "launches_per_replay": g.launches,
+             "replays": g.replays} for key, g in graphs.items()]
+
+
+def ms_launches_held(name, recs, attention) -> None:
+    """Every capture of a batched step counted 129 qmatmul and 32 launches
+    of the engine's attention kernel, and none of the other."""
+    want = {"qmatmul": 4 * N_LAYER + 1, "dense_attention": 0,
+            "paged_attention": 0}
+    want[attention] = N_LAYER
+    for r in recs:
+        if r["launches_per_replay"] != want:
+            fail(f"{name}: a captured batched step counted "
+                 f"{r['launches_per_replay']} launches, not {want}")
+
+
+def loop_run(name, block, graphs, B, attention, kv_bytes, model) -> dict:
+    """Time a decode loop over whole blocks: `block()` runs one block of
+    MS_STEPS tokens and reads its tokens on the host. The first call
+    captures; MS_TIMED_BLOCKS more are timed by CUDA events, then one is
+    profiled (the profiler's own host time grows with the ~80,000 kernels
+    a block). Holds each capture's launches and the replays a block."""
+    block()
+    replays0 = sum(g.replays for g in graphs.values())
+    ms = [events_ms(block)[0] for _ in range(MS_TIMED_BLOCKS)]
+    replays = sum(g.replays for g in graphs.values()) - replays0
+    prof = step_profile(block, steps=1)
+    recs = graph_stats(graphs)
+    ms_launches_held(name, recs, attention)
+    if replays != MS_STEPS * MS_TIMED_BLOCKS:
+        fail(f"{name}: {replays} replays for {MS_TIMED_BLOCKS} blocks of "
+             f"{MS_STEPS}")
+    wbytes, wflops = weight_traffic(model)
+    bound, by = bound_ms(wbytes + kv_bytes, wflops * B)
+    step_ms = float(np.median(ms)) / MS_STEPS
+    busy = prof["device_busy_share"]
+    return {
+        "streams": B, "n_steps": MS_STEPS, "block_ms": ms,
+        "ms_per_step": step_ms, "tok_s": B * 1e3 / step_ms,
+        "bound_ms_per_step": bound, "bound_by": by,
+        "bound_bytes": wbytes + kv_bytes,
+        "replays_per_block": replays / MS_TIMED_BLOCKS,
+        "launches_per_block": {k: v * MS_STEPS for k, v in
+                               recs[-1]["launches_per_replay"].items()},
+        "device_busy_share": busy,
+        "device_ms_per_step": (prof["device_ms_per_step"] / MS_STEPS
+                               if busy is not None else None),
+        "profiled_launches_per_step":
+            prof["device_launches_per_step"] / MS_STEPS,
+        "top_device": prof["top_device"],
+        "graphs": recs,
+    }
+
+
+def greedy_block_sampler(model):
+    from llm_tpu_torch.ops.sampling import DeviceSampler
+
+    return DeviceSampler(kind="greedy", repeat_penalty=1.3,
+                         penalty_last_n=64,
+                         bias=((model.eot_token_id(), float("-inf")),))
+
+
+def hand_pool(model, dev, n_past, n_new: int):
+    """An int8 pool of page 256 and hand-built tables (the bench's form):
+    each stream the pages its n_past + n_new need, the pool exactly those
+    plus the trash page 0. Returns (pool, tables [B, CTX/page], the
+    window pages)."""
+    from llm_tpu_torch.paged import init_paged_cache
+
+    need = [-(-(int(n) + n_new) // SERVE_PAGE) for n in n_past]
+    pool = init_paged_cache(model.spec, 1 + sum(need), SERVE_PAGE, "int8",
+                            dev)
+    tables = np.zeros((len(need), CTX // SERVE_PAGE), np.int32)
+    nxt = 1
+    for b, n in enumerate(need):
+        tables[b, :n] = np.arange(nxt, nxt + n)
+        nxt += n
+    return pool, tables, max(need)
+
+
+def paged_loop_case(model, dev, B, n_past, name) -> dict:
+    """`paged_decode_loop` over `hand_pool`'s int8 pool, every stream
+    decoding MS_STEPS tokens a block."""
+    from llm_tpu_torch.ops.sampling import penalty_state
+    from llm_tpu_torch.paged import paged_decode_loop
+
+    pool, tables, wp = hand_pool(model, dev, n_past, MS_STEPS)
+    n_past = np.asarray(n_past, np.int32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    logits = torch.randn((B, V), generator=gen, device=dev)
+    sampler = greedy_block_sampler(model)
+    pst = penalty_state([[] for _ in range(B)], 64, V)
+
+    def block():
+        toks = paged_decode_loop(model.spec, model.params, logits, n_past,
+                                 tables, pool, MS_STEPS, wp, sampler,
+                                 penalty_state=pst)[0]
+        return toks.cpu()
+
+    out = loop_run(name, block, pool.graphs, B, "paged_attention",
+                   int(n_past.sum()) * kv_row_bytes("int8"), model)
+    out.update(kv="int8", page=SERVE_PAGE, window_pages=wp,
+               n_past=[int(x) for x in n_past], pool_bytes=pool.nbytes())
+    del pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_loop_case(model, dev) -> dict:
+    """`decode_loop_batched` over a bf16 dense cache of 8 streams at the
+    serve8 positions, every slot writing."""
+    from llm_tpu_torch.models.forward import (
+        decode_loop_batched,
+        init_cache_batched,
+        window_bucket,
+    )
+    from llm_tpu_torch.ops.sampling import penalty_state
+
+    B = MS_DENSE_STREAMS
+    cache = init_cache_batched(model.spec, B, torch.bfloat16, dev)
+    n_past = np.asarray(SERVE8_N_PAST, np.int32)
+    window = window_bucket(int(n_past.max()) + MS_STEPS, CTX)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    logits = torch.randn((B, V), generator=gen, device=dev)
+    sampler = greedy_block_sampler(model)
+    pst = penalty_state([[] for _ in range(B)], 64, V)
+    mask = torch.ones(B, dtype=torch.bool, device=dev)
+
+    def block():
+        toks = decode_loop_batched(model.spec, model.params, logits, n_past,
+                                   cache, MS_STEPS, window, sampler,
+                                   write_mask=mask, penalty_state=pst)[0]
+        return toks.cpu()
+
+    out = loop_run("dense bf16 B=8", block, cache.graphs, B,
+                   "dense_attention",
+                   int(n_past.sum()) * kv_row_bytes("bf16"), model)
+    out.update(kv="bf16", window=window, n_past=[int(x) for x in n_past])
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def replay_vs_eager_batched(model, dev) -> dict:
+    """One batched step captured and replayed against the same step run
+    eagerly (graph=False) on the same state: tokens and logits bit-equal.
+    Paged int8 (16 streams) greedy and with a heterogeneous sampled mix;
+    dense bf16 (8 streams) with a masked slot, whose rows must stay."""
+    from llm_tpu_torch.models.forward import (
+        decode_loop_batched,
+        init_cache_batched,
+    )
+    from llm_tpu_torch.ops.sampling import (
+        DeviceSampler,
+        batched_sampler,
+        penalty_state,
+    )
+    from llm_tpu_torch.paged import paged_decode_loop
+
+    eot = model.eot_token_id()
+    B = SERVE_STREAMS
+    rng = np.random.default_rng(9)
+    n_past = rng.integers(16, 700, B).astype(np.int32)
+    pool, tables, wp = hand_pool(model, dev, n_past, 1)
+    # random codes and scales: the pool pass reads real-looking rows
+    for t in (pool.k, pool.v):
+        t.copy_(torch.randint(-127, 128, t.shape, dtype=torch.int8,
+                              device=dev))
+    for t in (pool.k_scale, pool.v_scale):
+        t.uniform_(0.001, 0.02)
+    hist = [rng.integers(1, V, 40).tolist() for _ in range(B)]
+    mix = []
+    for b in range(B):
+        if b % 4 == 0:
+            mix.append(DeviceSampler(bias=((eot, float("-inf")),)))
+        else:
+            mix.append(DeviceSampler(
+                kind="sample", temperature=0.5 + 0.1 * b, top_k=10 * (b % 3),
+                top_p=1.0 if b % 2 else 0.9, repeat_penalty=1.0 + 0.05 * b,
+                frequency_penalty=0.1 * (b % 2),
+                bias=((eot, float("-inf")), (b, 2.0))))
+    cfg, values = batched_sampler(mix, B, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    logits = torch.randn((B, V), generator=gen, device=dev) * 4
+    u = torch.rand((1, B, V), generator=gen, device=dev).clamp_min_(1e-20)
+    out = {}
+    for name, sampler, vals, uni in (
+            ("paged_int8_greedy", greedy_block_sampler(model), None, None),
+            ("paged_int8_sampled", cfg, values, u)):
+        pst = penalty_state(hist, sampler.penalty_last_n, V)
+        runs = [paged_decode_loop(model.spec, model.params, logits, n_past,
+                                  tables, pool, 1, wp, sampler,
+                                  sampler_values=vals, penalty_state=pst,
+                                  uniforms=uni, graph=g)
+                for g in (False, True)]
+        torch.cuda.synchronize()
+        out[name] = replay_held(name, runs, pool.graphs, "paged_attention")
+    del pool
+    torch.cuda.empty_cache()
+
+    Bd = MS_DENSE_STREAMS
+    cache = init_cache_batched(model.spec, Bd, torch.bfloat16, dev)
+    cache.k.normal_()
+    cache.v.normal_()
+    n_past = np.asarray(SERVE8_N_PAST, np.int32)
+    mask = torch.tensor([b != 3 for b in range(Bd)], device=dev)
+    slot3 = (cache.k[:, 3].clone(), cache.v[:, 3].clone())
+    runs = [decode_loop_batched(model.spec, model.params, logits[:Bd],
+                                n_past, cache, 1, 1024,
+                                greedy_block_sampler(model),
+                                write_mask=mask,
+                                penalty_state=penalty_state(hist[:Bd], 64, V),
+                                graph=g)
+            for g in (False, True)]
+    torch.cuda.synchronize()
+    out["dense_bf16_masked"] = replay_held("dense_bf16_masked", runs,
+                                           cache.graphs, "dense_attention")
+    if not (torch.equal(cache.k[:, 3], slot3[0])
+            and torch.equal(cache.v[:, 3], slot3[1])):
+        fail("multi_step: the masked slot's cache rows changed")
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def replay_held(name, runs, graphs, attention) -> dict:
+    (te, le), (tg, lg) = ((r[0], r[1]) for r in runs)
+    rec = {"tokens_equal": bool(torch.equal(te, tg)),
+           "logits_bit_equal": bool(torch.equal(le, lg)),
+           "max_abs_diff": float((le - lg).abs().max()),
+           "graphs": graph_stats(graphs)}
+    if not bool(torch.isfinite(lg).all()):
+        fail(f"multi_step {name}: non-finite logits from the replay")
+    if not (rec["tokens_equal"] and rec["logits_bit_equal"]):
+        fail(f"multi_step {name}: replay differs from the eager step: {rec}")
+    ms_launches_held(name, rec["graphs"], attention)
+    return rec
+
+
+TOKEN = re.compile(r"<t(\d+)>")
+
+
+def token_margin(model, prompt, common) -> dict:
+    """The top-2 margin of the host chain's penalized logits (repetition
+    1.3 over 64, EoT banned) where a stream's block-path text first left
+    the host-stepped one: the row after prompt + the common tokens, from
+    a paged int8 engine's prefill."""
+    from llm_tpu_torch.paged import PagedEngine
+    from llm_tpu_torch.samplers import build_sampler_chain
+    from llm_tpu_torch.serve import GenerationRequest
+
+    chain = build_sampler_chain(
+        ["topk:k=1"], bias=[(model.eot_token_id(), float("-inf"))])
+    engine = PagedEngine(model, max_streams=1, page_size=SERVE_PAGE,
+                         kv_dtype="int8", n_batch=64)
+    engine.submit(GenerationRequest(prompt=prompt + common, max_tokens=1,
+                                    sampler=chain))
+    engine._admit()
+    stream = engine.slots[0]
+    for _ in range(-(-len(stream.prefill_queue) // 64)):  # no decode step
+        engine._advance_prefills()
+    if stream.prefilling:
+        fail("multi_step: the margin's prefill did not finish")
+    x = np.array(stream.last_logits, np.float32)
+    for t in chain.transforms:  # the ban and the penalty, no truncation
+        if type(t).__name__ in ("FlatBias", "Repetition"):
+            x = t.apply(x, stream.tokens, None)
+    top = np.sort(x[np.isfinite(x)])[-2:]
+    return {"margin": float(top[1] - top[0]),
+            "tolerance": E2E_REL_L2 * float(np.abs(top).max())}
+
+
+def record_blocks(engine) -> list:
+    """Log (block steps, seconds) of each engine.step_multi call."""
+    log = []
+    inner = engine.step_multi
+
+    def timed(n_steps=16):
+        steps0 = engine.multi_block_steps
+        t0 = time.monotonic()
+        events = inner(n_steps)
+        log.append((engine.multi_block_steps - steps0,
+                    time.monotonic() - t0))
+        return events
+
+    engine.step_multi = timed
+    return log
+
+
+def multi_step_server(model, serve) -> dict:
+    """The serve phase's paged engine and traffic behind LlmServer with
+    multi_step=16: texts against the host-stepped serve phase's."""
+    from llm_tpu_torch.paged import PagedEngine
+    from llm_tpu_torch.server import LlmServer
+
+    eot = model.eot_token_id()
+    greedy = {"max_tokens": SERVE_NEW, "temperature": 0,
+              "logit_bias": {str(eot): -100},
+              # the host chain's default repetition slot, as a device
+              # sampler: both paths sample alike
+              "repeat_penalty": 1.3}
+    engine = PagedEngine(model, max_streams=SERVE_STREAMS,
+                         page_size=SERVE_PAGE, kv_dtype="int8", n_batch=64,
+                         prefix_cache=True)
+    srv = LlmServer(model, engine, host="127.0.0.1", port=0,
+                    multi_step=MS_STEPS)
+    rng = np.random.default_rng(4)  # the serve phase's prompts
+    lens = rng.integers(16, 701, SERVE_STREAMS)
+    prompts = [rng.integers(1, V, n).tolist() for n in lens]
+    ref = serve["concurrent"]
+    if [int(n) for n in lens] != ref["prompt_tokens"]:
+        fail("multi_step: not the serve phase's prompts")
+    bodies = [dict(greedy, prompt=p, stream=i < 4)
+              for i, p in enumerate(prompts)]
+    srv.start()
+    try:
+        srv.warmup()
+        log = record_blocks(engine)
+        zero_launches()
+        url = "http://%s:%d/v1/completions" % srv.address
+        from concurrent.futures import ThreadPoolExecutor
+
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(SERVE_STREAMS) as pool:
+            results = list(pool.map(lambda b: http_completion(url, b),
+                                    bodies))
+        wall = time.monotonic() - t0
+        launches = read_launches()
+        ttft = np.array(srv.loop._ttft_ms)
+    finally:
+        srv.shutdown()
+    errors = [r["finish"] for r in results if "error" in str(r["finish"])]
+    if errors:
+        fail(f"multi_step server: completions failed: {errors}")
+    recs = graph_stats(engine.pool.graphs)
+    ms_launches_held("multi_step server", recs, "paged_attention")
+    replays = sum(r["replays"] for r in recs)
+    if any(engine.multi_fallbacks.values()) or not engine.multi_blocks \
+            or replays != engine.multi_block_steps:
+        fail(f"multi_step server: blocks {engine.multi_blocks}, block steps "
+             f"{engine.multi_block_steps}, replays {replays}, fallbacks "
+             f"{engine.multi_fallbacks}")
+    diffs = []
+    for i, (r, want) in enumerate(zip(results, ref["texts"])):
+        got_ids = [int(x) for x in TOKEN.findall(r["text"])]
+        want_ids = [int(x) for x in TOKEN.findall(want)]
+        if got_ids == want_ids:
+            continue
+        j = next(k for k, (a, b) in enumerate(zip(got_ids, want_ids))
+                 if a != b)
+        d = {"request": i, "step": j, **token_margin(model, prompts[i],
+                                                      want_ids[:j])}
+        emit({"multi_step_token_differs": d})
+        diffs.append(d)
+        if d["margin"] > d["tolerance"]:
+            fail(f"multi_step server: request {i} differs from the "
+                 f"host-stepped text at step {j}, top-2 margin "
+                 f"{d['margin']:.4g} > {d['tolerance']:.4g}")
+    blocks = [dt / n for n, dt in log if n]
+    graph_launches = {k: sum(r["launches_per_replay"][k] * r["replays"]
+                             for r in recs) for k in recs[0][
+                                 "launches_per_replay"]}
+    return {
+        "requests": len(bodies), "wall_s": wall,
+        "generated_tok_s": SERVE_STREAMS * SERVE_NEW / wall,
+        "ttft_ms_median": float(np.median(ttft)),
+        "ttft_ms_max": float(ttft.max()),
+        "host_stepped_tok_s": ref["generated_tok_s"],
+        "host_stepped_ttft_ms_median": ref["ttft_ms_median"],
+        "host_stepped_ttft_ms_max": ref["ttft_ms_max"],
+        "texts_equal": len(bodies) - len(diffs), "differs": diffs,
+        "blocks": engine.multi_blocks,
+        "block_steps": engine.multi_block_steps,
+        "host_steps_during_run": sum(1 for n, _ in log if not n),
+        "fallbacks": engine.multi_fallbacks,
+        "ms_per_block_step_median": (1e3 * float(np.median(blocks))
+                                     if blocks else None),
+        # each block's wall ms a step, in order; a block that captured its
+        # key's graph includes the warm-up steps and the capture
+        "block_ms_per_step": [1e3 * b for b in blocks],
+        "replays": replays, "graph_launches": graph_launches,
+        "counted_launches": launches, "graphs": recs,
+    }
+
+
+def multi_step_phase(model, dev, serve) -> dict:
+    """Multi-step serving on the 7B model: the server with multi_step=16
+    against the host-stepped serve phase; the decode loops driven
+    directly and timed over whole blocks (paged int8 at 16 and 64
+    streams, dense bf16 at 8); one captured step against the eager step."""
+    parts = {
+        "server": lambda: multi_step_server(model, serve),
+        "paged_int8_b16": lambda: paged_loop_case(
+            model, dev, SERVE_STREAMS, serve["concurrent"]["prompt_tokens"],
+            "paged int8 B=16"),
+        "dense_bf16_b8": lambda: dense_loop_case(model, dev),
+        "paged_int8_b64": lambda: paged_loop_case(
+            model, dev, MS_B64, [MS_B64_PAST] * MS_B64, "paged int8 B=64"),
+        "replay_vs_eager": lambda: replay_vs_eager_batched(model, dev),
+    }
+    out = {"part_s": {}}
+    for name, run in parts.items():
+        t0 = time.monotonic()
+        out[name] = run()
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["part_s"][name] = time.monotonic() - t0
+    keys = ("ms_per_step", "tok_s", "bound_ms_per_step", "replays_per_block",
+            "launches_per_block", "device_busy_share", "device_ms_per_step")
+    out["summary"] = {
+        "server": {k: out["server"][k] for k in (
+            "generated_tok_s", "ttft_ms_median", "ttft_ms_max",
+            "host_stepped_tok_s", "host_stepped_ttft_ms_median",
+            "host_stepped_ttft_ms_max", "blocks", "block_steps",
+            "ms_per_block_step_median", "block_ms_per_step", "texts_equal",
+            "fallbacks")},
+        "part_s": out["part_s"],
+        **{name: {**{k: out[name][k] for k in keys},
+                  "capture_s": [g["capture_s"] for g in out[name]["graphs"]],
+                  "pool_bytes": [g["pool_bytes"]
+                                 for g in out[name]["graphs"]]}
+           for name in ("paged_int8_b16", "dense_bf16_b8", "paged_int8_b64")},
+    }
+    emit({"multi_step_summary": out["summary"]})
     return out
 
 
@@ -2083,7 +2571,7 @@ def attn_by_case(recs, label) -> dict:
 
 
 def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
-                   cinf, ab, dsamp) -> list[dict]:
+                   cinf, ab, dsamp, multi) -> list[dict]:
     """One entry per kernel: times summed over the launches of one decode
     step at 7B (qmatmul: the 4 projections x 32 layers + lm_head at M=1;
     dense_attention: 32 layers at W=512, bf16 cache, full window;
@@ -2092,7 +2580,11 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
     `infer` for qmatmul and dense_attention, the paged server for
     paged_attention; `launches_by_path` has the count of each path's own
     run: `infer`, the paged server and the dense engine, and for qmatmul
-    and dense_attention the device-sampling path's graph replays."""
+    and dense_attention the device-sampling path's graph replays, and for
+    qmatmul, dense_attention and paged_attention the multi-step paths'
+    graph replays (each capture's count times its replays): the server
+    with multi_step=16 (`multi_step_server`) and the decode loops driven
+    directly (`multi_step_loops`)."""
     per_token = {"qkv": N_LAYER, "wo": N_LAYER, "gate_up": N_LAYER,
                  "down": N_LAYER, "lm_head": 1}
     dec = [r for r in qrecs if r["M"] == 1 and r["case"] in per_token]
@@ -2186,6 +2678,15 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
     for e in entries[1:3]:
         e["launches_by_path"]["device_sampling"] = \
             DS_LAUNCHES[e["name"]] * replays
+    loops = [g for name in ("paged_int8_b16", "dense_bf16_b8",
+                            "paged_int8_b64")
+             for g in multi[name]["graphs"]]
+    for e in entries[1:4]:
+        e["launches_by_path"]["multi_step_server"] = \
+            multi["server"]["graph_launches"][e["name"]]
+        e["launches_by_path"]["multi_step_loops"] = sum(
+            g["launches_per_replay"][e["name"]] * g["replays"]
+            for g in loops)
     # qmatmul's launches by consumer path, in each path's own run
     entries[1]["launches_by_consumer_path"] = {
         name: {"swapped": ls["qmatmul_swapped"], "wide": ls["qmatmul_wide"]}
@@ -2286,17 +2787,22 @@ def main() -> None:
     serve = serve_phase(model, dev)
     results["serve"] = serve
     emit({"serve": serve})
+    lap("serve")
+
+    multi = multi_step_phase(model, dev, serve)
+    results["multi_step"] = multi
+    emit({"multi_step": multi})
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    lap("serve")
+    lap("multi_step")
 
     probes = probe_phase(dev)
     results["probes"] = probes
     lap("probes")
 
     kernels = kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
-                             cinf, ab, dsamp)
+                             cinf, ab, dsamp, multi)
     kernels += probe_entries(probes, checks, dev, timer)
     del timer
     lap("kernel_entries")

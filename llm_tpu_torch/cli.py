@@ -409,6 +409,7 @@ def cmd_serve(args) -> None:
             page_size=args.page_size,
             n_pages=args.n_pages,
             prefix_cache=args.prefix_cache,
+            multi_step=args.multi_step,
             warmup=not args.no_warmup,
         )
     except KeyboardInterrupt:
@@ -465,6 +466,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reuse full prompt-prefix KV pages across requests "
                    "(exact-match, refcounted, LRU-evicted under pool "
                    "pressure; requires --paged)")
+    p.add_argument("--multi-step", type=int, default=0,
+                   help="decode N tokens per device dispatch when every "
+                   "active request's sampling is device-expressible "
+                   "(greedy / temperature / top-k / top-p / min-p / "
+                   "penalties)")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip the startup warm-up request")
     p.set_defaults(fn=cmd_serve)

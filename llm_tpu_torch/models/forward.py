@@ -16,11 +16,12 @@ The counterpart of `llm_tpu/models/forward.py`:
   _ONLINE_MIN_SCORE_BYTES.
 - The new keys/values of all layers are written to the cache after the
   layer loop, at each stream's own n_past, read from a device tensor: one
-  copy per cache tensor and stream.
+  indexed write per cache tensor, predicated by a write mask on the device.
 - KQ numerics mirror ggml: scale 1/sqrt(n_embd/n_head), optional ALiBi added
   after scaling, causal mask, f32 softmax.
-- `decode_loop` generates n_steps tokens with on-device sampling; on the
-  card its T=1 step is a captured CUDA graph, replayed once a token.
+- `decode_loop` (one stream) and `decode_loop_batched` (B streams)
+  generate n_steps tokens with on-device sampling; on the card their T=1
+  step is a captured CUDA graph, replayed once a token.
 """
 
 from __future__ import annotations
@@ -30,11 +31,12 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from llm_tpu_torch.models.params import LayerParams, ModelParams
 from llm_tpu_torch.models.spec import ModelSpec
-from llm_tpu_torch.ops import dense_attention
+from llm_tpu_torch.ops import dense_attention, paged_attention
 from llm_tpu_torch.ops import qmatmul as qmatmul_mod
 from llm_tpu_torch.ops.dense_attention import online_cache_pass_batched
 from llm_tpu_torch.ops.layers import (
@@ -48,6 +50,7 @@ from llm_tpu_torch.ops.layers import (
 from llm_tpu_torch.ops.packing import split_fused
 from llm_tpu_torch.ops.qmatmul import qmatmul, quant_rows_lookup
 from llm_tpu_torch.ops.sampling import (
+    BatchedDeviceSampler,
     DeviceSampler,
     bias_vector,
     device_sample_step,
@@ -365,17 +368,20 @@ def run_layers_batched(spec: ModelSpec, layers: LayerParams, h, positions,
 
 
 def write_cache_batched(cache: KVCache, k_news: list, v_news: list,
-                        n_past: torch.Tensor,
-                        write_mask: Optional[Sequence[bool]] = None
-                        ) -> KVCache:
+                        n_past: torch.Tensor, write_mask=None) -> KVCache:
     """Write the new K/V rows [B, T, H, D] of every layer (or (codes,
     scales) when int8) into the cache in place, at each stream's own
-    position n_past [B] (an int tensor on the cache's device): one copy
-    per cache tensor and stream, all layers at once. Streams with
-    write_mask False are skipped. Like the reference's dynamic_update_slice,
-    a start that would run past the end is clamped to S - T."""
+    position n_past [B] (an int tensor on the cache's device): one indexed
+    write per cache tensor, all layers and streams at once. Like the
+    reference's dynamic_update_slice, a start that would run past the end
+    is clamped to S - T.
+
+    `write_mask` [B] (a bool tensor on the cache's device, or host bools):
+    a stream with False writes its own current rows back, as the
+    reference's predicated update does, so one captured step serves any
+    mask the buffer holds."""
     quantized = cache.k_scale is not None
-    S = cache.k.shape[3]
+    B, S = cache.k.shape[1], cache.k.shape[3]
     if quantized:
         pairs = ((cache.k, [kn[0] for kn in k_news]),
                  (cache.v, [vn[0] for vn in v_news]),
@@ -384,15 +390,22 @@ def write_cache_batched(cache: KVCache, k_news: list, v_news: list,
     else:
         pairs = ((cache.k, k_news), (cache.v, v_news))
     T = k_news[0][0].shape[1] if quantized else k_news[0].shape[1]
-    ar = torch.arange(T, dtype=torch.int64, device=cache.k.device)
-    start = torch.clamp(n_past.to(torch.int64), 0, S - T)
+    dev = cache.k.device
+    ar = torch.arange(T, dtype=torch.int64, device=dev)
+    pos = torch.clamp(n_past.to(torch.int64), 0, S - T)[:, None] + ar
+    bi = torch.arange(B, dtype=torch.int64, device=dev)[:, None].expand(B, T)
+    mask = None
+    if write_mask is not None:
+        mask = torch.as_tensor(write_mask, dtype=torch.bool, device=dev)
     for dst, news in pairs:
-        # [L, B, T, H(, D)] -> the cache's head-major [L, B, H, T(, D)]
-        new = torch.stack(news).to(dst.dtype).transpose(2, 3)
-        for b in range(new.shape[1]):
-            if write_mask is not None and not write_mask[b]:
-                continue
-            dst[:, b].index_copy_(2, start[b] + ar, new[:, b])
+        new = torch.stack(news).to(dst.dtype)  # [L, B, T, H(, D)]
+        # the cache [L, B, H, S(, D)] seen position-major: (b, pos) index
+        # two adjacent axes, and the rows take new's layout
+        rows = dst.transpose(2, 3)
+        if mask is not None:
+            keep = mask.view((1, B) + (1,) * (new.dim() - 2))
+            new = torch.where(keep, new, rows[:, bi, pos])
+        rows[:, bi, pos] = new
     return cache
 
 
@@ -430,7 +443,7 @@ def forward_batched(
     n_past: Union[Sequence[int], torch.Tensor],  # [B]
     cache: KVCache,  # [L, B, H_kv, S, D]
     window: Optional[int] = None,
-    write_mask: Optional[Sequence[bool]] = None,
+    write_mask=None,  # [B] bool: host bools or a tensor on the device
 ):
     """Batched forward over B independent streams sharing the weights.
 
@@ -438,8 +451,8 @@ def forward_batched(
     updated in place. `n_past`: host ints, or an int32 tensor on the
     cache's device, which the step reads without a host sync (the decode
     graph's form). `window` bounds cache reads and must cover max(n_past);
-    `write_mask` (default all True) skips the cache write of masked
-    streams."""
+    `write_mask` (default all True) keeps the cache rows of masked streams
+    as they are."""
     dev = cache.k.device
     ids = torch.as_tensor(ids, device=dev)
     B, T = ids.shape
@@ -476,8 +489,9 @@ def _check_window(window, n_past, extra: int = 0) -> None:
     would silently drop cached context from attention: a hard error."""
     if window is None:
         return
-    past = max(int(p) for p in (n_past if isinstance(n_past, (list, tuple))
-                                else [n_past]))
+    if isinstance(n_past, torch.Tensor):
+        n_past = n_past.cpu().numpy()
+    past = int(np.max(np.asarray(n_past)))
     if window < past + extra:
         raise ValueError(
             f"attention window {window} does not cover n_past={past}"
@@ -503,20 +517,24 @@ def window_bucket(n_past: int, n_ctx: int, granule: int = 512) -> int:
 
 
 # ---------------------------------------------------------------------------
-# the on-device decode loop
+# the on-device decode loops
 
 
 _WARMUPS = 2  # eager steps on the capture stream before a capture
-_MAX_GRAPHS = 8  # decode graphs kept per cache; the oldest is dropped
+_MAX_GRAPHS = 8  # decode graphs kept per cache or pool; the oldest goes
 
 
 @dataclass(eq=False)
 class DecodeGraph:
-    """One captured T=1 decode step over one cache and its static buffers
-    (`state`): logits [V], npast [1], the step index [1], the tokens and
-    the mu after each step [cap], the penalty window and mu, and the
-    uniforms [cap, V]. A replay reads and writes only these, the weights
-    and the cache."""
+    """One captured T=1 decode step over one cache (or page pool) and its
+    static buffers (`state`): for one stream (`decode_loop`) logits [V],
+    npast [1], the step index [1], the tokens and the mu after each step
+    [cap], the penalty window and mu, and the uniforms [cap, V]; for B
+    streams (`decode_loop_batched`, `paged.paged_decode_loop`) the same
+    with a leading [B] (tokens [cap, B], uniforms [cap, B, V]), plus the
+    per-stream sampler values, the write mask or the page tables and the
+    block's rows, and the logprob outputs. A replay reads and writes only
+    these, the weights and the cache."""
 
     state: dict = field(repr=False)
     bias: Optional[torch.Tensor] = field(repr=False)  # the flat bias [V]
@@ -530,9 +548,49 @@ class DecodeGraph:
     replays: int = 0
 
 
+def _capacity(n_steps: int) -> int:
+    """A graph's block capacity: n_steps rounded up to a power of two, so
+    a shorter block reuses the graph of its capacity."""
+    return 1 << (n_steps - 1).bit_length()
+
+
+def _shapes(tree: Optional[dict]) -> tuple:
+    """(name, shape) of each tensor of a state or value dict: the part of
+    a graph's key that its buffers' shapes depend on."""
+    return tuple((k, tuple(torch.as_tensor(v).shape))
+                 for k, v in sorted((tree or {}).items()))
+
+
+def _draws(sampler) -> bool:
+    """Whether the sampler takes noise (else it never reads uniforms)."""
+    if isinstance(sampler, BatchedDeviceSampler):
+        return sampler.sample
+    return sampler.kind != "greedy"
+
+
+def _block_uniforms(sampler, uniforms, key: Optional[torch.Generator],
+                    shape: tuple, dev) -> Optional[torch.Tensor]:
+    """A block's uniforms in [1e-20, 1) (None when the sampler takes no
+    noise): `uniforms` when given, which must have `shape`, else drawn
+    from `key` (None: a generator of seed 0 on `dev`)."""
+    if not _draws(sampler):
+        return None
+    if uniforms is not None:
+        u = torch.as_tensor(uniforms, dtype=torch.float32).to(dev)
+        if tuple(u.shape) != tuple(shape):
+            raise ValueError(f"uniforms {tuple(u.shape)}, expected "
+                             f"{tuple(shape)}")
+        return u
+    if key is None:
+        key = torch.Generator(device=dev)
+        key.manual_seed(0)
+    # the reference's uniform(minval=1e-20, maxval=1.0)
+    return torch.rand(shape, generator=key, device=dev).clamp_min_(1e-20)
+
+
 def _step_state(spec, sampler, penalty_state, has_mu: bool, cap: int,
                 dev) -> dict:
-    """The static buffers of a decode step (see DecodeGraph)."""
+    """The static buffers of a single-stream decode step (DecodeGraph)."""
     V = spec.n_vocab
     st = {
         "logits": torch.zeros(V, dtype=torch.float32, device=dev),
@@ -552,7 +610,7 @@ def _step_state(spec, sampler, penalty_state, has_mu: bool, cap: int,
 
 def _load_state(st: dict, last_logits, n_past: int, penalty_state,
                 u: Optional[torch.Tensor]) -> None:
-    """Copy a block's inputs into the static buffers."""
+    """Copy a single-stream block's inputs into the static buffers."""
     st["logits"].copy_(torch.as_tensor(last_logits, dtype=torch.float32))
     st["npast"].fill_(n_past)
     st["i"].zero_()
@@ -587,60 +645,96 @@ def _decode_step(spec, params, cache: KVCache, window: int, sampler,
     i.add_(1)
 
 
-def _capture(g: DecodeGraph, spec, params, cache: KVCache, window: int,
-             sampler) -> None:
-    """Warm the step up eagerly on a side stream (builds and loads the
-    kernels, sizes the attention workspace of that stream), then capture
-    one step on it. The warm-up writes the cache row at npast, which no
-    read sees before the first replay overwrites it. Raises if the capture
-    fails: there is no eager fallback on the card."""
-    dev = cache.k.device
+def _launch_counts() -> dict:
+    return {"qmatmul": qmatmul_mod.LAUNCHES,
+            "dense_attention": dense_attention.LAUNCHES,
+            "paged_attention": paged_attention.LAUNCHES}
+
+
+def _capture(g: DecodeGraph, dev, step) -> None:
+    """Warm `step` (one decode step over g.state) up eagerly on a side
+    stream (builds and loads the kernels, sizes the attention workspace of
+    that stream at the step's own shapes), then capture one step on it.
+    Each warm-up is a first step: the step index and npast go back to
+    their loaded values. A dense cache's warm-up writes its rows at npast,
+    which no read sees before the first replay overwrites them; a paged
+    step writes only the block's rows. Raises if the capture fails: there
+    is no eager fallback on the card."""
     st = g.state
     npast = st["npast"].clone()
     s = torch.cuda.Stream(dev)
     s.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(s):
         for _ in range(_WARMUPS):
-            # each warm-up is a first step: the index stays in the buffers
             st["i"].zero_()
             st["npast"].copy_(npast)
-            _decode_step(spec, params, cache, window, sampler, st, g.bias)
+            step()
     torch.cuda.current_stream(dev).wait_stream(s)
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(dev)
-    q0, a0 = qmatmul_mod.LAUNCHES, dense_attention.LAUNCHES
+    before = _launch_counts()
     t0 = time.monotonic()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=s):
-        _decode_step(spec, params, cache, window, sampler, st, g.bias)
+        step()
     torch.cuda.synchronize(dev)
     g.capture_s = time.monotonic() - t0
-    g.launches = {"qmatmul": qmatmul_mod.LAUNCHES - q0,
-                  "dense_attention": dense_attention.LAUNCHES - a0}
+    g.launches = {k: v - before[k] for k, v in _launch_counts().items()}
     g.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
     g.graph = graph
 
 
+def _graph_entry(graphs: dict, key, make) -> DecodeGraph:
+    """The graph of `key` in `graphs` (a cache's or a pool's), made by
+    make() (not yet captured) when missing; the most recently used come
+    last, and past _MAX_GRAPHS the least recently used goes."""
+    g = graphs.pop(key, None)
+    if g is None:
+        g = make()
+        while len(graphs) >= _MAX_GRAPHS:
+            graphs.pop(next(iter(graphs)))
+    graphs[key] = g
+    return g
+
+
 def _graph_for(spec, params, cache: KVCache, window: int, sampler,
                penalty_state, has_mu: bool, n_steps: int) -> DecodeGraph:
-    """The cache's decode graph for this static key (window, sampler, the
-    penalty state's shapes, mu trajectory, capacity), made (not yet
-    captured) when missing; the most recently used come last."""
-    cap = 1 << (n_steps - 1).bit_length()
-    shapes = tuple((k, tuple(torch.as_tensor(v).shape))
-                   for k, v in sorted((penalty_state or {}).items()))
-    key = (id(params), window, sampler, shapes, has_mu, cap)
-    g = cache.graphs.pop(key, None)
-    if g is None:
-        dev = cache.k.device
-        g = DecodeGraph(
-            _step_state(spec, sampler, penalty_state, has_mu, cap, dev),
-            bias_vector(sampler, spec.n_vocab, dev), params)
-        while len(cache.graphs) >= _MAX_GRAPHS:
-            cache.graphs.pop(next(iter(cache.graphs)))
-    cache.graphs[key] = g
-    return g
+    """The cache's single-stream decode graph for this static key (window,
+    sampler, the penalty state's shapes, mu trajectory, capacity)."""
+    cap = _capacity(n_steps)
+    key = (id(params), window, sampler, _shapes(penalty_state), has_mu, cap)
+    dev = cache.k.device
+    return _graph_entry(cache.graphs, key, lambda: DecodeGraph(
+        _step_state(spec, sampler, penalty_state, has_mu, cap, dev),
+        bias_vector(sampler, spec.n_vocab, dev), params))
+
+
+def _on_card(graph: bool, dev) -> bool:
+    """Whether a loop runs its step as a captured graph: asked for, on a
+    CUDA device (the CPU always runs it eagerly)."""
+    return graph and torch.device(dev).type == "cuda"
+
+
+def _run_block(g: DecodeGraph, step, load, n_steps: int, graph: bool,
+               dev) -> dict:
+    """Run n_steps decode steps over g.state, its buffers loaded by
+    load(state): with `graph`, replays of g's graph (captured at its first
+    block); else `step` eagerly. Returns the state."""
+    st = g.state
+    if graph:
+        if g.graph is None:
+            load(st)
+            _capture(g, dev, step)
+        load(st)
+        for _ in range(n_steps):
+            g.graph.replay()
+        g.replays += n_steps
+    else:
+        load(st)
+        for _ in range(n_steps):
+            step()
+    return st
 
 
 @torch.no_grad()
@@ -675,37 +769,20 @@ def decode_loop(spec, params, last_logits, n_past, cache: KVCache,
     W = S if window is None else min(window, S)
     has_mu = (return_state and isinstance(penalty_state, dict)
               and "mu" in penalty_state)
-    u = None
-    if sampler.kind != "greedy":
-        if uniforms is not None:
-            u = torch.as_tensor(uniforms, dtype=torch.float32).to(dev)
-            if u.shape != (n_steps, spec.n_vocab):
-                raise ValueError(f"uniforms {tuple(u.shape)}, expected "
-                                 f"{(n_steps, spec.n_vocab)}")
-        else:
-            if key is None:
-                key = torch.Generator(device=dev)
-                key.manual_seed(0)
-            # the reference's uniform(minval=1e-20, maxval=1.0)
-            u = torch.rand((n_steps, spec.n_vocab), generator=key,
-                           device=dev).clamp_min_(1e-20)
-    if graph and dev.type == "cuda":
+    u = _block_uniforms(sampler, uniforms, key, (n_steps, spec.n_vocab), dev)
+    on_card = _on_card(graph, dev)
+    if on_card:
         g = _graph_for(spec, params, cache, W, sampler, penalty_state, has_mu,
                        n_steps)
-        st = g.state
-        if g.graph is None:
-            _load_state(st, last_logits, n_past, penalty_state, u)
-            _capture(g, spec, params, cache, W, sampler)
-        _load_state(st, last_logits, n_past, penalty_state, u)
-        for _ in range(n_steps):
-            g.graph.replay()
-        g.replays += n_steps
     else:
-        st = _step_state(spec, sampler, penalty_state, has_mu, n_steps, dev)
-        _load_state(st, last_logits, n_past, penalty_state, u)
-        bias = bias_vector(sampler, spec.n_vocab, dev)
-        for _ in range(n_steps):
-            _decode_step(spec, params, cache, W, sampler, st, bias)
+        g = DecodeGraph(
+            _step_state(spec, sampler, penalty_state, has_mu, n_steps, dev),
+            bias_vector(sampler, spec.n_vocab, dev), params)
+    st = _run_block(
+        g, lambda: _decode_step(spec, params, cache, W, sampler, g.state,
+                                g.bias),
+        lambda st: _load_state(st, last_logits, n_past, penalty_state, u),
+        n_steps, on_card, dev)
     toks = st["toks"][:n_steps].clone()
     out = (toks, st["logits"].clone(), st["npast"][0].clone(), cache)
     if not return_state:
@@ -714,3 +791,205 @@ def decode_loop(spec, params, last_logits, n_past, cache: KVCache,
     if has_mu:
         pst["mu_steps"] = st["mu_steps"][:n_steps].clone()
     return (*out, pst)
+
+
+# -- B streams a step -------------------------------------------------------
+
+
+def batched_state(spec, B: int, sampler, values: Optional[dict],
+                  penalty_state: Optional[dict], has_mu: bool,
+                  logprobs_n: Optional[int], cap: int, dev) -> dict:
+    """The static buffers of a batched decode step (DecodeGraph) common to
+    the dense and the paged loop."""
+    V = spec.n_vocab
+    f32 = torch.float32
+    st = {
+        "logits": torch.zeros((B, V), dtype=f32, device=dev),
+        "npast": torch.zeros(B, dtype=torch.int32, device=dev),
+        "i": torch.zeros(1, dtype=torch.int64, device=dev),
+        "toks": torch.zeros((cap, B), dtype=torch.int32, device=dev),
+    }
+    if _draws(sampler):
+        st["u"] = torch.full((cap, B, V), 0.5, dtype=f32, device=dev)
+    for k, v in (penalty_state or {}).items():
+        v = torch.as_tensor(v)
+        st[k] = torch.zeros(v.shape, dtype=v.dtype, device=dev)
+    if has_mu:
+        st["mu_steps"] = torch.zeros((cap, B), dtype=f32, device=dev)
+    for k, v in (values or {}).items():
+        st["v_" + k] = torch.zeros(v.shape, dtype=v.dtype, device=dev)
+    if logprobs_n is not None:
+        n = max(logprobs_n, 1)
+        st["lp"] = torch.zeros((cap, B), dtype=f32, device=dev)
+        st["topv"] = torch.zeros((cap, B, n), dtype=f32, device=dev)
+        st["topi"] = torch.zeros((cap, B, n), dtype=torch.int64, device=dev)
+    return st
+
+
+def load_batched(st: dict, last_logits, n_past, penalty_state, values,
+                 u: Optional[torch.Tensor]) -> None:
+    """Copy a block's inputs into the static buffers: one copy a tensor."""
+    st["logits"].copy_(torch.as_tensor(last_logits, dtype=torch.float32))
+    st["npast"].copy_(torch.as_tensor(n_past))
+    st["i"].zero_()
+    for k, v in (penalty_state or {}).items():
+        st[k].copy_(torch.as_tensor(v))
+    for k, v in (values or {}).items():
+        st["v_" + k].copy_(v)
+    if u is not None:
+        st["u"][: u.shape[0]].copy_(u)
+
+
+def batched_step(st: dict, sampler, bias, forward) -> None:
+    """One token for every stream, on the buffers of `st` in place: sample
+    from the logits [B, V] with the step's uniforms (the same draw for the
+    Gumbel and the mirostat pick), gather the sampled token's logprob and
+    the top-N from the same row (the reference's pre-update definition),
+    forward(tokens [B], step index) -> the next logits [B, V], store the
+    tokens (and mu) at the step index, advance npast and the index. No
+    host sync and no host copy: the graph captures exactly this."""
+    i = st["i"]
+    logits = st["logits"]
+    u = st["u"].index_select(0, i)[0] if "u" in st else None
+    pst = {k: st[k] for k in _PENALTY_KEYS if k in st} or None
+    values = {k[2:]: v for k, v in st.items() if k.startswith("v_")} or None
+    tok, pst = device_sample_step(logits, u, sampler, pst, bias, values)
+    if "lp" in st:
+        logz = torch.log_softmax(logits, dim=-1)
+        st["lp"].index_copy_(0, i, logz.gather(1, tok[:, None].long()).T)
+        topv, topi = torch.topk(logz, st["topv"].shape[-1], dim=-1)
+        st["topv"].index_copy_(0, i, topv[None])
+        st["topi"].index_copy_(0, i, topi[None])
+    st["logits"].copy_(forward(tok, i))
+    st["toks"].index_copy_(0, i, tok[None])
+    if "mu_steps" in st:
+        st["mu_steps"].index_copy_(0, i, pst["mu"][None])
+    for k, v in (pst or {}).items():
+        st[k].copy_(v)
+    st["npast"].add_(1)
+    i.add_(1)
+
+
+def batched_out(st: dict, n_steps: int, cache, penalty_state,
+                return_state: bool, logprobs_n: Optional[int]) -> tuple:
+    """The reference's return of a batched loop: (tokens [n_steps, B],
+    final logits [B, V], n_past [B], cache[, sampler state][, (logprobs
+    [n_steps, B], top-N values and ids [n_steps, B, N])]), copies of the
+    buffers."""
+    out = [st["toks"][:n_steps].clone(), st["logits"].clone(),
+           st["npast"].clone(), cache]
+    if return_state:
+        pst = None
+        if penalty_state is not None:
+            pst = {k: st[k].clone() for k in _PENALTY_KEYS if k in st}
+            if "mu_steps" in st:
+                pst["mu_steps"] = st["mu_steps"][:n_steps].clone()
+        out.append(pst)
+    if logprobs_n is not None:
+        out.append(tuple(st[k][:n_steps].clone()
+                         for k in ("lp", "topv", "topi")))
+    return tuple(out)
+
+
+def batched_graph(graphs: dict, key: tuple, spec, params, B: int, sampler,
+                  values, penalty_state, has_mu: bool, logprobs_n, n_steps,
+                  dev, on_card: bool, extra) -> DecodeGraph:
+    """The batched step's DecodeGraph: on the card the one of `graphs` for
+    `key` plus the static structure (B, sampler, the shapes of the values
+    and penalty state, mu, logprobs, capacity); eagerly a fresh one.
+    extra(state) adds the loop's own buffers."""
+    cap = _capacity(n_steps)
+
+    def make():
+        st = batched_state(spec, B, sampler, values, penalty_state, has_mu,
+                           logprobs_n, cap, dev)
+        extra(st)
+        bias = (bias_vector(sampler, spec.n_vocab, dev)
+                if isinstance(sampler, DeviceSampler) else None)
+        return DecodeGraph(st, bias, params)
+
+    if not on_card:
+        return make()
+    key = key + (id(params), B, sampler, _shapes(values),
+                 _shapes(penalty_state), has_mu, logprobs_n, cap)
+    return _graph_entry(graphs, key, make)
+
+
+@torch.no_grad()
+def decode_loop_batched(spec, params, last_logits, n_past, cache: KVCache,
+                        n_steps: int, window: Optional[int] = None,
+                        sampler=None, key: Optional[torch.Generator] = None,
+                        sampler_values: Optional[dict] = None,
+                        write_mask=None, penalty_state: Optional[dict] = None,
+                        logprobs_n: Optional[int] = None,
+                        return_state: bool = False,
+                        uniforms: Optional[torch.Tensor] = None,
+                        graph: bool = True):
+    """B streams x `n_steps` tokens on the device over the dense cache
+    (the reference's `decode_loop_batched`): per step, sample every
+    stream's token from its logits, evaluate the tokens at T=1, take the
+    next logits. `window` must cover max(n_past) + n_steps.
+
+    Returns (tokens [n_steps, B] int32, final logits [B, V] f32, n_past
+    [B] int32, cache); with `return_state` then the sampler state (its
+    `mu_steps` [n_steps, B] the mu after each step), with `logprobs_n`
+    last the sampled tokens' logprobs [n_steps, B] and the top-N values
+    and ids [n_steps, B, N] of each step's pre-update row
+    (`unpack_decode_out` reads the tail).
+
+    `sampler`: a DeviceSampler shared by every stream (None: greedy), or a
+    BatchedDeviceSampler with its per-stream `sampler_values`.
+    `write_mask` [B] bool: a masked stream (a dummy slot) keeps its cache
+    rows. `key` / `uniforms`: as for `decode_loop`, uniforms [n_steps, B,
+    V]. On the card the step runs as a CUDA graph captured once per
+    static key (`cache.graphs`: window, B, the sampler's structure, the
+    values' and penalty state's shapes, mu, logprobs_n, capacity): a
+    block loads logits, n_past, mask, values, penalty state, mu and
+    uniforms into its buffers, then replays it once a token. `graph=False`
+    runs the same step eagerly there (the CPU always does)."""
+    _check_window(window, n_past, extra=n_steps)
+    sampler = sampler or DeviceSampler.greedy()
+    dev = cache.k.device
+    B, S = cache.k.shape[1], cache.k.shape[3]
+    W = S if window is None else min(window, S)
+    has_mu = (return_state and isinstance(penalty_state, dict)
+              and "mu" in penalty_state)
+    u = _block_uniforms(sampler, uniforms, key, (n_steps, B, spec.n_vocab),
+                        dev)
+    mask = (torch.ones(B, dtype=torch.bool) if write_mask is None
+            else torch.as_tensor(write_mask, dtype=torch.bool))
+    on_card = _on_card(graph, dev)
+
+    def extra(st):
+        st["mask"] = torch.zeros(B, dtype=torch.bool, device=dev)
+
+    g = batched_graph(cache.graphs, ("dense", W), spec, params, B, sampler,
+                      sampler_values, penalty_state, has_mu, logprobs_n,
+                      n_steps, dev, on_card, extra)
+    st = g.state
+
+    def step():
+        batched_step(st, sampler, g.bias, lambda tok, i: forward_batched(
+            spec, params, tok[:, None], st["npast"], cache, W,
+            st["mask"])[0][:, 0])
+
+    def load(st):
+        load_batched(st, last_logits, n_past, penalty_state, sampler_values,
+                     u)
+        st["mask"].copy_(mask)
+
+    _run_block(g, step, load, n_steps, on_card, dev)
+    return batched_out(st, n_steps, cache, penalty_state, return_state,
+                       logprobs_n)
+
+
+def unpack_decode_out(out, return_state: bool, logprobs_n):
+    """The one reader of a decode loop's variadic tail, (toks, logits,
+    n_past, cache[, sampler state][, logprob arrays]): returns the
+    6-tuple with None for an absent extra."""
+    out = list(out)
+    toks, logits, npast, cache = out[:4]
+    rest = out[4:]
+    fstate = rest.pop(0) if return_state else None
+    lp = rest.pop(0) if logprobs_n is not None else None
+    return toks, logits, npast, cache, fstate, lp

@@ -1,7 +1,8 @@
-"""On-device token sampling for the single-stream decode loop.
+"""On-device token sampling for the decode loops.
 
-The counterpart of the single-stream half of `llm_tpu/ops/sampling.py`.
-`forward.decode_loop` samples each token on the model's device from the
+The counterpart of `llm_tpu/ops/sampling.py`. `forward.decode_loop`
+(one stream), `forward.decode_loop_batched` and `paged.paged_decode_loop`
+(a batch of streams) sample each token on the model's device from the
 current logits, so the host reads the tokens once per block of `n_steps`
 (on the card: one CUDA graph replay a token, no host round trip).
 
@@ -17,12 +18,15 @@ Plain torch; the reference has no kernel here either. What the port keeps:
   a time. Given the reference's uniforms, the picks are the reference's.
 - Division by a config constant is a multiplication by its f32 reciprocal,
   as XLA computes it in the reference's jitted loop.
-
-The batched half (`BatchedDeviceSampler` and its helpers) is not ported.
+- A batch of streams with different samplers shares one static structure,
+  `BatchedDeviceSampler`, whose per-stream values are tensors [B]
+  (`batched_sampler`): the step divides by them, as the reference divides
+  by its traced values, so they never become constants of a captured step.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -91,6 +95,147 @@ class DeviceSampler:
         return cls(kind="sample", temperature=temperature, top_k=k)
 
 
+@dataclass(frozen=True)
+class BatchedDeviceSampler:
+    """Static structure of a batch's per-stream sampling (hashable: one
+    decode graph per structure). The per-stream values are tensors
+    (`batched_sampler`), so streams with different temperatures, top-k,
+    penalties or biases share one captured step."""
+
+    sample: bool  # any stream non-greedy
+    top_k_max: int  # the static k of the top-k pass; per-stream k <= it
+    bias_tokens: Tuple[int, ...] = ()  # union of the biased token ids
+    any_top_p: bool = False
+    any_min_p: bool = False
+    any_penalty: bool = False
+    any_tail_free: bool = False
+    any_typical: bool = False
+    any_top_a: bool = False
+    # 0: no mirostat stream; 1 | 2: every mirostat stream's variant (a
+    # batch mixing them is rejected by batched_sampler)
+    mirostat_kind: int = 0
+    mirostat_m: int = 100
+    # the static ring width: the largest window of the penalized streams
+    # (the penalty values stay per stream)
+    penalty_last_n: int = 64
+
+
+def batched_sampler(samplers, n_slots: int, device=None):
+    """(static BatchedDeviceSampler, per-stream value tensors on `device`)
+    from per-slot DeviceSamplers; None entries sample greedily (their slots
+    are dummies). Raises ValueError for a batch mixing mirostat 1 and 2."""
+    live = [s for s in samplers if s is not None]
+    sampled = [s for s in live if s.kind == "sample"]
+    bias_tokens = tuple(sorted({t for s in live for t, _ in s.bias}))
+    miro_kinds = {s.mirostat for s in live if s.mirostat}
+    if len(miro_kinds) > 1:
+        raise ValueError(
+            "streams mixing mirostat 1 and mirostat 2 cannot share one "
+            "batched decode block"
+        )
+    cfg = BatchedDeviceSampler(
+        sample=bool(sampled),
+        top_k_max=max((s.top_k for s in sampled), default=0),
+        bias_tokens=bias_tokens,
+        any_top_p=any(s.top_p < 1.0 for s in sampled),
+        any_min_p=any(s.min_p > 0.0 for s in sampled),
+        any_penalty=any(s.has_penalties for s in live),
+        any_tail_free=any(s.tail_free_z < 1.0 for s in sampled),
+        any_typical=any(s.typical_p < 1.0 for s in sampled),
+        any_top_a=any(s.top_a != (0.0, 0.0) for s in sampled),
+        mirostat_kind=miro_kinds.pop() if miro_kinds else 0,
+        mirostat_m=max((s.mirostat_m for s in live if s.mirostat == 1),
+                       default=100),
+        penalty_last_n=max((s.penalty_last_n for s in live
+                            if s.has_penalties), default=64),
+    )
+    f32 = np.float32
+    v = {  # the neutral value of each feature
+        "temperature": np.zeros(n_slots, f32),  # 0 = greedy
+        "top_k": np.zeros(n_slots, np.int32),  # 0 = off
+        "top_p": np.ones(n_slots, f32),
+        "min_p": np.zeros(n_slots, f32),
+        "repeat_penalty": np.ones(n_slots, f32),
+        "frequency_penalty": np.zeros(n_slots, f32),
+        "presence_penalty": np.zeros(n_slots, f32),
+        "bias": np.zeros((n_slots, len(bias_tokens)), f32),
+        "tail_free_z": np.ones(n_slots, f32),
+        "typical_p": np.ones(n_slots, f32),
+        "top_a1": np.zeros(n_slots, f32),
+        "top_a2": np.zeros(n_slots, f32),
+        "mirostat_on": np.zeros(n_slots, bool),
+        "mirostat_tau": np.full(n_slots, 5.0, f32),
+        "mirostat_eta": np.full(n_slots, 0.1, f32),
+        "mirostat_m": np.full(n_slots, cfg.mirostat_m, np.int32),
+    }
+    col = {t: i for i, t in enumerate(bias_tokens)}
+    for i, s in enumerate(samplers):
+        if s is None:
+            continue
+        if s.kind == "sample":
+            v["temperature"][i] = s.temperature
+            v["top_k"][i] = s.top_k
+            v["top_p"][i] = s.top_p
+            v["min_p"][i] = s.min_p
+            v["tail_free_z"][i] = s.tail_free_z
+            v["typical_p"][i] = s.typical_p
+            v["top_a1"][i], v["top_a2"][i] = s.top_a
+            v["mirostat_on"][i] = s.mirostat != 0
+            v["mirostat_tau"][i] = s.mirostat_tau
+            v["mirostat_eta"][i] = s.mirostat_eta
+        if s.mirostat == 1:
+            v["mirostat_m"][i] = s.mirostat_m
+        v["repeat_penalty"][i] = s.repeat_penalty
+        v["frequency_penalty"][i] = s.frequency_penalty
+        v["presence_penalty"][i] = s.presence_penalty
+        for t, b in s.bias:
+            v["bias"][i, col[t]] = b
+    keys = _value_keys(cfg)
+    return cfg, {k: torch.from_numpy(v[k]).to(device) for k in keys}
+
+
+_BASE_KEYS = ("temperature", "top_k", "top_p", "min_p", "repeat_penalty",
+              "frequency_penalty", "presence_penalty", "bias")
+
+
+def _value_keys(cfg: BatchedDeviceSampler) -> tuple:
+    """The value tensors the structure reads, in the reference's order."""
+    keys = list(_BASE_KEYS)
+    if cfg.any_tail_free:
+        keys.append("tail_free_z")
+    if cfg.any_typical:
+        keys.append("typical_p")
+    if cfg.any_top_a:
+        keys += ["top_a1", "top_a2"]
+    if cfg.mirostat_kind:
+        keys += ["mirostat_on", "mirostat_tau", "mirostat_eta"]
+    if cfg.mirostat_kind == 1:
+        keys.append("mirostat_m")
+    return tuple(keys)
+
+
+def ensure_value_keys(values: dict, cfg: BatchedDeviceSampler,
+                      n_slots: int) -> dict:
+    """Fill neutral value tensors [n_slots] for features the structure
+    enables but `values` lacks (a structure agreed across several
+    value sets: each must hand the step the same keys)."""
+    dev = next(iter(values.values())).device if values else None
+    neutral = {
+        "tail_free_z": (1.0, torch.float32), "typical_p": (1.0, torch.float32),
+        "top_a1": (0.0, torch.float32), "top_a2": (0.0, torch.float32),
+        "mirostat_on": (False, torch.bool),
+        "mirostat_tau": (5.0, torch.float32),
+        "mirostat_eta": (0.1, torch.float32),
+        "mirostat_m": (cfg.mirostat_m, torch.int32),
+    }
+    v = dict(values)
+    for k in _value_keys(cfg):
+        if k not in v and k in neutral:
+            fill, dt = neutral[k]
+            v[k] = torch.full((n_slots,), fill, dtype=dt, device=dev)
+    return v
+
+
 def _recip(c: float) -> float:
     """The f32 reciprocal of a config constant (exact as a Python float)."""
     return float(np.float32(1.0) / np.float32(c))
@@ -106,11 +251,12 @@ def _neg_inf(x: torch.Tensor) -> torch.Tensor:
     return torch.full((), float("-inf"), dtype=x.dtype, device=x.device)
 
 
-def _top_p_truncate(x: torch.Tensor, p: float, iters: int = 24):
+def _top_p_truncate(x: torch.Tensor, p, iters: int = 24):
     """Nucleus truncation without a vocab sort: bisect the probability
     cutoff c (mass(c), the sum of probs >= c, falls as c rises) to the
     largest c with mass(c) >= p, in `iters` masked sums. Keeps the
-    smallest top-probability set with mass >= p, ties included."""
+    smallest top-probability set with mass >= p, ties included. `p` is a
+    float or a tensor of one value a row; a row at p >= 1 keeps all."""
     probs = _softmax(x)
     lo = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
     hi = torch.amax(probs, dim=-1)
@@ -179,19 +325,27 @@ def update_penalty_state(state: Optional[dict], toks: torch.Tensor):
     }
 
 
-def _apply_penalties(x: torch.Tensor, state: dict, cfg: DeviceSampler):
+def _apply_penalties(x: torch.Tensor, state: dict, cfg, values=None):
     """The host chain's Repetition (presence-gated l/p | l*p) and
-    FreqPresence (-count*freq - presence) over the windowed counts."""
+    FreqPresence (-count*freq - presence) over the windowed counts. A
+    BatchedDeviceSampler takes each stream's values [B] from `values` and
+    divides by its penalty, as the reference divides by a traced value."""
     counts = state["counts"]
     seen = counts > 0
+    if isinstance(cfg, BatchedDeviceSampler):
+        rp = values["repeat_penalty"][:, None]
+        x = torch.where(seen, torch.where(x < 0, x * rp, x / rp), x)
+        return x - counts * values["frequency_penalty"][:, None] \
+            - seen.to(x.dtype) * values["presence_penalty"][:, None]
     rp = cfg.repeat_penalty
     x = torch.where(seen, torch.where(x < 0, x * rp, x * _recip(rp)), x)
     return x - counts * cfg.frequency_penalty \
         - seen.to(x.dtype) * cfg.presence_penalty
 
 
-def _min_p_truncate(x: torch.Tensor, min_p: float):
-    """Keep tokens whose probability is at least min_p times the top one."""
+def _min_p_truncate(x: torch.Tensor, min_p):
+    """Keep tokens whose probability is at least min_p times the top one;
+    `min_p` a float or one value a row (0 keeps everything)."""
     probs = _softmax(x)
     cutoff = min_p * torch.amax(probs, dim=-1)
     return torch.where(probs >= cutoff[..., None], x, _neg_inf(x))
@@ -203,10 +357,12 @@ def _sort_desc(x: torch.Tensor) -> torch.Tensor:
     return torch.flip(torch.sort(x, dim=-1, stable=True).values, dims=(-1,))
 
 
-def _tail_free_truncate(x: torch.Tensor, z: float):
+def _tail_free_truncate(x: torch.Tensor, z):
     """Tail-free truncation: sort probs descending, normalize the |second
-    difference|, keep tokens up to the cumulative-z point."""
-    if z >= 1.0:
+    difference|, keep tokens up to the cumulative-z point. `z` a float or
+    one value a row; a row at z >= 1 keeps everything."""
+    rows = isinstance(z, torch.Tensor)
+    if not rows and z >= 1.0:
         return x
     V = x.shape[-1]
     svals = _sort_desc(x)
@@ -217,15 +373,19 @@ def _tail_free_truncate(x: torch.Tensor, z: float):
                      d2)
     cum = torch.cumsum(d2, dim=-1)
     # np.searchsorted(cum, z) == count of cum entries < z; keep = idx + 1
-    keep = torch.sum((cum < z).to(torch.int64), dim=-1) + 1
+    zc = z[..., None] if rows else z
+    keep = torch.sum((cum < zc).to(torch.int64), dim=-1) + 1
     cutoff = torch.gather(svals, -1, torch.clamp(keep - 1, 0, V - 1)[..., None])
-    return torch.where(x >= cutoff, x, _neg_inf(x))
+    out = torch.where(x >= cutoff, x, _neg_inf(x))
+    return torch.where(zc >= 1.0, x, out) if rows else out
 
 
-def _typical_truncate(x: torch.Tensor, p: float):
+def _typical_truncate(x: torch.Tensor, p):
     """Locally-typical truncation: rank tokens by |surprise - entropy|
-    ascending, keep the smallest prefix reaching cumulative probability p."""
-    if p >= 1.0:
+    ascending, keep the smallest prefix reaching cumulative probability p.
+    `p` a float or one value a row; a row at p >= 1 keeps everything."""
+    rows = isinstance(p, torch.Tensor)
+    if not rows and p >= 1.0:
         return x
     V = x.shape[-1]
     probs = _softmax(x)
@@ -238,20 +398,25 @@ def _typical_truncate(x: torch.Tensor, p: float):
     shifted = torch.abs(nlp - ent)
     order = torch.argsort(shifted, dim=-1, stable=True)  # ascending
     cum = torch.cumsum(torch.gather(probs, -1, order), dim=-1)
-    keep = torch.sum((cum < p).to(torch.int64), dim=-1) + 1
+    pc = p[..., None] if rows else p
+    keep = torch.sum((cum < pc).to(torch.int64), dim=-1) + 1
     ss = torch.gather(shifted, -1, order)
     cutoff = torch.gather(ss, -1, torch.clamp(keep - 1, 0, V - 1)[..., None])
-    return torch.where(shifted <= cutoff, x, _neg_inf(x))
+    out = torch.where(shifted <= cutoff, x, _neg_inf(x))
+    return torch.where(pc >= 1.0, x, out) if rows else out
 
 
-def _top_a_truncate(x: torch.Tensor, a1: float, a2: float):
+def _top_a_truncate(x: torch.Tensor, a1, a2):
     """Top-A truncation: keep tokens with probability >= a1 * pmax**a2;
-    rows where that would keep nothing (or a1 == a2 == 0) pass through."""
+    rows where that would keep nothing (or a1 == a2 == 0) pass through.
+    `a1`, `a2` floats or one value a row each."""
     probs = _softmax(x)
     pmax = torch.amax(probs, dim=-1)
     limit = a1 * torch.pow(pmax, a2)
     keep = probs >= limit[..., None]
-    active = ((a1 != 0.0) or (a2 != 0.0)) & (torch.sum(keep, dim=-1) >= 1)
+    on = ((a1 != 0.0) | (a2 != 0.0)) if isinstance(a1, torch.Tensor) \
+        else ((a1 != 0.0) or (a2 != 0.0))
+    active = on & (torch.sum(keep, dim=-1) >= 1)
     return torch.where(active[..., None] & ~keep, _neg_inf(x), x)
 
 
@@ -270,9 +435,11 @@ def _gumbel_pick(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 _LOG2E = 1.4426950408889634
 
 
-def _mirostat_sample(x, u, mu, tau: float, eta: float, kind: int, m: int):
+def _mirostat_sample(x, u, mu, tau, eta, kind: int, m: int, m_vals=None):
     """Mirostat 1/2 terminal over (temperature-scaled) logits x [.., V]
-    with mu [..]; returns (tok [..], new mu [..]).
+    with mu [..]; returns (tok [..], new mu [..]). `tau` and `eta` are
+    floats or one value a row; `m_vals` [..] gives each row its own Zipf
+    depth below the static bound `m`.
 
     - kind 2: keep tokens whose surprise -log2(p) <= mu (the top token
       when none qualifies), sample from the kept set, update
@@ -304,8 +471,14 @@ def _mirostat_sample(x, u, mu, tau: float, eta: float, kind: int, m: int):
         b_i = torch.where(pj > 0, torch.log(
             pi / torch.where(pj > 0, pj, torch.ones_like(pj))),
             torch.zeros_like(pj))
-        den = torch.sum(t_i * t_i)
-        num = torch.sum(t_i * b_i, dim=-1)
+        if m_vals is None:
+            den = torch.sum(t_i * t_i)
+            num = torch.sum(t_i * b_i, dim=-1)
+        else:  # per-row m: the estimate terms past a row's m are masked
+            mv = torch.clamp(m_vals.to(torch.float32), max=float(V - 1))
+            wm = (i < mv[..., None] - 1.0).to(torch.float32)
+            den = torch.sum(t_i * t_i * wm, dim=-1)
+            num = torch.sum(t_i * b_i * wm, dim=-1)
         # den == 0 (m <= 1 or V == 2): no estimate terms; the host keeps
         # the full vocab (s_hat = 1)
         s_hat = torch.where(den > 0, num / torch.where(den > 0, den,
@@ -339,32 +512,38 @@ def bias_vector(cfg: DeviceSampler, n_vocab: int,
 
 
 def device_sample(logits: torch.Tensor, u: Optional[torch.Tensor],
-                  cfg: DeviceSampler, penalty_state: Optional[dict] = None,
-                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Sample token ids [...] from logits [..., V] f32 under `cfg`.
+                  cfg, penalty_state: Optional[dict] = None,
+                  bias: Optional[torch.Tensor] = None,
+                  values: Optional[dict] = None) -> torch.Tensor:
+    """Sample token ids [...] from logits [..., V] f32 under `cfg`, a
+    DeviceSampler or (logits [B, V]) a BatchedDeviceSampler with its
+    per-stream `values`.
 
     Stateless view: the mirostat mu update is discarded; decode loops use
     `device_sample_step`. `u`: the uniforms (logits' shape; unused when
     greedy). `bias`: `bias_vector(cfg, ...)`, built here when None."""
-    tok, _ = _sample_core(logits, u, cfg, penalty_state, bias)
+    tok, _ = _sample_core(logits, u, cfg, penalty_state, bias, values)
     return tok
 
 
 def device_sample_step(logits: torch.Tensor, u: Optional[torch.Tensor],
-                       cfg: DeviceSampler, state: Optional[dict] = None,
-                       bias: Optional[torch.Tensor] = None):
+                       cfg, state: Optional[dict] = None,
+                       bias: Optional[torch.Tensor] = None,
+                       values: Optional[dict] = None):
     """Sample and advance the sampler state: the penalty window takes the
     token, the mirostat mu its update. Returns (tokens, new state); a None
     state passes through."""
-    tok, mu = _sample_core(logits, u, cfg, state, bias)
+    tok, mu = _sample_core(logits, u, cfg, state, bias, values)
     state = update_penalty_state(state, tok)
     if mu is not None:
         state = {**(state or {}), "mu": mu}
     return tok, state
 
 
-def _sample_core(logits, u, cfg: DeviceSampler, state, bias):
+def _sample_core(logits, u, cfg, state, bias, values=None):
     """-> (tokens int32, new mu | None)."""
+    if isinstance(cfg, BatchedDeviceSampler):
+        return _device_sample_batched(logits, u, cfg, values, state)
     if cfg.bias:
         if bias is None:
             bias = bias_vector(cfg, logits.shape[-1], logits.device)
@@ -399,3 +578,96 @@ def _sample_core(logits, u, cfg: DeviceSampler, state, bias):
                                 cfg.mirostat_eta, cfg.mirostat,
                                 cfg.mirostat_m)
     return _gumbel_pick(x, u), None
+
+
+@functools.lru_cache(maxsize=64)
+def _bias_cols(tokens: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The biased token ids of a structure on `device`, built once, so a
+    captured step copies nothing from the host. Callers must not write to
+    the result."""
+    return torch.tensor(tokens, dtype=torch.int64, device=device)
+
+
+def _device_sample_batched(logits: torch.Tensor, u: Optional[torch.Tensor],
+                           cfg: BatchedDeviceSampler, values: dict,
+                           state: Optional[dict] = None):
+    """Logits [B, V] with each stream's own temperature (0 = greedy),
+    top-k (0 = off), top-p, min-p, tail-free, typical, top-a, windowed
+    penalties, mirostat and flat bias, in one pass over the batch. `u`
+    [B, V]: the step's uniforms, the same draw for the Gumbel pick and
+    the mirostat pick (as the reference uses one key for both). Returns
+    (tokens [B], new mu [B] | None)."""
+    B, V = logits.shape
+    if cfg.bias_tokens:
+        logits = logits.index_add(
+            1, _bias_cols(cfg.bias_tokens, logits.device), values["bias"])
+    if state is not None and cfg.any_penalty:
+        logits = _apply_penalties(logits, state, cfg, values)
+    if not cfg.sample:
+        return torch.argmax(logits, dim=-1).to(torch.int32), None
+
+    t = values["temperature"][:, None]  # [B, 1]
+    x = logits
+    if 0 < cfg.top_k_max < V:
+        k = values["top_k"].to(torch.int64)  # [B]
+        vals = torch.topk(x, cfg.top_k_max, dim=-1).values  # descending
+        idx = torch.clamp(k - 1, 0, cfg.top_k_max - 1)
+        kth = torch.gather(vals, 1, idx[:, None])  # [B, 1]
+        kth = torch.where(k[:, None] > 0, kth, _neg_inf(x))
+        x = torch.where(x < kth, _neg_inf(x), x)
+    if cfg.any_tail_free:
+        x = _tail_free_truncate(x, values["tail_free_z"])
+    if cfg.any_typical:
+        x = _typical_truncate(x, values["typical_p"])
+    if cfg.any_top_p:
+        x = _top_p_truncate(x, values["top_p"])
+    if cfg.any_top_a:
+        x = _top_a_truncate(x, values["top_a1"], values["top_a2"])
+    if cfg.any_min_p:
+        x = _min_p_truncate(x, values["min_p"])
+    x = x / torch.clamp(t, min=1e-6)
+    g = -torch.log(-torch.log(u))
+    # temperature 0: greedy for that stream, no noise
+    std_tok = torch.argmax(x + torch.where(t > 0, g, 0.0),
+                           dim=-1).to(torch.int32)
+    if not cfg.mirostat_kind:
+        return std_tok, None
+    if state is None or "mu" not in state:
+        raise ValueError("mirostat streams need the mu carry in the "
+                         "sampler state")
+    on = values["mirostat_on"]
+    m_tok, m_mu = _mirostat_sample(
+        x, u, state["mu"], values["mirostat_tau"], values["mirostat_eta"],
+        cfg.mirostat_kind, cfg.mirostat_m, m_vals=values.get("mirostat_m"))
+    return torch.where(on, m_tok, std_tok), torch.where(on, m_mu, state["mu"])
+
+
+def collect_mu(active, n_slots: int) -> np.ndarray:
+    """[n_slots] f32 mu of a decode block from the streams' carried
+    `mirostat_mu`, a mirostat stream's first block starting at 2 * tau.
+    `active` yields (slot, stream) pairs."""
+    mu = np.zeros(n_slots, np.float32)
+    for slot, s in active:
+        ds = s.request.device_sampler
+        if ds is not None and ds.mirostat and s.mirostat_mu is None:
+            s.mirostat_mu = mirostat_mu_init(ds)
+        mu[slot] = s.mirostat_mu if s.mirostat_mu is not None else 0.0
+    return mu
+
+
+def store_mu(active, mu_state, keep_by_slot=None) -> None:
+    """Carry each mirostat stream's mu out of a decode block: the block's
+    final [n_slots] row, or from the trajectory [n_steps, n_slots] (mu after
+    each step) the row of the stream's last kept token (`keep_by_slot`:
+    its kept count). The block-final mu would fold in the surprises of
+    tokens the host drops after an EoT or at max_tokens."""
+    mu_state = np.asarray(mu_state)
+    for slot, s in active:
+        ds = s.request.device_sampler
+        if ds is not None and ds.mirostat:
+            if mu_state.ndim == 2:
+                k = (keep_by_slot[slot] if keep_by_slot is not None
+                     else mu_state.shape[0])
+                s.mirostat_mu = float(mu_state[k - 1, slot])
+            else:
+                s.mirostat_mu = float(mu_state[slot])

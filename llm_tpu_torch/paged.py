@@ -17,23 +17,38 @@ Attention reads pages in logical order with an online softmax (the
 kernel on the card), prefill chunks through its plain page loop. Unlike the
 reference's pure functions, the pool is updated in place: `scatter_rows`
 writes each new (token, head) row into its page slot.
+
+`paged_decode_loop` decodes a block of n_steps tokens for every stream on
+the device: the rows a block writes stay in a step-major block buffer
+(`_fold_block_rows` folds them after the pool pass) and reach the pool in
+one `scatter_rows` at the end of the block. On the card its T=1 step is a
+captured CUDA graph (`PagedKVCache.graphs`), replayed once a token.
 """
 
 from __future__ import annotations
 
 import functools
 import hashlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
 
 from llm_tpu_torch.models.forward import (
+    NEG_INF,
+    _block_uniforms,
     _layer_batched,
+    _on_card,
+    _run_block,
     _slopes,
+    batched_graph,
+    batched_out,
+    batched_step,
     embed_batched,
     head_batched,
+    load_batched,
+    unpack_decode_out,
 )
 from llm_tpu_torch.models.spec import ModelSpec
 from llm_tpu_torch.ops.packing import pack_int4_rows
@@ -41,15 +56,20 @@ from llm_tpu_torch.ops.paged_attention import (
     paged_attention_pass,
     paged_attention_plain,
 )
+from llm_tpu_torch.ops.sampling import DeviceSampler
 from llm_tpu_torch.serve import Engine, _chunk_bucket
 
 
 @dataclass
 class PagedKVCache:
+    """The page pool. `graphs` holds the decode-step CUDA graphs captured
+    over it (`paged_decode_loop`), which hold its tensors' addresses."""
+
     k: torch.Tensor  # [L, n_pages, H_kv, page, D] (uint8 [.., D/2]: int4)
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None  # [L, n_pages, H_kv, page] f32
     v_scale: Optional[torch.Tensor] = None
+    graphs: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def page_size(self) -> int:
@@ -304,18 +324,56 @@ def _stack_news(news, quantized: bool):
     return torch.stack(news)
 
 
+def _fold_block_rows(spec, blk_k, blk_v, blk_ks, blk_vs, base_past, n_past,
+                     layer: int, slopes, qf, m, l, acc):
+    """Fold a block's own rows into a running online softmax: the second
+    fold of the block-buffered decode step, after the pool pass that
+    covers positions < base_past. blk_k/v [S', L, B, Hkv, D] step-major
+    (codes with blk_ks/vs [S', L, B, Hkv] scales, or rows), row j of
+    stream b at position base_past[b] + j; rows at positions >= n_past[b]
+    are masked. qf [B, T, Hkv, rep, D]; returns the new (m, l, acc)."""
+    Sp = blk_k.shape[0]
+    kf = blk_k[:, layer].to(torch.float32)  # [S', B, H, D]
+    vf = blk_v[:, layer].to(torch.float32)
+    if blk_ks is not None:
+        kf = kf * blk_ks[:, layer][..., None]
+        vf = vf * blk_vs[:, layer][..., None]
+    s = torch.einsum("bthrd,sbhd->bthrs", qf, kf) * spec.kq_scale
+    pos = base_past[:, None] + torch.arange(Sp, dtype=torch.int32,
+                                            device=qf.device)[None, :]
+    if slopes is not None:
+        s = s + (slopes[None, None, :, :, None]
+                 * pos.to(torch.float32)[:, None, None, None, :])
+    valid = (pos < n_past[:, None])[:, None, None, None, :]  # [B,1,1,1,S']
+    s = torch.where(valid, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bthrs,sbhd->bthrd", p, vf)
+    return m_new, l, acc
+
+
 @torch.no_grad()
 def paged_forward_batched(spec: ModelSpec, params, ids, n_past, tables,
-                          cache: PagedKVCache, window_pages: int):
+                          cache: PagedKVCache, window_pages: int,
+                          block_kv=None, return_rows: bool = False):
     """Batched forward over paged caches: ids [B, T], n_past [B], tables
     [B, P] physical page ids. Returns (logits [B, T, V] f32, hidden
-    [B, T, E] f32, cache), the pool updated in place.
+    [B, T, E] f32, cache), the pool updated in place; with `return_rows`
+    (logits, hidden, (k_news, v_news)) and the pool untouched, the new rows
+    [L, B, T, H, D] (or (codes, scales)) for the caller to place.
 
     Every (n_past + t) write position must fall inside an allocated page of
     `tables` (or past the table, which goes to the trash page); reads only
     touch positions < n_past, so `window_pages` just needs to cover
     max(n_past) + T. T=1 steps read the pool through
-    `paged_attention_pass`, longer chunks through its plain page loop."""
+    `paged_attention_pass`, longer chunks through its plain page loop.
+
+    `block_kv` (blk_k, blk_v, blk_ks, blk_vs, base_past): the block-
+    buffered decode step. The pool pass masks at the block's base
+    positions base_past [B], and the block's rows at [base_past, n_past)
+    fold in from the block buffer (`_fold_block_rows`)."""
     dev = cache.k.device
     ids = torch.as_tensor(ids, device=dev)
     n_past = torch.as_tensor(n_past, device=dev).to(torch.int32)
@@ -323,6 +381,7 @@ def paged_forward_batched(spec: ModelSpec, params, ids, n_past, tables,
     B, T = ids.shape
     positions = n_past[:, None] + torch.arange(T, dtype=torch.int32,
                                                device=dev)[None, :]
+    pool_past = n_past if block_kv is None else block_kv[4]
     slopes = _slopes(spec, dev)
     h = embed_batched(spec, params, ids, positions)
     pool_pass = paged_attention_pass if T == 1 else paged_attention_plain
@@ -330,8 +389,11 @@ def paged_forward_batched(spec: ModelSpec, params, ids, n_past, tables,
     for l in range(spec.n_layer):
         online = functools.partial(
             pool_pass, spec, cache.k, cache.v, cache.k_scale, cache.v_scale,
-            tables, n_past, slopes, window_pages, l,
+            tables, pool_past, slopes, window_pages, l,
         )
+        if block_kv is not None:
+            online = functools.partial(_fold_after, online, spec, block_kv,
+                                       n_past, l, slopes)
         # int4 pools quantize in-flight rows at qmax=7 so the scores seen
         # this step bit-match the codes the pool will hold
         h, k_new, v_new = _layer_batched(
@@ -340,10 +402,137 @@ def paged_forward_batched(spec: ModelSpec, params, ids, n_past, tables,
         )
         k_news.append(k_new)
         v_news.append(v_new)
-    scatter_rows(cache, _stack_news(k_news, cache.quantized),
-                 _stack_news(v_news, cache.quantized), positions, tables)
+    k_news = _stack_news(k_news, cache.quantized)
+    v_news = _stack_news(v_news, cache.quantized)
     logits, h = head_batched(spec, params, h)
+    if return_rows:
+        return logits, h, (k_news, v_news)
+    scatter_rows(cache, k_news, v_news, positions, tables)
     return logits, h, cache
+
+
+def _fold_after(pool_pass, spec, block_kv, n_past, layer, slopes, qf):
+    """The block-buffered step's online pass: the pool below the block's
+    base, then the block's rows."""
+    blk_k, blk_v, blk_ks, blk_vs, base_past = block_kv
+    m, l, acc = pool_pass(qf)
+    return _fold_block_rows(spec, blk_k, blk_v, blk_ks, blk_vs, base_past,
+                            n_past, layer, slopes, qf, m, l, acc)
+
+
+def _block_buffers(spec, cache: PagedKVCache, B: int, cap: int, dev) -> dict:
+    """The block buffer of a paged decode step, step-major [cap, L, B, Hkv,
+    D]: the pool's rows, or int8 codes (int4 pools keep them unpacked
+    until the end-of-block scatter packs them) with f32 scales."""
+    shape = (cap, spec.n_layer, B, spec.n_head_kv, spec.head_dim)
+    kdt = torch.int8 if cache.bits == 4 else cache.k.dtype
+    st = {"blk_k": torch.zeros(shape, dtype=kdt, device=dev),
+          "blk_v": torch.zeros(shape, dtype=kdt, device=dev)}
+    if cache.quantized:
+        st["blk_ks"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=dev)
+        st["blk_vs"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=dev)
+    return st
+
+
+def _store_block_rows(st: dict, i: torch.Tensor, k_new, v_new) -> None:
+    """Write one step's rows ([L, B, 1, H(, D)], or (codes, scales)) at
+    step index i of the block buffer: one copy a buffer."""
+    if "blk_ks" in st:
+        (kq, ksc), (vq, vsc) = k_new, v_new
+        pairs = (("blk_k", kq), ("blk_v", vq), ("blk_ks", ksc),
+                 ("blk_vs", vsc))
+    else:
+        pairs = (("blk_k", k_new), ("blk_v", v_new))
+    for name, new in pairs:
+        dst = st[name]
+        dst.index_copy_(0, i, new[:, :, 0][None].to(dst.dtype))
+
+
+@torch.no_grad()
+def paged_decode_loop(spec, params, last_logits, n_past, tables,
+                      cache: PagedKVCache, n_steps: int, window_pages: int,
+                      sampler=None, key: Optional[torch.Generator] = None,
+                      sampler_values: Optional[dict] = None,
+                      penalty_state: Optional[dict] = None,
+                      logprobs_n: Optional[int] = None,
+                      return_state: bool = False,
+                      uniforms: Optional[torch.Tensor] = None,
+                      graph: bool = True):
+    """B streams x `n_steps` tokens on the device over the page pool (the
+    reference's `paged_decode_loop`): per step, sample every stream's token,
+    evaluate the tokens at T=1, take the next logits. The host allocates
+    pages covering n_past + n_steps of every live stream first, so the
+    tables hold for the whole block; it rewinds n_past past an EoT (rows at
+    and past n_past stay masked).
+
+    The rows a step writes go to a step-major block buffer [cap, L, B, Hkv,
+    D] (int8 codes for int4 pools); during the block the pool pass masks at
+    the block's base positions and the block's rows fold in after it; one
+    `scatter_rows` writes the block's n_steps rows of every stream to the
+    pool after the last step. Returns what `forward.decode_loop_batched`
+    returns, the pool in place of the cache; its arguments are the same,
+    with the tables [B, P] and `window_pages` (covering max(n_past) +
+    n_steps) in place of the window and mask. On the card the step is a CUDA
+    graph captured once per static key (`cache.graphs`: window_pages, B,
+    the table width, the sampler's structure, the values' and penalty
+    state's shapes, mu, logprobs_n, capacity), its tables, base positions
+    and the other inputs loaded into its buffers before the replays."""
+    dev = cache.k.device
+    n_past = torch.as_tensor(n_past).to(torch.int32)
+    tables = torch.as_tensor(tables).to(torch.int32)
+    B, P = tables.shape
+    sampler = sampler or DeviceSampler.greedy()
+    has_mu = (return_state and isinstance(penalty_state, dict)
+              and "mu" in penalty_state)
+    u = _block_uniforms(sampler, uniforms, key, (n_steps, B, spec.n_vocab),
+                        dev)
+    on_card = _on_card(graph, dev)
+
+    def extra(st):
+        st["tables"] = torch.zeros((B, P), dtype=torch.int32, device=dev)
+        st["base"] = torch.zeros(B, dtype=torch.int32, device=dev)
+        st.update(_block_buffers(spec, cache, B, st["toks"].shape[0], dev))
+
+    g = batched_graph(cache.graphs, ("paged", window_pages, P), spec, params,
+                      B, sampler, sampler_values, penalty_state, has_mu,
+                      logprobs_n, n_steps, dev, on_card, extra)
+    st = g.state
+    block_kv = (st["blk_k"], st["blk_v"], st.get("blk_ks"), st.get("blk_vs"),
+                st["base"])
+
+    def forward(tok, i):
+        logits, _, (k_new, v_new) = paged_forward_batched(
+            spec, params, tok[:, None], st["npast"], st["tables"], cache,
+            window_pages, block_kv=block_kv, return_rows=True)
+        _store_block_rows(st, i, k_new, v_new)
+        return logits[:, 0]
+
+    def load(st):
+        load_batched(st, last_logits, n_past, penalty_state, sampler_values,
+                     u)
+        st["tables"].copy_(tables)
+        st["base"].copy_(n_past)
+
+    _run_block(g, lambda: batched_step(st, sampler, g.bias, forward), load,
+               n_steps, on_card, dev)
+    # the end-of-block flush: one scatter of the block's rows
+    positions = st["base"][:, None] + torch.arange(
+        n_steps, dtype=torch.int32, device=dev)[None, :]
+
+    def to_lbt(a):  # [n, L, B, ..] -> [L, B, n, ..]
+        return a[:n_steps].movedim(0, 2)
+
+    if cache.quantized:
+        scatter_rows(cache, (to_lbt(st["blk_k"]), to_lbt(st["blk_ks"])),
+                     (to_lbt(st["blk_v"]), to_lbt(st["blk_vs"])), positions,
+                     st["tables"])
+    else:
+        scatter_rows(cache, to_lbt(st["blk_k"]), to_lbt(st["blk_v"]),
+                     positions, st["tables"])
+    return batched_out(st, n_steps, cache, penalty_state, return_state,
+                       logprobs_n)
 
 
 def _copy_page(pool: PagedKVCache, src: int, dst: int) -> None:
@@ -508,6 +697,16 @@ class PagedEngine(Engine):
                 cache.register(digests[j], pid)
         return digests
 
+    def _window_pages(self, extra: int = 1) -> int:
+        """Logical pages the attention of a step (or a block of `extra`
+        tokens) reads: they cover every slot's n_past + extra, within the
+        table's width."""
+        max_past = max(
+            (s.n_past for s in self.slots if s is not None), default=0
+        )
+        wp = max(1, -(-(max_past + extra) // self.page_size))
+        return min(wp, self.pages_per_stream)
+
     # -- prefill / decode ---------------------------------------------------
 
     def _prefill_chunk(self, stream, slot: int) -> None:
@@ -560,7 +759,7 @@ class PagedEngine(Engine):
                 n_past[slot] = s.prefill_pos
         sampled = {}
         for slot, stream in decodable:
-            tok = self._sample(stream)
+            tok = self._host_sample(stream)
             try:
                 self._ensure_pages(slot, stream.n_past)
             except MemoryError:
@@ -595,3 +794,67 @@ class PagedEngine(Engine):
         for slot, stream in emitted:
             stream.last_logits = logits[slot]
         return events
+
+    # -- multi-step on-device decode ----------------------------------------
+
+    def _plan_multi(self, active, n_steps: int) -> int:
+        """Allocate pages so that every active stream can decode n_steps
+        tokens without the host; halve n_steps until the pool (with its
+        evictable prefix pages) has them. Returns the n_steps that fits, 0
+        to fall back to single steps."""
+        while n_steps > 1:
+            need = 0
+            for slot, s in active:
+                last = min(s.n_past + n_steps, self.spec.n_ctx) - 1
+                have = sum(
+                    1 for j in range(last // self.page_size + 1)
+                    if self.tables[slot, j] != PageAllocator.TRASH
+                )
+                need += last // self.page_size + 1 - have
+            avail = self.allocator.available + (
+                self.prefix_cache.evictable if self.prefix_cache else 0
+            )
+            if need <= avail:
+                break
+            n_steps //= 2
+        else:
+            return 0
+        try:
+            for slot, s in active:
+                self._ensure_pages(
+                    slot, min(s.n_past + n_steps, self.spec.n_ctx) - 1
+                )
+        except MemoryError:  # the estimate raced an eviction
+            return 0
+        return n_steps
+
+    def _dispatch_multi(self, logits, n_past, n_steps, sampler, u,
+                        values=None, write_mask=None, penalty_state=None,
+                        logprobs_n=None, return_state=False):
+        # the paged forward has no write mask: an empty slot's rows land on
+        # the trash page (its table is all trash), but a prefilling slot's
+        # table already maps page 0 to a real, possibly shared prefix
+        # page, so its dummy rows park at the prefill frontier (the next
+        # chunk overwrites them), as in the per-token step
+        n_past = np.array(n_past)
+        for slot, s in enumerate(self.slots):
+            if s is not None and s.prefilling:
+                n_past[slot] = s.prefill_pos
+        active = self._decodable()
+        n_steps = self._plan_multi(active, n_steps)
+        if n_steps == 0:
+            return None
+        wp = self._window_pages(extra=n_steps)
+        # the step's buffers take copies of the inputs before it runs, and
+        # the end-of-block scatter runs before this returns: a retirement
+        # in _postprocess_multi cannot free a page the block still writes
+        out = paged_decode_loop(
+            self.spec, self.params, logits, n_past, self.tables, self.pool,
+            n_steps, wp, sampler, sampler_values=values,
+            penalty_state=penalty_state, logprobs_n=logprobs_n,
+            return_state=return_state,
+            uniforms=None if u is None else u[:n_steps],
+        )
+        toks, last_logits, _, _, fstate, lp = unpack_decode_out(
+            out, return_state, logprobs_n)
+        return self._block_result(toks, last_logits, n_steps, lp, fstate)

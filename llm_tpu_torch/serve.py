@@ -10,10 +10,14 @@ The counterpart of `llm_tpu/serve.py` for host-sampled serving:
   through each projection kernel and the dense-attention kernel at
   B = max_streams; slots that are empty or prefilling run a dummy token
   whose cache write is masked.
-- sampling stays on the host, per stream (its own sampler chain and rng).
+- `step` samples on the host, per stream (its own sampler chain and rng).
+- `step_multi` decodes a block of n_steps tokens for every decoding stream
+  in one call with on-device sampling (`forward.decode_loop_batched`; on
+  the card one CUDA graph replay a token), when every decoding stream
+  carries a `device_sampler`. It falls back to `step` only where the
+  reference does, and counts each fallback (`multi_fallbacks`).
 
 `PagedEngine` (paged.py) keeps this host contract over a shared page pool.
-The multi-token on-device decode (`step_multi`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,11 +31,26 @@ import torch
 
 from llm_tpu_torch.models.forward import (
     KVCache,
+    _draws,
+    decode_loop_batched,
     forward_batched,
     init_cache_batched,
+    unpack_decode_out,
     window_bucket,
 )
-from llm_tpu_torch.samplers import default_samplers, sample_token
+from llm_tpu_torch.ops.sampling import (
+    batched_sampler,
+    collect_mu,
+    penalty_state,
+    store_mu,
+)
+from llm_tpu_torch.samplers import (
+    Mirostat1,
+    Mirostat2,
+    SamplerChain,
+    default_samplers,
+    sample_token,
+)
 from llm_tpu_torch.session import ContextFull
 from llm_tpu_torch.tokenizer import Prompt, TokenUtf8Buffer
 
@@ -44,6 +63,9 @@ class GenerationRequest:
     seed: Optional[int] = None
     # callback(stream_id, text) per decoded UTF-8 fragment
     on_token: Optional[Callable[[int, str], None]] = None
+    # ops.sampling.DeviceSampler: the stream may decode in on-device blocks
+    # (Engine.step_multi) when every decoding stream carries one
+    device_sampler: Optional[object] = None
     # record per-generated-token logprobs (+ top-N alternatives when > 0)
     logprobs: Optional[int] = None
 
@@ -71,6 +93,9 @@ class _Stream:
     prefill_pos: int = 0
     prefill_queue: Optional[list] = None
     kv_wait: bool = False  # paged: last prefill chunk hit an empty pool
+    # mirostat: the stream's mu, carried across decode blocks (the one part
+    # of the sampler state its token history does not give)
+    mirostat_mu: Optional[float] = None
 
 
 def _chunk_bucket(n: int, n_batch: int) -> int:
@@ -116,6 +141,10 @@ class Engine:
     """Multi-stream decode engine over a shared immutable model. Single-
     threaded: one thread submits, cancels and steps."""
 
+    # step_multi gathers the sampled tokens' logprobs (and top-N) on the
+    # device, so logprob requests ride the block path
+    supports_device_logprobs = True
+
     def __init__(
         self,
         model,
@@ -137,6 +166,13 @@ class Engine:
         self._retired_events: list = []
         self._next_id = 0
         self._eot = model.eot_token_id()
+        # step_multi's record: blocks run, their steps (one graph replay
+        # each on the card), and its fallbacks to step() by reason
+        self.multi_blocks = 0
+        self.multi_block_steps = 0
+        self.multi_fallbacks = {"mixed_mirostat": 0, "tight_pool": 0,
+                                "context_full": 0}
+        self._loop_gen: Optional[torch.Generator] = None
 
     def _init_device_state(self, kv_dtype) -> None:
         """Allocate the KV store (dense slots here; PagedEngine overrides)."""
@@ -209,10 +245,21 @@ class Engine:
         ev, self._retired_events = self._retired_events, []
         return ev
 
-    def _sample(self, stream: _Stream) -> int:
-        """The stream's next token, from its host sampler chain."""
-        return sample_token(stream.sampler, stream.rng, stream.tokens,
-                            stream.last_logits)
+    def _host_sample(self, stream: _Stream) -> int:
+        """The stream's next token, from its host sampler chain. A mirostat
+        terminal takes the stream's carried mu and gives its update back,
+        so a stream that decodes in device blocks keeps one controller
+        across a single step that routes a token through the host."""
+        t = (stream.sampler.terminal
+             if isinstance(stream.sampler, SamplerChain) else stream.sampler)
+        miro = t if isinstance(t, (Mirostat1, Mirostat2)) else None
+        if miro is not None and stream.mirostat_mu is not None:
+            miro.mu = stream.mirostat_mu
+        tok = sample_token(stream.sampler, stream.rng, stream.tokens,
+                           stream.last_logits)
+        if miro is not None and miro.mu is not None:
+            stream.mirostat_mu = float(miro.mu)
+        return tok
 
     def _record_logprob(self, stream: _Stream, tok: int) -> None:
         """Model logprob of the sampled token (from the PRE-update logits
@@ -386,7 +433,7 @@ class Engine:
         mask = np.zeros(self.max_streams, bool)
         sampled: dict[int, int] = {}
         for slot, stream in decodable:
-            tok = self._sample(stream)
+            tok = self._host_sample(stream)
             sampled[slot] = tok
             ids[slot] = tok
             n_past[slot] = stream.n_past
@@ -415,14 +462,231 @@ class Engine:
             stream.last_logits = logits[slot]
         return events
 
+    def step_multi(self, n_steps: int = 16) -> list[tuple[int, str, bool]]:
+        """Admit, advance prefills one chunk, then decode n_steps tokens for
+        every decoding stream in one call with on-device sampling; every
+        decoding stream must carry a device_sampler. Empty and prefilling
+        slots run dummy rows that write nothing a stream reads.
+
+        The host then cuts each stream at EoT, max_tokens or the context
+        boundary and rewinds its n_past (cache rows past it are masked).
+        Falls back to one `step` (host sampling, the same kernels) where
+        the reference does, counted in `multi_fallbacks`: a batch mixing
+        mirostat 1 and 2, a stream at the context boundary, and (paged) a
+        pool too tight for a block. A failure on the card raises."""
+        self._admit()
+        self._advance_prefills()
+        retired = self._drain_retired()
+        active = self._decodable()
+        if not active:
+            return retired
+        spec = self.spec
+        if any(s.request.device_sampler is None for _, s in active):
+            raise ValueError("step_multi requires a device_sampler on every "
+                             "decoding stream")
+        sampler = active[0][1].request.device_sampler
+        values = None  # one shared static config
+        if any(s.request.device_sampler != sampler for _, s in active):
+            # per-stream sampling: a static structure and value tensors
+            per_slot = [None] * self.max_streams
+            for slot, s in active:
+                per_slot[slot] = s.request.device_sampler
+            try:
+                sampler, values = batched_sampler(per_slot, self.max_streams,
+                                                  self.device)
+            except ValueError:
+                # mirostat 1 beside mirostat 2: each stream's host chain
+                # samples this step
+                self.multi_fallbacks["mixed_mirostat"] += 1
+                return retired + self.step()
+
+        max_past = max(s.n_past for _, s in active)
+        n_steps = min(n_steps, spec.n_ctx - 1 - max_past)
+        if n_steps <= 0:  # the per-token path retires a full context
+            self.multi_fallbacks["context_full"] += 1
+            return retired + self.step()
+
+        logits = np.zeros((self.max_streams, spec.n_vocab), np.float32)
+        n_past = np.zeros(self.max_streams, np.int32)
+        mask = np.zeros(self.max_streams, bool)
+        for slot, s in active:
+            logits[slot] = s.last_logits
+            n_past[slot] = s.n_past
+            mask[slot] = True
+
+        # windowed penalties: the state is built from each stream's token
+        # history once a block and updated on the device inside it
+        pstate = None
+        if any(s.request.device_sampler.has_penalties for _, s in active):
+            hist = [[] for _ in range(self.max_streams)]
+            for slot, s in active:
+                hist[slot] = s.tokens
+            pstate = penalty_state(hist, sampler.penalty_last_n,
+                                   spec.n_vocab)
+        # mirostat: each stream's mu rides the block and its stream
+        miro = any(s.request.device_sampler.mirostat for _, s in active)
+        if miro:
+            pstate = {**(pstate or {}),
+                      "mu": collect_mu(active, self.max_streams)}
+        # logprob requests: the top-N is gathered on the device a step
+        lp_reqs = [s.request.logprobs for _, s in active
+                   if s.request.logprobs is not None]
+        lpn = max(lp_reqs) if lp_reqs else None
+
+        u = self._block_uniforms(n_steps, _draws(sampler))
+        dispatched = self._dispatch_multi(logits, n_past, n_steps, sampler,
+                                          u, values, mask, pstate, lpn, miro)
+        if dispatched is None:  # no block fits the pool now
+            self.multi_fallbacks["tight_pool"] += 1
+            return retired + self.step()
+        toks, last_logits, n_steps, lp, fstate = dispatched
+        if fstate is not None:
+            store_mu(active, fstate["mu_steps"],
+                     self._block_keeps(active, toks))
+        return retired + self._postprocess_multi(active, toks, last_logits,
+                                                 n_steps, lp)
+
+    def _block_uniforms(self, n_steps: int, draw: bool):
+        """A block's uniforms [n_steps, max_streams, V] in [1e-20, 1) from
+        the engine's generator (seed 0, on the engine's device), or None
+        when the block's sampler takes no noise. Called once a block,
+        where the reference advances its loop key (a block cut short by a
+        tight pool uses the leading steps)."""
+        if not draw:
+            return None
+        if self._loop_gen is None:
+            self._loop_gen = torch.Generator(device=self.device)
+            self._loop_gen.manual_seed(0)
+        return torch.rand((n_steps, self.max_streams, self.spec.n_vocab),
+                          generator=self._loop_gen,
+                          device=self.device).clamp_min_(1e-20)
+
+    def _block_keeps(self, active, toks) -> dict:
+        """Each slot's kept token count of a block, by the rule of
+        _postprocess_multi (EoT first, then the max_tokens budget): where
+        a carried sampler state (mirostat's mu) stops."""
+        keeps = {}
+        n_steps = toks.shape[0]
+        for slot, stream in active:
+            hit = np.nonzero(toks[:, slot] == self._eot)[0]
+            n_keep = int(hit[0]) + 1 if hit.size else n_steps
+            limit = stream.request.max_tokens
+            if limit is not None:
+                n_keep = min(n_keep, max(limit - stream.generated, 1))
+            keeps[slot] = n_keep
+        return keeps
+
+    def _postprocess_multi(self, active, toks, last_logits, n_steps,
+                           lp=None) -> list:
+        """The host's bookkeeping after a block: each stream cut at EoT,
+        max_tokens or the context boundary, UTF-8 assembly, retirement,
+        and logprob records when the block carried them."""
+        spec = self.spec
+
+        def tstr(t: int) -> str:
+            return self.model.tokenizer.token(t).decode("utf-8",
+                                                        errors="replace")
+
+        events = []
+        for slot, stream in active:
+            col = toks[:, slot]
+            hit = np.nonzero(col == self._eot)[0]
+            limit = stream.request.max_tokens
+            budget = (limit - stream.generated if limit is not None
+                      else n_steps)
+            n_keep = int(hit[0]) + 1 if hit.size else n_steps
+            done = False
+            if hit.size and n_keep <= budget:
+                done = True
+                stream.finish_reason = "eot"
+            if n_keep > budget:
+                n_keep = budget
+                done = True
+                stream.finish_reason = "max_tokens"
+
+            text_parts = []
+            for i, t in enumerate(col[:n_keep]):
+                t = int(t)
+                if lp is not None and stream.request.logprobs is not None:
+                    lpv, topv, topi = lp
+                    entry = {"token": tstr(t),
+                             "logprob": float(lpv[i, slot])}
+                    n = stream.request.logprobs
+                    if n:
+                        entry["top_logprobs"] = {
+                            tstr(int(topi[i, slot, j])):
+                                float(topv[i, slot, j])
+                            for j in range(n)
+                        }
+                    stream.logprob_data.append(entry)
+                stream.tokens.append(t)
+                stream.generated += 1
+                if t != self._eot:
+                    out = stream.utf8.push(self._piece(stream, t))
+                    if out:
+                        text_parts.append(out)
+                        stream.text.append(out)
+                        if stream.request.on_token:
+                            stream.request.on_token(stream.request_id, out)
+            stream.n_past += n_keep  # rows past n_keep stay masked
+            stream.last_logits = last_logits[slot]
+            if not done and stream.n_past + 1 >= spec.n_ctx:
+                done = True
+                stream.finish_reason = "context_full"
+            if done:
+                stream.done = True
+                self.finished[stream.request_id] = stream
+                self.slots[slot] = None
+                self._on_slot_released(slot)
+            events.append((stream.request_id, "".join(text_parts), done))
+        return events
+
+    def _dispatch_multi(self, logits, n_past, n_steps, sampler, u,
+                        values=None, write_mask=None, penalty_state=None,
+                        logprobs_n=None, return_state=False):
+        """Run the n_steps decode block; returns (tokens [n_steps, B],
+        last logits [B, V], n_steps, logprob arrays or None, final sampler
+        state or None) on the host, or None to fall back to single steps
+        (PagedEngine, a tight pool)."""
+        spec = self.spec
+        max_past = int(n_past.max())
+        out = decode_loop_batched(
+            spec, self.params, logits, n_past, self.cache, n_steps,
+            window_bucket(max_past + n_steps, spec.n_ctx), sampler,
+            sampler_values=values,
+            write_mask=(None if write_mask is None
+                        else torch.from_numpy(write_mask).to(self.device)),
+            penalty_state=penalty_state, logprobs_n=logprobs_n,
+            return_state=return_state, uniforms=u,
+        )
+        toks, last_logits, _, _, fstate, lp = unpack_decode_out(
+            out, return_state, logprobs_n)
+        return self._block_result(toks, last_logits, n_steps, lp, fstate)
+
+    def _block_result(self, toks, last_logits, n_steps, lp, fstate):
+        """A block's outputs on the host, and its count."""
+        self.multi_blocks += 1
+        self.multi_block_steps += n_steps
+        if lp is not None:
+            lp = tuple(a.cpu().numpy() for a in lp)
+        if fstate is not None:
+            fstate = {k: v.cpu().numpy() for k, v in fstate.items()}
+        return (toks.cpu().numpy(), last_logits.cpu().numpy(), n_steps, lp,
+                fstate)
+
     # -- convenience --------------------------------------------------------
 
-    def generate_all(self,
-                     requests: Sequence[GenerationRequest]) -> dict[int, str]:
-        """Submit everything, run to completion, return id -> text."""
+    def generate_all(self, requests: Sequence[GenerationRequest],
+                     n_steps: int = 1) -> dict[int, str]:
+        """Submit everything, run to completion, return id -> text.
+        n_steps > 1 decodes in on-device blocks (`step_multi`; every
+        request needs a device_sampler)."""
         ids = [self.submit(r) for r in requests]
         while self.has_work():
-            self.step()
+            if n_steps > 1:
+                self.step_multi(n_steps)
+            else:
+                self.step()
         return {rid: "".join(self.finished[rid].text) for rid in ids}
 
 

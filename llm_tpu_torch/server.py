@@ -14,8 +14,9 @@ stdlib `http.server`, so it adds no dependencies.
   GET  /metrics          request/token counters and TTFT percentiles
 
 Threading model: ONE background thread owns the Engine — submissions,
-cancellations and `step()` all happen there (the Engine is single-threaded
-by contract). HTTP handler threads (ThreadingHTTPServer) talk to it through
+cancellations and `step()` (or, with `multi_step` N > 1, `step_multi(N)`
+whenever every slot decodes with a device sampler) all happen there (the
+Engine is single-threaded by contract). HTTP handler threads (ThreadingHTTPServer) talk to it through
 queues: a submission carries its own reply queue, and every engine event
 for that request id is forwarded to it. Client disconnects cancel the
 stream so its slot (and pages, for a paged engine) free at once.
@@ -24,9 +25,14 @@ Stop sequences are scanned server-side with a holdback buffer: text that
 could still be a prefix of a stop string is withheld until disambiguated,
 so a stop string split across token fragments never leaks to the client.
 
+With `multi_step` N > 1, a request whose sampling the device can express
+(`device_sampler_from_params`: greedy or temperature with top-k, top-p,
+min-p, tail-free, typical, mirostat, penalties and logit bias) carries a
+DeviceSampler, and the engine decodes blocks of N tokens on the device
+while no prompt is pending or prefilling.
+
 Not ported yet: chat completions, embeddings, engine checkpoints and the
-admin endpoint, multi-step device sampling, speculative and multi-host
-engines.
+admin endpoint, speculative and multi-host engines.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from typing import Optional
 
 import torch
 
+from llm_tpu_torch.ops.sampling import DeviceSampler
 from llm_tpu_torch.samplers import (
     SamplerConfigurationError,
     build_sampler_chain,
@@ -50,7 +57,8 @@ from llm_tpu_torch.samplers import (
 )
 from llm_tpu_torch.serve import Engine, GenerationRequest
 
-__all__ = ["LlmServer", "sampler_from_params", "serve_forever"]
+__all__ = ["LlmServer", "device_sampler_from_params", "sampler_from_params",
+           "serve_forever"]
 
 
 def _logit_bias(params: dict) -> tuple:
@@ -110,6 +118,49 @@ def sampler_from_params(params: dict, n_vocab: int = 0):
     return build_sampler_chain(args, n_vocab=n_vocab, bias=bias)
 
 
+def device_sampler_from_params(params: dict, allow_logprobs: bool = False):
+    """A DeviceSampler for a request the device can sample (greedy or
+    temperature, with top-k, top-p, min-p, tail-free, typical or mirostat,
+    windowed repetition / frequency / presence penalties and logit bias),
+    so a multi-step server decodes it in blocks. None when the request
+    needs the host chain: an explicit sampler DSL, no temperature (the
+    full default chain), logprobs unless `allow_logprobs`."""
+    if params.get("sampler") is not None:
+        return None
+    if params.get("logprobs") is not None and not allow_logprobs:
+        return None
+    temp = params.get("temperature")
+    if temp is None:
+        return None
+
+    def _f(key, default):
+        v = params.get(key)  # 0 and 0.0 are values, not "unset"
+        return default if v is None else float(v)
+
+    penalties = {
+        "repeat_penalty": _f("repeat_penalty", 1.0),
+        "frequency_penalty": _f("frequency_penalty", 0.0),
+        "presence_penalty": _f("presence_penalty", 0.0),
+        "bias": _logit_bias(params),
+    }
+    if float(temp) <= 0.0:
+        return DeviceSampler(kind="greedy", **penalties)
+    miro = int(_f("mirostat", 0))
+    if miro:
+        return DeviceSampler(kind="sample", temperature=float(temp),
+                             mirostat=miro,
+                             mirostat_tau=_f("mirostat_tau", 5.0),
+                             mirostat_eta=_f("mirostat_eta", 0.1),
+                             **penalties)
+    return DeviceSampler(kind="sample", temperature=float(temp),
+                         top_k=int(_f("top_k", 0)),
+                         top_p=_f("top_p", 1.0),
+                         min_p=_f("min_p", 0.0),
+                         tail_free_z=_f("tfs_z", 1.0),
+                         typical_p=_f("typical_p", 1.0),
+                         **penalties)
+
+
 class _StopScanner:
     """Holdback scanner: emit only text that cannot still become a stop
     string; report a match exactly once, with the match excised."""
@@ -159,11 +210,14 @@ class _Ticket:
 
 
 class _EngineLoop(threading.Thread):
-    """The single thread that owns the Engine."""
+    """The single thread that owns the Engine. With multi_step N > 1 it runs
+    `step_multi(N)` when nothing is pending and every slot is empty or
+    decoding with a device sampler, else `step()`."""
 
-    def __init__(self, engine: Engine):
+    def __init__(self, engine: Engine, multi_step: int = 0):
         super().__init__(daemon=True, name="llm-tpu-torch-engine")
         self.engine = engine
+        self.multi_step = multi_step
         self.inbox: "queue.Queue" = queue.Queue()
         self.tickets: dict[int, _Ticket] = {}
         self.stopping = False
@@ -268,17 +322,25 @@ class _EngineLoop(threading.Thread):
         self._dispatch(self.engine._drain_retired())
         if self.stopping or not self.engine.has_work():
             return
-        self._dispatch(self.engine.step())
+        if self.multi_step > 1 and not self.engine.pending and all(
+            s is None or (not s.prefilling
+                          and s.request.device_sampler is not None)
+            for s in self.engine.slots
+        ):
+            self._dispatch(self.engine.step_multi(self.multi_step))
+        else:
+            self._dispatch(self.engine.step())
 
 
 class LlmServer:
     """Bind an Engine (dense or paged) to an HTTP address."""
 
     def __init__(self, model, engine: Engine, host: str = "127.0.0.1",
-                 port: int = 8080, default_max_tokens: int = 256):
+                 port: int = 8080, multi_step: int = 0,
+                 default_max_tokens: int = 256):
         self.model = model
         self.model_id = getattr(model, "name", None) or "llm-tpu"
-        self.loop = _EngineLoop(engine)
+        self.loop = _EngineLoop(engine, multi_step=multi_step)
         self.default_max_tokens = default_max_tokens
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
@@ -330,6 +392,14 @@ class LlmServer:
             max_tokens=None if max_tokens in (None, -1) else int(max_tokens),
             sampler=sampler,
             seed=body.get("seed"),
+            # a multi-step server decodes in device blocks while every
+            # active request's sampling is device-expressible
+            device_sampler=(
+                device_sampler_from_params(
+                    body, allow_logprobs=(
+                        self.loop.engine.supports_device_logprobs))
+                if self.loop.multi_step > 1 else None
+            ),
             logprobs=(int(body["logprobs"])
                       if body.get("logprobs") is not None else None),
         )
@@ -563,11 +633,13 @@ def build_engine(model, max_streams=8, kv_dtype=None, n_batch=64,
 
 def serve_forever(model, host="127.0.0.1", port=8080, max_streams=8,
                   kv_dtype=None, n_batch=64, paged=False, page_size=256,
-                  n_pages=None, warmup=True, prefix_cache=False) -> None:
+                  n_pages=None, warmup=True, prefix_cache=False,
+                  multi_step=0) -> None:
     """CLI entry: build the engine and serve until interrupted."""
     engine = build_engine(model, max_streams, kv_dtype, n_batch, paged,
                           page_size, n_pages, prefix_cache)
-    srv = LlmServer(model, engine, host=host, port=port)
+    srv = LlmServer(model, engine, host=host, port=port,
+                    multi_step=multi_step)
     srv.loop.start()
     if warmup:
         print("warming up (building and loading the kernels)...", flush=True)
@@ -577,7 +649,9 @@ def serve_forever(model, host="127.0.0.1", port=8080, max_streams=8,
     host, port = srv.address
     print(f"llm-tpu-torch serving {srv.model_id} on http://{host}:{port} "
           f"({'paged' if paged else 'dense'} KV, {max_streams} streams, "
-          f"{model.device})", flush=True)
+          f"{model.device}"
+          + (f", blocks of {multi_step}" if multi_step > 1 else "") + ")",
+          flush=True)
     try:
         srv.httpd.serve_forever()
     finally:
