@@ -52,8 +52,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             sampler) of the three e2e prompts, 32 new each in blocks of 8,
             equal to the e2e phase's host-sampled tokens; two seeded top-k
             40 / temperature 0.8 / repetition 1.3 runs equal, a mirostat-2
-            run with a finite mu; every capture counted 129 qmatmul and 32
-            attention launches. Decode ms a token of the device path
+            run with a finite mu; every capture counted one forward's
+            launches, 4 n_layer + 1 qmatmul and n_layer attention, read
+            from the model's spec (LLaMA-7B: 129 and 32). Decode ms a token of the device path
             (blocks of 8 and 32) and of host-sampled `infer` in the same
             run (CUDA events), the busy share of two profiled 32-token
             blocks, launches and replays a token, capture seconds and the
@@ -69,11 +70,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             hit); a dense engine (8 streams, bf16 cache) runs 8 requests
             directly. The launch counters are set to 0 just before each
             engine's run and read just after it: per forward the engine
-            ran, qmatmul must have launched 129 times (on its wide path for
-            forwards of more than 32 rows), and per decode-shaped
-            (T=1) forward the engine's attention kernel 32 times (paged:
-            also 32 per decode step the engine counted), the other attention
-            kernel never. Then the first decode logits of 4
+            ran, qmatmul must have launched 4 n_layer + 1 times (LLaMA-7B:
+            129; on its wide path for forwards of more than 32 rows), and
+            per decode-shaped (T=1) forward the engine's attention kernel
+            n_layer times (32; paged: also 32 per decode step the engine
+            counted), the other attention kernel never. Then the first decode logits of 4
             streams are held against the plain path and against the dense
             engine, on the same card, and torch.profiler traces a decode
             step of each engine with every slot decoding (32 attention
@@ -87,8 +88,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             serve phase's (where a token differs, its top-2 margin must be
             within 2^-8 of the row's largest logit), no completion ends in
             an engine error, no block fell back to `step()`, the graph
-            replays equal the blocks' steps, and each capture counted 129
-            qmatmul and 32 paged-attention launches. Then the decode loops
+            replays equal the blocks' steps, and each capture counted one
+            forward's launches (129 qmatmul and 32 paged-attention). Then
+            the decode loops
             are driven directly over whole blocks of 16 (CUDA events after
             capture, one block profiled): `paged_decode_loop` at 16
             streams (the serve prompts' positions) and at 64 streams (the
@@ -99,6 +101,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             bytes. One captured step is held bit-equal to the eager step
             (paged int8 greedy and a per-stream sampled mix; dense bf16
             with a masked slot, whose rows must stay).
+   archs:   the six other architectures, each written with
+            `make_bench_file` at its published width (seed 0, under
+            build/smoke/, removed after loading) and loaded on the card:
+            MPT-7B Q4_K whole (32 layers, vocab 50,432, ALiBi, tied head,
+            context 8192), GPT-2 117M Q8_0 (context 2048, capped at its
+            1024 positions), StableLM-3B Q5_1 (GPT-NeoX, 32 layers), and 4
+            layers of GPT-J-6B Q4_0, BLOOM-7B1 Q4_0 and Falcon-7B Q4_0.
+            Each: greedy host-sampled `infer` (MPT: prompts of 64 and 1100
+            tokens, 32 new; the others 64 and 16), launches counted as in
+            e2e from the spec; the first prefill and decode logits against
+            the plain path (relative L2 within 2^-8, top-1 equal but at a
+            near-tie); `infer_device` greedy tokens equal to the host
+            ones, every capture counting 4 n_layer + 1 qmatmul and n_layer
+            attention launches; decode ms a token of blocks of 16 (CUDA
+            events) against the weights' bytes over HBM, host ms a step,
+            the busy share of a profiled block; qmatmul at M=1 on the
+            model's own weights held against its plain version and timed.
+            MPT also runs `paged_decode_loop` at the reference bench's
+            paged cell (2 streams at n_past 7680, page 256, int8 pool),
+            and a paged int8 engine (prefix cache) and a dense bf16 engine
+            answer 4 greedy prompts host-stepped and in blocks of 16 (each
+            engine's block texts equal its host-stepped ones; the paged
+            texts equal a dense int8 engine's). Then the attention kernel
+            at Falcon-7B's decode (rep 71, D 64) and at MPT's paged cell
+            against its plain version, timed. The phase prints its
+            `archs_summary`.
 5. probes:  P2 (`llm_tpu_torch.probes.kernel_decompose`, M = 8 and 1), P3
             (`dequant_variants`, every mode) and P1 (`coalesced`, up and
             down, every variant) at their 7B geometry with few rounds, each
@@ -123,6 +151,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -454,8 +483,8 @@ def num_sms() -> int:
 
 
 def check_attention(name, kv, W, n_past, hkv, rep, alibi, rng, dev, timer,
-                    timed) -> dict:
-    """The dense pass over a [2, B, hkv, 2048, D] cache, one stream per
+                    timed, d=D) -> dict:
+    """The dense pass over a [2, B, hkv, 2048, d] cache, one stream per
     entry of `n_past`."""
     from types import SimpleNamespace
 
@@ -463,7 +492,7 @@ def check_attention(name, kv, W, n_past, hkv, rep, alibi, rng, dev, timer,
     from llm_tpu_torch.ops.layers import alibi_slopes
 
     L, B, S = 2, len(n_past), CTX
-    shape = (L, B, hkv, S, D)
+    shape = (L, B, hkv, S, d)
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
     if kv == "int8":
         ck = torch.randint(-127, 128, shape, generator=g, device=dev,
@@ -476,11 +505,11 @@ def check_attention(name, kv, W, n_past, hkv, rep, alibi, rng, dev, timer,
         ck = torch.randn(shape, generator=g, device=dev).bfloat16()
         cv = torch.randn(shape, generator=g, device=dev).bfloat16()
         ks = vs = None
-    qf = torch.randn((B, 1, hkv, rep, D), generator=g, device=dev)
+    qf = torch.randn((B, 1, hkv, rep, d), generator=g, device=dev)
     npast = torch.tensor(n_past, dtype=torch.int32, device=dev)
     slopes = (alibi_slopes(hkv * rep, 8.0, dev).reshape(hkv, rep)
               if alibi else None)
-    spec = SimpleNamespace(kq_scale=1.0 / math.sqrt(D))
+    spec = SimpleNamespace(kq_scale=1.0 / math.sqrt(d))
     layer = 1
     args = (spec, ck, cv, ks, vs, npast, W, layer, qf, slopes)
     got = da.dense_attention_pass(*args)
@@ -493,13 +522,17 @@ def check_attention(name, kv, W, n_past, hkv, rep, alibi, rng, dev, timer,
         rec["ms"] = timer.ms(lambda: da.dense_attention_pass(*args))
         rec["plain_ms"] = timer.ms(lambda: da.dense_attention_plain(*args))
         rec["library_ms"] = None
-        if kv == "bf16" and rep == 1 and not alibi:
+        if kv == "bf16":
             # one PyTorch call over the same window: attention output
-            # (acc / l) of the cached keys below n_past
+            # (acc / l) of the cached keys below n_past; the rep query
+            # heads of a kv head are its rows (queries) in one head
             k_w, v_w = ck[layer, :, :, :W], cv[layer, :, :, :W]
-            q_b = qf[:, 0].bfloat16()  # [B, Hkv, 1, D]
-            mask = (torch.arange(W, device=dev)[None] < npast[:, None]
-                    )[:, None, None]  # [B, 1, 1, W]
+            q_b = qf[:, 0].bfloat16()  # [B, Hkv, rep, d]
+            pos = torch.arange(W, device=dev)
+            mask = (pos[None] < npast[:, None])[:, None, None]  # [B,1,1,W]
+            if alibi:
+                mask = torch.where(mask, (slopes[:, :, None] * pos)[None],
+                                   float("-inf")).bfloat16()
             rec["library_ms"] = timer.ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q_b, k_w, v_w, attn_mask=mask, scale=spec.kq_scale))
@@ -508,11 +541,11 @@ def check_attention(name, kv, W, n_past, hkv, rep, alibi, rng, dev, timer,
         # query head
         keys = int(npast.clamp(max=W).sum())
         item = ck.element_size()
-        n_bytes = (2 * hkv * keys * D * item
+        n_bytes = (2 * hkv * keys * d * item
                    + (2 * hkv * keys * 4 if kv == "int8" else 0)
-                   + qf.numel() * 4 + B * hkv * rep * (D + 2) * 4)
+                   + qf.numel() * 4 + B * hkv * rep * (d + 2) * 4)
         rec["bound_ms"], rec["bound_by"] = bound_ms(
-            n_bytes, 4.0 * hkv * rep * keys * D)
+            n_bytes, 4.0 * hkv * rep * keys * d)
     return rec
 
 
@@ -586,6 +619,9 @@ def paged_inputs(kv, page, B, n_past_spec, hkv, rep, alibi, rng, dev,
     physical ids, its tables (trash page 0 past each stream's pages, plus
     two spare columns), n_past, q and the ALiBi slopes."""
     kind, top = n_past_spec
+    if kind == "all":  # every stream at the same n_past
+        return paged_pool(kv, page, np.full(B, top), hkv, rep, alibi, rng,
+                          dev, D, layers)
     if kind == "at":  # the reference bench's geometry, one stream mid-page
         n_past = np.full(B, top)
         n_past[1] = top // 2 + 1
@@ -832,15 +868,28 @@ def check_repeat(dev) -> dict:
 
 
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(bf16: bool = False, halves: bool = False):
     """Route every wrapper's CUDA calls to its plain version (the
-    reference run of this script only; the port itself never does this)."""
+    reference run of this script only; the port itself never does this).
+    `bf16`: qmatmul's plain version rounds x and the dequantized weight to
+    bf16 first, as the kernel does (f32 products and sums); `halves`: it
+    then sums the two halves of K apart, the same products in another
+    order."""
     from llm_tpu_torch.ops import dense_attention as da
     from llm_tpu_torch.ops import paged_attention as pa
     from llm_tpu_torch.ops import qmatmul as qm
 
     saved = qm.qmatmul_cuda, da.dense_attention_cuda, pa.paged_attention_cuda
     qm.qmatmul_cuda = qm.qmatmul_plain
+    if bf16:
+        def bf16_plain(x, w):
+            xb, wd = x.bfloat16().float(), dequant_any(w).bfloat16().float()
+            if not halves:
+                return xb @ wd
+            k = xb.shape[1] // 2
+            return xb[:, :k] @ wd[:k] + xb[:, k:] @ wd[k:]
+
+        qm.qmatmul_cuda = bf16_plain
     da.dense_attention_cuda = da.dense_attention_plain
     pa.paged_attention_cuda = pa.paged_attention_plain
     try:
@@ -939,16 +988,16 @@ def decode_profile(model, prompt: list[int], steps: int = 4) -> dict:
     step()  # prefill
     out = step_profile(step, steps)
     out["window"] = window_bucket(state["n"], spec.n_ctx)
-    attention_launches_held("infer decode", out)
+    attention_launches_held("infer decode", out, spec)
     return out
 
 
-def attention_launches_held(name, profile) -> None:
+def attention_launches_held(name, profile, spec) -> None:
     """A profiled decode step launches the attention kernel once a layer."""
     got = profile["attention_launches_per_step"]
-    if got != N_LAYER:
+    if got != spec.n_layer:
         fail(f"{name}: {got} attention kernels a profiled decode step, "
-             f"not {N_LAYER}")
+             f"not {spec.n_layer}")
 
 
 def step_profile(step, steps: int = 4) -> dict:
@@ -1086,8 +1135,17 @@ def e2e_phase(dev):
 
 
 DS_STEPS = 8  # --decode-steps of the phase's runs: 4 blocks of 32 tokens
-DS_LAUNCHES = {"qmatmul": 4 * N_LAYER + 1, "dense_attention": N_LAYER,
-               "paged_attention": 0}
+
+
+def step_launches(spec, attention: str = "dense_attention") -> dict:
+    """The kernel launches of one T=1 forward of `spec`: qmatmul 4 a layer
+    (q|k|v, wo, the FFN's up or gate|up, down) and the head, the
+    `attention` kernel once a layer (LLaMA-7B: 129 and 32), the other
+    attention kernel never."""
+    want = {"qmatmul": 4 * spec.n_layer + 1, "dense_attention": 0,
+            "paged_attention": 0}
+    want[attention] = spec.n_layer
+    return want
 
 
 def ds_session(model):
@@ -1124,12 +1182,14 @@ def graph_records(sess) -> list[dict]:
             for key, g in sess.cache.graphs.items()]
 
 
-def launches_held(name, recs) -> None:
-    """Every capture counted 129 qmatmul and 32 attention launches."""
+def launches_held(name, recs, spec) -> None:
+    """Every capture counted one forward's launches (`step_launches`:
+    LLaMA-7B's 129 qmatmul and 32 attention)."""
+    want = step_launches(spec)
     for r in recs:
-        if r["launches_per_replay"] != DS_LAUNCHES:
+        if r["launches_per_replay"] != want:
             fail(f"{name}: a captured decode step counted "
-                 f"{r['launches_per_replay']} launches, not {DS_LAUNCHES}")
+                 f"{r['launches_per_replay']} launches, not {want}")
 
 
 def replay_vs_eager(model, prompt, sampler, dev) -> dict:
@@ -1147,11 +1207,13 @@ def replay_vs_eager(model, prompt, sampler, dev) -> dict:
     if sampler.kind != "greedy":
         gen = torch.Generator(device=dev)
         gen.manual_seed(5)
-        u = torch.rand((1, V), generator=gen, device=dev).clamp_min_(1e-20)
+        u = torch.rand((1, spec.n_vocab), generator=gen,
+                       device=dev).clamp_min_(1e-20)
     pst = None
     if sampler.has_penalties:
         pst = {k: v[0] for k, v in penalty_state(
-            [sess.tokens], sampler.penalty_last_n, V, device=dev).items()}
+            [sess.tokens], sampler.penalty_last_n, spec.n_vocab,
+            device=dev).items()}
     outs = [decode_loop(spec, model.params, sess.last_logits, n, sess.cache,
                         1, window, sampler, penalty_state=pst, uniforms=u,
                         graph=graph) for graph in (False, True)]
@@ -1165,7 +1227,7 @@ def replay_vs_eager(model, prompt, sampler, dev) -> dict:
         fail("device sampling: non-finite logits from the replay")
     if int(te[0]) != int(tg[0]) or not rec["logits_bit_equal"]:
         fail(f"device sampling: replay differs from the eager step: {rec}")
-    launches_held("replay_vs_eager", rec["graphs"])
+    launches_held("replay_vs_eager", rec["graphs"], spec)
     return rec
 
 
@@ -1220,7 +1282,7 @@ def device_sampling_phase(model, dev, e2e) -> dict:
         if not np.isfinite(sess.last_logits).all():
             fail("device sampling: non-finite logits")
         del sess
-    launches_held("greedy runs", graphs)
+    launches_held("greedy runs", graphs, model.spec)
     out["greedy_runs"] = runs
 
     # decode ms a token, device path against host-sampled infer, steady
@@ -1239,7 +1301,7 @@ def device_sampling_phase(model, dev, e2e) -> dict:
             "ms_per_token": dev_ms / N_PREDICT,
             "wall_ms_per_token": wall_ms / N_PREDICT,
             "replays_per_token": replays / N_PREDICT,
-            "launches_per_token": sum(DS_LAUNCHES.values())
+            "launches_per_token": sum(step_launches(model.spec).values())
             * replays / N_PREDICT,
             "graphs": graph_records(sess)}
         if steps == 32:
@@ -1311,7 +1373,7 @@ def device_sampling_phase(model, dev, e2e) -> dict:
         sess.infer_device(mid, N_PREDICT, sampler=smp["topk_penalty"],
                           n_steps=DS_STEPS, seed=1, halt_on_eot=False)
         sampled.append(sess.tokens[len(mid):])
-        launches_held("sampled run", graph_records(sess))
+        launches_held("sampled run", graph_records(sess), model.spec)
         del sess
     out["sampled_ids"] = sampled
     if sampled[0] != sampled[1] or len(sampled[0]) != N_PREDICT:
@@ -1321,7 +1383,7 @@ def device_sampling_phase(model, dev, e2e) -> dict:
                       n_steps=DS_STEPS, seed=1, halt_on_eot=False)
     out["mirostat2"] = {"new_ids": sess.tokens[len(mid):],
                         "mu": sess._mirostat_mu}
-    launches_held("mirostat run", graph_records(sess))
+    launches_held("mirostat run", graph_records(sess), model.spec)
     if not math.isfinite(sess._mirostat_mu):
         fail(f"device sampling: mirostat mu {sess._mirostat_mu}")
     del sess
@@ -1387,8 +1449,7 @@ def coalesced_infer_phase(model, dev) -> dict:
 def compare_logits(name, got, ref) -> dict:
     """Relative L2 and top-1 agreement of two logits tensors [.., V]; fails
     the run past E2E_REL_L2."""
-    if got.shape != ref.shape or got.shape[-1] != V or \
-            not bool(torch.isfinite(got).all()):
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
         fail(f"{name} logits {tuple(got.shape)} or non-finite")
     rel_l2 = float((got - ref).norm() / ref.norm())
     rec = {"max_abs_err": float((got - ref).abs().max()), "rel_l2": rel_l2,
@@ -1514,21 +1575,22 @@ def read_launches() -> dict:
             "dense_attention": da.LAUNCHES, "paged_attention": pa.LAUNCHES}
 
 
-def check_engine_launches(name, launches, counts, attention) -> dict:
-    """Exact launch counts of one engine run: 129 qmatmul launches (4
-    projections x 32 layers + lm_head) per forward, on the wide path for
-    the forwards of more than 32 rows and on the swapped path for the rest,
-    32 launches of the engine's `attention` kernel per decode-shaped
-    forward (the T=1 ones; longer prefill chunks take its plain page pass
-    or the torch prefill attention), and none of the other attention
-    kernel."""
-    per = 4 * N_LAYER + 1
+def check_engine_launches(name, launches, counts, attention, spec) -> dict:
+    """Exact launch counts of one engine run of `spec`: `step_launches`'s
+    qmatmul launches (4 projections x n_layer + the head: LLaMA-7B's 129)
+    per forward, on the wide path for the forwards of more than 32 rows and
+    on the swapped path for the rest, n_layer launches of the engine's
+    `attention` kernel per decode-shaped forward (the T=1 ones; longer
+    prefill chunks take its plain page pass or the torch prefill
+    attention), and none of the other attention kernel."""
+    one = step_launches(spec, attention)
+    per = one["qmatmul"]
     want = {"qmatmul": per * counts["forwards"],
             "qmatmul_swapped": per * (counts["forwards"]
                                       - counts["wide_forwards"]),
             "qmatmul_wide": per * counts["wide_forwards"],
             "dense_attention": 0, "paged_attention": 0}
-    want[attention] = N_LAYER * counts["t1_forwards"]
+    want[attention] = one[attention] * counts["t1_forwards"]
     if launches != want or not counts["t1_forwards"]:
         fail(f"{name}: kernel launches {launches}, expected {want} for "
              f"{counts}")
@@ -1604,7 +1666,7 @@ def engine_step_profile(engine, rng, prompt_len: int = 64) -> dict:
     out = step_profile(engine.step)
     out["streams"] = engine.max_streams
     out["n_past_max"] = max(s.n_past for s in engine.slots)
-    attention_launches_held(type(engine).__name__, out)
+    attention_launches_held(type(engine).__name__, out, engine.model.spec)
     return out
 
 
@@ -1709,7 +1771,7 @@ def serve_phase(model, dev) -> dict:
     out["paged_launches"] = launches
     out["paged_forwards"] = dict(counts, decode_dispatches=paged_dispatches)
     check_engine_launches("paged engine", launches, counts,
-                          "paged_attention")
+                          "paged_attention", model.spec)
     if launches["paged_attention"] != N_LAYER * paged_dispatches:
         fail(f"paged_attention launched {launches['paged_attention']} "
              f"times for {paged_dispatches} paged decode steps")
@@ -1741,7 +1803,7 @@ def serve_phase(model, dev) -> dict:
     out["dense_launches"] = launches
     out["dense_forwards"] = counts
     check_engine_launches("dense engine", launches, counts,
-                          "dense_attention")
+                          "dense_attention", model.spec)
     if any(t.count("<t") != SERVE_NEW for t in texts.values()):
         fail("dense engine: a request did not yield 32 tokens")
     out["dense"] = {"requests": len(reqs),
@@ -1810,7 +1872,7 @@ def weight_traffic(model) -> tuple[int, float]:
     from llm_tpu_torch.ops.packing import QuantTensor
 
     params = model.params
-    ws = [(getattr(params.layers, f.name), N_LAYER)
+    ws = [(getattr(params.layers, f.name), model.spec.n_layer)
           for f in dc_fields(params.layers)]
     ws.append((params.lm_head if params.lm_head is not None else params.wte,
                1))
@@ -1819,10 +1881,10 @@ def weight_traffic(model) -> tuple[int, float]:
             sum(2.0 * w.k * w.r * n for w, n in ws))
 
 
-def kv_row_bytes(kv: str) -> int:
+def kv_row_bytes(kv: str, spec) -> int:
     """Bytes of one position's K and V rows over every layer and kv head."""
-    per = {"int8": D + 4, "bf16": 2 * D}[kv]
-    return 2 * N_LAYER * H * per
+    per = {"int8": spec.head_dim + 4, "bf16": 2 * spec.head_dim}[kv]
+    return 2 * spec.n_layer * spec.n_head_kv * per
 
 
 def graph_stats(graphs: dict) -> list[dict]:
@@ -1831,12 +1893,11 @@ def graph_stats(graphs: dict) -> list[dict]:
              "replays": g.replays} for key, g in graphs.items()]
 
 
-def ms_launches_held(name, recs, attention) -> None:
-    """Every capture of a batched step counted 129 qmatmul and 32 launches
-    of the engine's attention kernel, and none of the other."""
-    want = {"qmatmul": 4 * N_LAYER + 1, "dense_attention": 0,
-            "paged_attention": 0}
-    want[attention] = N_LAYER
+def ms_launches_held(name, recs, attention, spec) -> None:
+    """Every capture of a batched step counted one forward's launches
+    (`step_launches`: LLaMA-7B's 129 qmatmul and 32 of the engine's
+    attention kernel), and none of the other attention kernel."""
+    want = step_launches(spec, attention)
     for r in recs:
         if r["launches_per_replay"] != want:
             fail(f"{name}: a captured batched step counted "
@@ -1855,7 +1916,7 @@ def loop_run(name, block, graphs, B, attention, kv_bytes, model) -> dict:
     replays = sum(g.replays for g in graphs.values()) - replays0
     prof = step_profile(block, steps=1)
     recs = graph_stats(graphs)
-    ms_launches_held(name, recs, attention)
+    ms_launches_held(name, recs, attention, model.spec)
     if replays != MS_STEPS * MS_TIMED_BLOCKS:
         fail(f"{name}: {replays} replays for {MS_TIMED_BLOCKS} blocks of "
              f"{MS_STEPS}")
@@ -1892,14 +1953,14 @@ def greedy_block_sampler(model):
 def hand_pool(model, dev, n_past, n_new: int):
     """An int8 pool of page 256 and hand-built tables (the bench's form):
     each stream the pages its n_past + n_new need, the pool exactly those
-    plus the trash page 0. Returns (pool, tables [B, CTX/page], the
+    plus the trash page 0. Returns (pool, tables [B, n_ctx/page], the
     window pages)."""
     from llm_tpu_torch.paged import init_paged_cache
 
     need = [-(-(int(n) + n_new) // SERVE_PAGE) for n in n_past]
     pool = init_paged_cache(model.spec, 1 + sum(need), SERVE_PAGE, "int8",
                             dev)
-    tables = np.zeros((len(need), CTX // SERVE_PAGE), np.int32)
+    tables = np.zeros((len(need), model.spec.n_ctx // SERVE_PAGE), np.int32)
     nxt = 1
     for b, n in enumerate(need):
         tables[b, :n] = np.arange(nxt, nxt + n)
@@ -1917,9 +1978,10 @@ def paged_loop_case(model, dev, B, n_past, name) -> dict:
     n_past = np.asarray(n_past, np.int32)
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
-    logits = torch.randn((B, V), generator=gen, device=dev)
+    Vm = model.spec.n_vocab
+    logits = torch.randn((B, Vm), generator=gen, device=dev)
     sampler = greedy_block_sampler(model)
-    pst = penalty_state([[] for _ in range(B)], 64, V)
+    pst = penalty_state([[] for _ in range(B)], 64, Vm)
 
     def block():
         toks = paged_decode_loop(model.spec, model.params, logits, n_past,
@@ -1928,7 +1990,7 @@ def paged_loop_case(model, dev, B, n_past, name) -> dict:
         return toks.cpu()
 
     out = loop_run(name, block, pool.graphs, B, "paged_attention",
-                   int(n_past.sum()) * kv_row_bytes("int8"), model)
+                   int(n_past.sum()) * kv_row_bytes("int8", model.spec), model)
     out.update(kv="int8", page=SERVE_PAGE, window_pages=wp,
                n_past=[int(x) for x in n_past], pool_bytes=pool.nbytes())
     del pool
@@ -1965,7 +2027,8 @@ def dense_loop_case(model, dev) -> dict:
 
     out = loop_run("dense bf16 B=8", block, cache.graphs, B,
                    "dense_attention",
-                   int(n_past.sum()) * kv_row_bytes("bf16"), model)
+                   int(n_past.sum()) * kv_row_bytes("bf16", model.spec),
+                   model)
     out.update(kv="bf16", window=window, n_past=[int(x) for x in n_past])
     del cache
     torch.cuda.empty_cache()
@@ -2026,7 +2089,8 @@ def replay_vs_eager_batched(model, dev) -> dict:
                                   uniforms=uni, graph=g)
                 for g in (False, True)]
         torch.cuda.synchronize()
-        out[name] = replay_held(name, runs, pool.graphs, "paged_attention")
+        out[name] = replay_held(name, runs, pool.graphs, "paged_attention",
+                                model.spec)
     del pool
     torch.cuda.empty_cache()
 
@@ -2046,7 +2110,8 @@ def replay_vs_eager_batched(model, dev) -> dict:
             for g in (False, True)]
     torch.cuda.synchronize()
     out["dense_bf16_masked"] = replay_held("dense_bf16_masked", runs,
-                                           cache.graphs, "dense_attention")
+                                           cache.graphs, "dense_attention",
+                                           model.spec)
     if not (torch.equal(cache.k[:, 3], slot3[0])
             and torch.equal(cache.v[:, 3], slot3[1])):
         fail("multi_step: the masked slot's cache rows changed")
@@ -2055,7 +2120,7 @@ def replay_vs_eager_batched(model, dev) -> dict:
     return out
 
 
-def replay_held(name, runs, graphs, attention) -> dict:
+def replay_held(name, runs, graphs, attention, spec) -> dict:
     (te, le), (tg, lg) = ((r[0], r[1]) for r in runs)
     rec = {"tokens_equal": bool(torch.equal(te, tg)),
            "logits_bit_equal": bool(torch.equal(le, lg)),
@@ -2065,18 +2130,18 @@ def replay_held(name, runs, graphs, attention) -> dict:
         fail(f"multi_step {name}: non-finite logits from the replay")
     if not (rec["tokens_equal"] and rec["logits_bit_equal"]):
         fail(f"multi_step {name}: replay differs from the eager step: {rec}")
-    ms_launches_held(name, rec["graphs"], attention)
+    ms_launches_held(name, rec["graphs"], attention, spec)
     return rec
 
 
 TOKEN = re.compile(r"<t(\d+)>")
 
 
-def token_margin(model, prompt, common) -> dict:
+def token_margin(model, prompt, common, kv="int8") -> dict:
     """The top-2 margin of the host chain's penalized logits (repetition
     1.3 over 64, EoT banned) where a stream's block-path text first left
     the host-stepped one: the row after prompt + the common tokens, from
-    a paged int8 engine's prefill."""
+    the prefill of a paged engine over a `kv` pool."""
     from llm_tpu_torch.paged import PagedEngine
     from llm_tpu_torch.samplers import build_sampler_chain
     from llm_tpu_torch.serve import GenerationRequest
@@ -2084,7 +2149,7 @@ def token_margin(model, prompt, common) -> dict:
     chain = build_sampler_chain(
         ["topk:k=1"], bias=[(model.eot_token_id(), float("-inf"))])
     engine = PagedEngine(model, max_streams=1, page_size=SERVE_PAGE,
-                         kv_dtype="int8", n_batch=64)
+                         kv_dtype=kv, n_batch=64)
     engine.submit(GenerationRequest(prompt=prompt + common, max_tokens=1,
                                     sampler=chain))
     engine._admit()
@@ -2165,7 +2230,8 @@ def multi_step_server(model, serve) -> dict:
     if errors:
         fail(f"multi_step server: completions failed: {errors}")
     recs = graph_stats(engine.pool.graphs)
-    ms_launches_held("multi_step server", recs, "paged_attention")
+    ms_launches_held("multi_step server", recs, "paged_attention",
+                     model.spec)
     replays = sum(r["replays"] for r in recs)
     if any(engine.multi_fallbacks.values()) or not engine.multi_blocks \
             or replays != engine.multi_block_steps:
@@ -2254,6 +2320,550 @@ def multi_step_phase(model, dev, serve) -> dict:
            for name in ("paged_int8_b16", "dense_bf16_b8", "paged_int8_b64")},
     }
     emit({"multi_step_summary": out["summary"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the six other architectures
+
+
+# (name, architecture, format, hparams, n_ff, context, prompt lengths, new
+# tokens a prompt, the published layer count). Published widths, and
+# bench.py's geometry where it has one (its staged configs #1 GPT-2, #3
+# StableLM, #4 MPT; MPT with its published vocab, 50,432, where bench.py
+# has 32,000). StableLM rotates a quarter of each head (its published
+# rotary_pct; bench.py rotates all of it). MPT-7B and the 117M GPT-2 and
+# StableLM-3B are whole; GPT-J, BLOOM and Falcon keep 4 of their layers.
+ARCH_MODELS = [
+    ("mpt7b_q4_k", "mpt", "Q4_K",
+     dict(n_vocab=50432, n_embd=4096, n_head=32, n_layer=32,
+          alibi_bias_max=8.0), 16384, 8192, (64, 1100), 32, 32),
+    ("gpt2_117m_q8_0", "gpt2", "Q8_0",
+     dict(n_vocab=50304, n_embd=768, n_head=12, n_layer=12, n_ctx=1024),
+     3072, 2048, (64,), 16, 12),
+    ("stablelm3b_q5_1", "gptneox", "Q5_1",
+     dict(n_vocab=50432, n_embd=2560, n_head=32, n_layer=32, n_rot=20),
+     10240, 2048, (64,), 16, 32),
+    ("gptj6b_q4_0", "gptj", "Q4_0",
+     dict(n_vocab=50400, n_embd=4096, n_head=16, n_layer=4, n_rot=64),
+     16384, 2048, (64,), 16, 28),
+    ("bloom7b1_q4_0", "bloom", "Q4_0",
+     dict(n_vocab=250880, n_embd=4096, n_head=32, n_layer=4), 16384, 2048,
+     (64,), 16, 30),
+    ("falcon7b_q4_0", "falcon", "Q4_0",
+     dict(n_vocab=65024, n_embd=4544, n_head=71, n_head_kv=1, n_layer=4),
+     18176, 2048, (64,), 16, 32),
+]
+ARCH_BLOCK = 16  # --decode-steps of the timed device-sampling blocks
+# MPT's paged cell (bench.py:1019-1075): 2 streams at n_past 7680, page 256
+MPT_CELL_STREAMS, MPT_CELL_PAST = 2, 7680
+ENGINE_PROMPT_LENS = (16, 100, 300, 600)  # the engines' 4 greedy prompts
+
+
+def top1_held(name, got, ref) -> dict:
+    """Top-1 of each row of `got` equal to `ref`'s, except at a near-tie:
+    a row whose top-2 margin in `ref` is within E2E_REL_L2 of its largest
+    |logit| may pick the other of the two (each product rounds x and W to
+    bf16). Fails the run on any other row."""
+    top2 = ref.topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) <= E2E_REL_L2 * ref.abs().amax(-1)
+    differs = got.argmax(-1) != ref.argmax(-1)
+    if bool((differs & ~tie).any()):
+        fail(f"{name}: top-1 differs from the plain path's at rows "
+             f"{torch.nonzero(differs & ~tie).flatten().tolist()}")
+    return {"rows": int(differs.numel()), "differ": int(differs.sum()),
+            "near_ties": int(tie.sum())}
+
+
+@contextlib.contextmanager
+def layer_trace(outs: list, inputs: Optional[list] = None):
+    """Record each decoder layer's output h into `outs`, in call order;
+    with `inputs` (another run's recorded layer inputs), run each layer on
+    that input in place of its own (teacher forcing: a layer's difference
+    is then its own, not the layers' before it)."""
+    from llm_tpu_torch.models import forward as fwd
+
+    inner = fwd._layer_batched
+    seen = []
+
+    def wrapped(spec, h, *a, **k):
+        if inputs is not None:
+            h = inputs[len(seen)]
+        seen.append(h.clone())
+        out = inner(spec, h, *a, **k)
+        outs.append(out[0].clone())
+        return out
+
+    fwd._layer_batched = wrapped
+    try:
+        yield seen
+    finally:
+        fwd._layer_batched = inner
+
+
+def arch_logits(name, model) -> dict:
+    """The first prefill (64 tokens) and decode logits of the kernel path
+    against the plain path on the same card, whose qmatmul rounds x and W
+    to bf16 as the kernel does, each decoder layer run on the plain run's
+    input for that layer (`layer_trace`): every layer's output and the
+    logits within E2E_REL_L2 relative L2, top-1 equal (`top1_held`).
+
+    The layers are forced because these random models are chaotic: their
+    attention, over random weights of large magnitude, is nearly a hard
+    max, and a change in the 7th digit of a score may pick another key.
+    Reported beside, not held: the free-running distances of the kernel
+    path to the bf16 and the f32 plain path, and the model's own
+    sensitivity, the distance between two free-running bf16 plain runs
+    that sum the same products in another order (`halves`)."""
+    ids = np.random.default_rng(11).integers(1, model.spec.n_vocab,
+                                             64).tolist()
+    plain_h, kern_h = [], []
+    with plain_versions(bf16=True), layer_trace(plain_h) as plain_in:
+        pre_p, dec_p = first_logits(model, ids)
+    with layer_trace(kern_h, plain_in):
+        pre_k, dec_k = first_logits(model, ids)
+    layer_l2 = [float((k - p).norm() / p.norm())
+                for k, p in zip(kern_h, plain_h)]
+    out = {"layers": len(layer_l2), "layer_rel_l2_max": max(layer_l2),
+           "layer_rel_l2": layer_l2}
+    if max(layer_l2) > E2E_REL_L2:
+        fail(f"{name}: a layer's output differs from the plain layer's on "
+             f"the same input: rel L2 {max(layer_l2):.3g} > {E2E_REL_L2}")
+    free_k = first_logits(model, ids)
+    with plain_versions():
+        free_f = first_logits(model, ids)
+    with plain_versions(bf16=True, halves=True):
+        free_h = first_logits(model, ids)
+    for i, part in enumerate(("prefill", "decode")):
+        got, ref = (pre_k, dec_k)[i], (pre_p, dec_p)[i]
+        out[part] = {**compare_logits(f"{name} {part}", got, ref),
+                     **top1_held(f"{name} {part}", got, ref)}
+        for key, a, b in (("free_vs_bf16_plain", free_k[i], ref),
+                          ("free_vs_f32_plain", free_k[i], free_f[i]),
+                          ("plain_halves_vs_bf16_plain", free_h[i], ref)):
+            out[part][key] = {
+                "rel_l2": float((a - b).norm() / b.norm()),
+                "top1_agree": float((a.argmax(-1) == b.argmax(-1))
+                                    .float().mean())}
+    return out
+
+
+def arch_infer(name, model, prompts, n_new) -> dict:
+    """(a) greedy host-sampled `infer` on each prompt, with the launch
+    counters zeroed just before and read just after: per forward the
+    model's `step_launches`, prompt chunks of 512 rows on qmatmul's wide
+    path and decode steps on its swapped path."""
+    greedy_prompt_run(model, prompts[0][:4], 2)  # loads the libraries
+    zero_launches()
+    runs = [greedy_prompt_run(model, p, n_new) for p in prompts]
+    launches = read_launches()
+    one = step_launches(model.spec)
+    steps = sum(math.ceil(len(p) / N_BATCH) + n_new for p in prompts)
+    decode = sum(n_new + (len(p) % N_BATCH == 1) for p in prompts)
+    want = {"qmatmul": one["qmatmul"] * steps,
+            "qmatmul_swapped": one["qmatmul"] * decode,
+            "qmatmul_wide": one["qmatmul"] * (steps - decode),
+            "dense_attention": one["dense_attention"] * decode,
+            "paged_attention": 0}
+    if launches != want:
+        fail(f"{name} infer: kernel launches {launches}, expected {want}")
+    return {"runs": runs, "launches": launches}
+
+
+def greedy_tokens_held(name, model, prompt, got, want) -> Optional[dict]:
+    """Device-sampled greedy tokens `got` against the host-sampled `want`
+    after `prompt`: equal, or equal up to a step where the host chain's
+    logits (EoT banned, repetition 1.3 over 64, read after prompt + the
+    common tokens) put both tokens within E2E_REL_L2 of their largest
+    |logit| from the top. The host chain's `topk:k=1` keeps every token
+    tied at the top and samples among them; the device's greedy takes the
+    first (as in the reference). Fails the run on any other difference;
+    returns the difference, or None."""
+    from llm_tpu_torch.samplers import build_sampler_chain
+
+    if got == want:
+        return None
+    j = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    if j == min(len(got), len(want)):
+        fail(f"{name}: {len(got)} device tokens against {len(want)}")
+    sess = ds_session(model)
+    tokens = list(prompt) + list(want[:j])
+    sess.feed_prompt(tokens)
+    x = np.array(sess.last_logits, np.float32)
+    del sess
+    chain = build_sampler_chain(
+        ["topk:k=1"], bias=[(model.eot_token_id(), float("-inf"))])
+    for t in chain.transforms:  # the ban and the penalty, no truncation
+        if type(t).__name__ in ("FlatBias", "Repetition"):
+            x = t.apply(x, tokens, None)
+    top = float(x.max())
+    d = {"step": j, "host": int(want[j]), "device": int(got[j]),
+         "host_gap": top - float(x[want[j]]),
+         "device_gap": top - float(x[got[j]]),
+         "tolerance": E2E_REL_L2 * float(np.abs(x[np.isfinite(x)]).max())}
+    emit({"archs_device_token_differs": {name: d}})
+    if max(d["host_gap"], d["device_gap"]) > d["tolerance"]:
+        fail(f"{name}: device greedy tokens {got} != host-sampled {want} "
+             f"at step {j}, not a tie: {d}")
+    return d
+
+
+def arch_device_sampling(name, model, prompts, runs, n_new) -> dict:
+    """(c) `infer_device` greedy (the host chain's repetition slot and the
+    EoT ban as device sampler) gives the host-sampled tokens, but after a
+    tie (`greedy_tokens_held`), each capture counting one forward's
+    launches; then decode ms a token of blocks of
+    ARCH_BLOCK (CUDA events, graphs captured first), the busy share of a
+    profiled block, and host-sampled ms a step in the same run."""
+    from llm_tpu_torch.samplers import build_sampler_chain
+    from llm_tpu_torch.session import InferenceParameters
+
+    spec = model.spec
+    greedy = ds_samplers(model)["greedy"]
+    graphs, ties = [], []
+    for prompt, host in zip(prompts, runs):
+        sess = ds_session(model)
+        sess.infer_device(prompt, n_new, sampler=greedy, n_steps=DS_STEPS,
+                          halt_on_eot=False)
+        new = sess.tokens[len(prompt):]
+        graphs += graph_records(sess)
+        del sess
+        tie = greedy_tokens_held(f"{name} device sampling, prompt of "
+                                 f"{len(prompt)}", model, prompt, new,
+                                 host["new_ids"])
+        if tie is not None:
+            ties.append(tie)
+    launches_held(f"{name} greedy runs", graphs, spec)
+    sess = ds_session(model)
+    sess.infer_device(prompts[0], ARCH_BLOCK, sampler=greedy,
+                      n_steps=ARCH_BLOCK, halt_on_eot=False)  # captures
+
+    def block():
+        sess.infer_device([], ARCH_BLOCK, sampler=greedy, n_steps=ARCH_BLOCK,
+                          halt_on_eot=False)
+
+    dev_ms, wall_ms = events_ms(block)
+    prof = step_profile(block, steps=1)
+    graphs += graph_records(sess)
+    launches_held(f"{name} timed blocks", graphs, spec)
+    del sess
+    host = ds_session(model)
+    host.feed_prompt(prompts[0])
+    chain = build_sampler_chain(["topk:k=1"],
+                                bias=[(model.eot_token_id(), float("-inf"))])
+    params = InferenceParameters(sampler=chain)
+    rng = np.random.default_rng(0)
+    host.infer_next_token(rng, params)  # warm
+    host_ms, host_wall = events_ms(lambda: [host.infer_next_token(rng, params)
+                                            for _ in range(ARCH_BLOCK)])
+    del host
+    wbytes, _ = weight_traffic(model)
+    busy = prof["device_busy_share"]
+    return {
+        "ms_per_token": dev_ms / ARCH_BLOCK,
+        "wall_ms_per_token": wall_ms / ARCH_BLOCK,
+        "bound_ms_per_token": 1e3 * wbytes / HBM_BYTES_PER_S,
+        "bound_by": "bytes", "weight_bytes_read": wbytes,
+        "host_ms_per_step": host_ms / ARCH_BLOCK,
+        "host_wall_ms_per_step": host_wall / ARCH_BLOCK,
+        "device_busy_share": busy,
+        "busy_share_how": (
+            "union of the kernel intervals torch.profiler recorded over a "
+            f"{ARCH_BLOCK}-token block, over its untraced wall time"
+            if busy is not None else
+            "not measured: torch.profiler recorded no kernel of the replays"),
+        "device_ms_per_token": (prof["device_ms_per_step"] / ARCH_BLOCK
+                                if busy is not None else None),
+        "top_device": prof["top_device"],
+        "tokens_equal": len(prompts) - len(ties), "ties": ties,
+        "graphs": graphs,
+    }
+
+
+def arch_qmatmul(name, model, rng, dev, timer) -> dict:
+    """K1 at M=1 on the model's own weights (layer 0 of each projection,
+    and the head), held against its plain version and timed; the sums of
+    one decode token's launches (n_layer x the layer's, + the head)."""
+    p = model.params
+    head = p.lm_head if p.lm_head is not None else p.wte
+    L = model.spec.n_layer
+    ws = [(f, getattr(p.layers, f).layer(0), L)
+          for f in ("w_qkv", "wo", "w_gate_up", "w_up", "w_down")
+          if getattr(p.layers, f) is not None] + [("head", head, 1)]
+    recs = []
+    for f, w, n in ws:
+        r = check_qmatmul(f"{name}:{f}", w, 1, rng, dev, timer, True)
+        r["per_token"] = n
+        if not r["ok"]:
+            fail(f"{name}: qmatmul out of tolerance: {r}")
+        recs.append(r)
+    token = {k: sum(r[k] * r["per_token"] for r in recs)
+             for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    token["launches"] = sum(r["per_token"] for r in recs)
+    return {"cases": recs, "per_token": token}
+
+
+def texts_held(name, got, ref, model, prompts, kv) -> list:
+    """Texts `got` against `ref` (one a prompt): a token may differ only
+    where the top-2 margin of the penalized logits is within E2E_REL_L2
+    of their size (`token_margin`, over a `kv` pool), else the run fails.
+    Returns the differences."""
+    diffs = []
+    for i, (a, b) in enumerate(zip(got, ref)):
+        a_ids = [int(x) for x in TOKEN.findall(a)]
+        b_ids = [int(x) for x in TOKEN.findall(b)]
+        if a_ids == b_ids:
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(a_ids, b_ids)) if x != y)
+        d = {"run": name, "request": i, "step": j,
+             **token_margin(model, prompts[i], b_ids[:j], kv)}
+        emit({"archs_token_differs": d})
+        diffs.append(d)
+        if d["margin"] > d["tolerance"]:
+            fail(f"{name}: request {i} differs at step {j}, top-2 margin "
+                 f"{d['margin']:.4g} > {d['tolerance']:.4g}")
+    return diffs
+
+
+def arch_engines(name, model, dev) -> dict:
+    """(e) A paged engine (4 slots, page 256, int8 pool, prefix cache) and
+    a dense bf16 engine answer the same 4 greedy prompts, host-stepped and
+    in blocks of 16: each engine's block texts equal its host-stepped
+    ones; the paged texts equal those of a dense engine over an int8 cache
+    (the same row codes). Against the dense bf16 texts, whose attention
+    reads other rows than an int8 pool's, only the equal texts are counted.
+    A token may differ only at a near-tie (`texts_held`). The host-stepped
+    runs count their launches (`check_engine_launches`), each block
+    capture one forward's."""
+    from llm_tpu_torch import paged as paged_mod
+    from llm_tpu_torch import serve as serve_mod
+    from llm_tpu_torch.paged import PagedEngine
+    from llm_tpu_torch.samplers import build_sampler_chain
+    from llm_tpu_torch.serve import Engine, GenerationRequest
+
+    eot = model.eot_token_id()
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, model.spec.n_vocab, n).tolist()
+               for n in ENGINE_PROMPT_LENS]
+
+    def paged():
+        return PagedEngine(model, max_streams=4, page_size=SERVE_PAGE,
+                           kv_dtype="int8", n_batch=64, prefix_cache=True)
+
+    def dense(kv):
+        return lambda: Engine(model, max_streams=4, kv_dtype=kv, n_batch=64)
+
+    runs = [("paged_int8", paged, paged_mod, "paged_forward_batched",
+             "paged_attention", n) for n in (1, MS_STEPS)]
+    runs += [("dense_bf16", dense(torch.bfloat16), serve_mod,
+              "forward_batched", "dense_attention", n)
+             for n in (1, MS_STEPS)]
+    runs.append(("dense_int8", dense("int8"), serve_mod, "forward_batched",
+                 "dense_attention", 1))
+    out, texts = {}, {}
+    for kind, make, module, fwd, attention, n_steps in runs:
+        engine = make()
+        reqs = [GenerationRequest(
+            prompt=p, max_tokens=SERVE_NEW,
+            sampler=build_sampler_chain(["topk:k=1"],
+                                        bias=[(eot, float("-inf"))]),
+            device_sampler=greedy_block_sampler(model)) for p in prompts]
+        with counted_forwards(module, fwd) as counts:
+            zero_launches()
+            t0 = time.monotonic()
+            got = list(engine.generate_all(reqs, n_steps=n_steps).values())
+            wall = time.monotonic() - t0
+            launches = read_launches()
+        if any(t.count("<t") != SERVE_NEW for t in got):
+            fail(f"{name} {kind}: a request did not yield {SERVE_NEW} "
+                 "tokens")
+        rec = {"wall_s": wall, "launches": launches}
+        if n_steps == 1:
+            check_engine_launches(f"{name} {kind}", launches, counts,
+                                  attention, model.spec)
+        else:
+            graphs = (engine.pool.graphs if kind == "paged_int8"
+                      else engine.cache.graphs)
+            recs = graph_stats(graphs)
+            ms_launches_held(f"{name} {kind} blocks", recs, attention,
+                             model.spec)
+            rec.update(blocks=engine.multi_blocks,
+                       block_steps=engine.multi_block_steps,
+                       fallbacks=engine.multi_fallbacks, graphs=recs)
+            if not engine.multi_blocks or any(
+                    engine.multi_fallbacks.values()):
+                fail(f"{name} {kind} blocks: {engine.multi_blocks} blocks, "
+                     f"fallbacks {engine.multi_fallbacks}")
+        key = f"{kind}_steps{n_steps}"
+        out[key] = rec
+        texts[key] = got
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    blocks = f"_steps{MS_STEPS}"
+    out["differs"] = [
+        *texts_held(f"{name} paged int8 blocks", texts["paged_int8" + blocks],
+                    texts["paged_int8_steps1"], model, prompts, "int8"),
+        *texts_held(f"{name} dense bf16 blocks", texts["dense_bf16" + blocks],
+                    texts["dense_bf16_steps1"], model, prompts,
+                    torch.bfloat16),
+        *texts_held(f"{name} paged int8 vs dense int8",
+                    texts["paged_int8_steps1"], texts["dense_int8_steps1"],
+                    model, prompts, "int8")]
+    out["texts_equal"] = {
+        "paged_int8_blocks_vs_steps": texts["paged_int8" + blocks]
+        == texts["paged_int8_steps1"],
+        "dense_bf16_blocks_vs_steps": texts["dense_bf16" + blocks]
+        == texts["dense_bf16_steps1"],
+        "paged_int8_vs_dense_int8": texts["paged_int8_steps1"]
+        == texts["dense_int8_steps1"],
+        "paged_int8_vs_dense_bf16_equal_texts": sum(
+            a == b for a, b in zip(texts["paged_int8_steps1"],
+                                   texts["dense_bf16_steps1"])),
+    }
+    out["prompt_tokens"] = list(ENGINE_PROMPT_LENS)
+    return out
+
+
+def arch_model(entry, dev, timer) -> dict:
+    """Write one model of ARCH_MODELS with `make_bench_file` under
+    build/smoke/, load it on the card (the file is removed afterwards) and
+    drive (a), (b), (c) and K1 on its weights; MPT also (d) and (e)."""
+    from llm_tpu_torch import loader
+    from llm_tpu_torch.ggml.types import GgmlType
+    from llm_tpu_torch.testing import make_bench_file
+
+    name, arch, fmt, hp, n_ff, ctx, lens, n_new, published = entry
+    out = {"arch": arch, "format": fmt, "n_ff": n_ff, "context": ctx,
+           "layers_published": published, **hp}
+    smoke_dir = ROOT / "build" / "smoke"
+    smoke_dir.mkdir(parents=True, exist_ok=True)
+    path = smoke_dir / f"{name}.bin"
+    t_start = time.monotonic()
+    try:
+        t0 = time.monotonic()
+        make_bench_file(arch, path, GgmlType[fmt], seed=0, n_ff=n_ff, **hp)
+        out["write_s"] = time.monotonic() - t0
+        out["file_bytes"] = path.stat().st_size
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.monotonic()
+        model = loader.load(path, arch,
+                            params=loader.ModelParameters(context_size=ctx),
+                            device=dev)
+        torch.cuda.synchronize()
+        out["load_s"] = time.monotonic() - t0
+    finally:
+        path.unlink(missing_ok=True)
+    spec = model.spec
+    out["weights_bytes"] = torch.cuda.memory_allocated(dev) - base
+    out["n_ctx"] = spec.n_ctx  # GPT-2: capped at its 1024 positions
+    want_ctx = min(ctx, hp["n_ctx"]) if spec.learned_pos else ctx
+    if (spec.n_embd, spec.n_head, spec.n_layer, spec.n_vocab, spec.n_ctx) != \
+            (hp["n_embd"], hp["n_head"], hp["n_layer"], hp["n_vocab"],
+             want_ctx):
+        fail(f"{name}: loaded spec {spec}")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, spec.n_vocab, n).tolist() for n in lens]
+    out["infer"] = arch_infer(name, model, prompts, n_new)
+    out["qmatmul"] = arch_qmatmul(name, model, rng, dev, timer)
+    out["logits"] = arch_logits(name, model)
+    out["device_sampling"] = arch_device_sampling(
+        name, model, prompts, out["infer"]["runs"], n_new)
+    if arch == "mpt":
+        # (d) the paged loop at the bench's cell, timed against its bound
+        # (the weights once plus the K/V rows and scales below n_past)
+        out["paged_cell"] = paged_loop_case(
+            model, dev, MPT_CELL_STREAMS, [MPT_CELL_PAST] * MPT_CELL_STREAMS,
+            "mpt paged int8 B=2 at 7680")
+        out["engines"] = arch_engines(name, model, dev)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
+def archs_launches(models) -> dict:
+    """Each kernel's launches over the phase's main-path runs: the counted
+    launches of the host-stepped runs (`infer`, the engines' steps, their
+    prefills), and each graph's capture count times its replays."""
+    names = ("qmatmul", "dense_attention", "paged_attention")
+    total = dict.fromkeys(names, 0)
+    for m in models.values():
+        counted = [m["infer"]["launches"]]
+        graphs = m["device_sampling"]["graphs"] + m.get(
+            "paged_cell", {}).get("graphs", [])
+        for rec in m.get("engines", {}).values():
+            if isinstance(rec, dict) and "launches" in rec:
+                counted.append(rec["launches"])
+                graphs = graphs + rec.get("graphs", [])
+        for k in names:
+            total[k] += sum(c[k] for c in counted) + sum(
+                g["launches_per_replay"][k] * g["replays"] for g in graphs)
+    return total
+
+
+# the kernels at these models' shapes that no model run above times: K2 at
+# Falcon-7B's decode (B=1, one kv head of 71 query heads, D 64, W 512, bf16
+# cache, full window) and K4 at MPT's paged cell (int8 pool, ALiBi)
+ARCH_DENSE_CASE = ("falcon7b", "bf16", 512, (512,), 1, 71, False, True, 64)
+ARCH_PAGED_CASE = ("mpt7b_8k", "int8", SERVE_PAGE, MPT_CELL_STREAMS,
+                   ("all", MPT_CELL_PAST), 32, 1, True)
+
+
+def archs_phase(dev, timer) -> dict:
+    out = {"models": {}}
+    for entry in ARCH_MODELS:
+        out["models"][entry[0]] = arch_model(entry, dev, timer)
+    rng = np.random.default_rng(13)
+    name, kv, W, n_past, hkv, rep, alibi, timed, d = ARCH_DENSE_CASE
+    k2 = check_attention(name, kv, W, list(n_past), hkv, rep, alibi, rng,
+                         dev, timer, timed, d=d)
+    k4 = check_paged(ARCH_PAGED_CASE, rng, dev, timer)
+    torch.cuda.empty_cache()
+    for r in (k2, k4):
+        if not r["ok"]:
+            fail(f"archs: attention out of tolerance: {r}")
+    out["kernel_cases"] = {"dense_attention": k2, "paged_attention": k4}
+    out["launches"] = archs_launches(out["models"])
+    out["summary"] = {
+        name: {"load_s": m["load_s"], "weights_bytes": m["weights_bytes"],
+               "peak_bytes": m["peak_bytes"], "n_ctx": m["n_ctx"],
+               **{k: m["device_sampling"][k] for k in (
+                   "ms_per_token", "bound_ms_per_token", "host_ms_per_step",
+                   "device_busy_share", "device_ms_per_token")},
+               "k1_ms_per_token": m["qmatmul"]["per_token"],
+               "logits_rel_l2": [m["logits"]["prefill"]["rel_l2"],
+                                 m["logits"]["decode"]["rel_l2"]],
+               "layer_rel_l2_max": m["logits"]["layer_rel_l2_max"],
+               "free_logits_rel_l2_vs_bf16_plain": [
+                   m["logits"][p]["free_vs_bf16_plain"]["rel_l2"]
+                   for p in ("prefill", "decode")],
+               "free_logits_rel_l2_vs_f32_plain": [
+                   m["logits"][p]["free_vs_f32_plain"]["rel_l2"]
+                   for p in ("prefill", "decode")],
+               "plain_halves_rel_l2_vs_bf16_plain": [
+                   m["logits"][p]["plain_halves_vs_bf16_plain"]["rel_l2"]
+                   for p in ("prefill", "decode")],
+               "seconds": m["seconds"]}
+        for name, m in out["models"].items()}
+    mpt = out["models"]["mpt7b_q4_k"]
+    cell = mpt["paged_cell"]
+    out["summary"]["mpt7b_q4_k"].update(
+        paged_cell={k: cell[k] for k in (
+            "ms_per_step", "tok_s", "bound_ms_per_step", "device_busy_share",
+            "device_ms_per_step")},
+        engines_texts_equal=mpt["engines"]["texts_equal"])
+    out["summary"]["kernels"] = {
+        "dense_attention_falcon7b": {k: k2[k] for k in (
+            "ms", "bound_ms", "plain_ms", "library_ms")},
+        "paged_attention_mpt_cell": {k: k4[k] for k in (
+            "ms", "bound_ms", "plain_ms", "library_ms")}}
+    emit({"archs_summary": out["summary"]})
     return out
 
 
@@ -2571,7 +3181,7 @@ def attn_by_case(recs, label) -> dict:
 
 
 def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
-                   cinf, ab, dsamp, multi) -> list[dict]:
+                   cinf, ab, dsamp, multi, archs) -> list[dict]:
     """One entry per kernel: times summed over the launches of one decode
     step at 7B (qmatmul: the 4 projections x 32 layers + lm_head at M=1;
     dense_attention: 32 layers at W=512, bf16 cache, full window;
@@ -2584,7 +3194,10 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
     qmatmul, dense_attention and paged_attention the multi-step paths'
     graph replays (each capture's count times its replays): the server
     with multi_step=16 (`multi_step_server`) and the decode loops driven
-    directly (`multi_step_loops`)."""
+    directly (`multi_step_loops`), and the six other architectures'
+    runs (`archs`), whose kernel cases are in `archs_by_case`: K1 one
+    decode token of each model at M=1, K2 at Falcon-7B's decode, K4 at
+    MPT-7B's paged cell."""
     per_token = {"qkv": N_LAYER, "wo": N_LAYER, "gate_up": N_LAYER,
                  "down": N_LAYER, "lm_head": 1}
     dec = [r for r in qrecs if r["M"] == 1 and r["case"] in per_token]
@@ -2673,11 +3286,10 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
         })
     # the device-sampling path's launches: each capture's count times the
     # replays of the greedy runs (a replay is not seen by the counters)
-    replays = sum(g["replays"] for r in dsamp["greedy_runs"]
-                  for g in r["graphs"])
     for e in entries[1:3]:
-        e["launches_by_path"]["device_sampling"] = \
-            DS_LAUNCHES[e["name"]] * replays
+        e["launches_by_path"]["device_sampling"] = sum(
+            g["launches_per_replay"][e["name"]] * g["replays"]
+            for r in dsamp["greedy_runs"] for g in r["graphs"])
     loops = [g for name in ("paged_int8_b16", "dense_bf16_b8",
                             "paged_int8_b64")
              for g in multi[name]["graphs"]]
@@ -2687,6 +3299,21 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
         e["launches_by_path"]["multi_step_loops"] = sum(
             g["launches_per_replay"][e["name"]] * g["replays"]
             for g in loops)
+    for e in entries[1:4]:
+        e["launches_by_path"]["archs"] = archs["launches"][e["name"]]
+    entries[1]["archs_by_case"] = {
+        name: m["qmatmul"]["per_token"]
+        for name, m in archs["models"].items()}
+    for e in entries[2:4]:
+        r = archs["kernel_cases"][e["name"]]
+        e["archs_by_case"] = {r["case"]: {k: r[k] for k in (
+            "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+            "max_abs_err")}}
+    for e in entries[1:4]:
+        errs = ([r["max_abs_err"] for m in archs["models"].values()
+                 for r in m["qmatmul"]["cases"]] if e["name"] == "qmatmul"
+                else [archs["kernel_cases"][e["name"]]["max_abs_err"]])
+        e["max_abs_err"] = max([e["max_abs_err"], *errs])
     # qmatmul's launches by consumer path, in each path's own run
     entries[1]["launches_by_consumer_path"] = {
         name: {"swapped": ls["qmatmul_swapped"], "wide": ls["qmatmul_wide"]}
@@ -2797,12 +3424,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     lap("multi_step")
 
+    archs = archs_phase(dev, timer)
+    results["archs"] = archs
+    emit({"archs": archs})
+    lap("archs")
+
     probes = probe_phase(dev)
     results["probes"] = probes
     lap("probes")
 
     kernels = kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
-                             cinf, ab, dsamp, multi)
+                             cinf, ab, dsamp, multi, archs)
     kernels += probe_entries(probes, checks, dev, timer)
     del timer
     lap("kernel_entries")

@@ -32,7 +32,8 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("-m", "--model-path", required=True,
                    help="path to the model file")
     g.add_argument("-a", "--model-architecture", default=None,
-                   help="model architecture (this port: llama)")
+                   help="model architecture (llama, gpt2, gptj, gptneox, "
+                        "bloom, mpt, falcon)")
     g.add_argument("-v", "--tokenizer-path", default=None,
                    help="path to a HF tokenizer.json file")
     g.add_argument("-r", "--tokenizer-repository", default=None,

@@ -6,8 +6,9 @@ The counterpart of `llm_tpu/loader.py`:
     check -> pack tensors on the device -> Model
 
 Loading runs on the card unless the caller asks for the CPU: `device=None`
-means "cuda", and raises when there is no GPU. GGUF files, LoRA adapters
-and architectures other than LLaMA are not ported yet.
+means "cuda", and raises when there is no GPU. All seven architectures
+load (`models/params.build_params`); GGUF files and LoRA adapters are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -220,6 +221,13 @@ def load(
     )
     if params.n_gqa is not None and spec.arch == "llama":
         hp.n_head_kv = spec.n_head_kv
+    if spec.learned_pos:
+        # a learned position table (GPT-2's wpe) caps the context at its
+        # height, as the reference's loader does: past it the position
+        # lookup would index beyond the table
+        file_ctx = getattr(hp, "n_ctx", 0) or 0
+        if file_ctx and spec.n_ctx > file_ctx:
+            spec = with_runtime_params(spec, context_size=file_ctx)
 
     def tensor_progress(name: str, current: int, total: int) -> None:
         progress(LoadProgress("tensor_loaded", current=current, total=total))

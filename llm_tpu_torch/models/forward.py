@@ -417,9 +417,11 @@ def embed_batched(spec: ModelSpec, params: ModelParams, ids, positions):
     if spec.post_embed_norm:
         h = layer_norm(h, params.emb_norm_w, params.emb_norm_b)
     if spec.learned_pos:
-        h = h + quant_rows_lookup(params.wpe, positions.reshape(-1)).reshape(
-            B, T, -1
-        )
+        # the reference's gather clamps a position past the table to its
+        # last row (the loader caps n_ctx at the table's height, so only a
+        # masked stream's dummy position can get there)
+        pos = positions.reshape(-1).clamp(0, params.wpe.shape[-1] - 1)
+        h = h + quant_rows_lookup(params.wpe, pos).reshape(B, T, -1)
     return h
 
 

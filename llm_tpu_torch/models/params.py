@@ -10,10 +10,13 @@ model becomes the same structure:
       layers: LayerParams stacked along a leading n_layer axis
 
 A layer of the stack is a free view (`QuantTensor.layer`, `tensor[l]`).
-This slice builds LLaMA checkpoints; the other architectures' builders
-come later. q|k|v and gate|up are fused into one weight each
-(`fuse_layer_weights`), as the reference does by default, so each
-projection is one kernel launch.
+All seven architectures build here, with the reference's tensor names and
+fused-QKV row selections (`_thirds` for GPT-2, BLOOM and MPT, the per-head
+interleave `_neox_interleaved` for GPT-NeoX, `_falcon_rows` for Falcon's
+n_head + 2 * n_head_kv heads; LLaMA and GPT-J store q/k/v split). q|k|v
+and gate|up are fused into one weight each (`fuse_layer_weights`), as the
+reference does by default, so each projection is one kernel launch; the
+biases stay per member.
 """
 
 from __future__ import annotations
@@ -31,8 +34,11 @@ from llm_tpu_torch.models.spec import ModelSpec
 from llm_tpu_torch.ops.packing import (
     QuantTensor,
     QuantTensorC,
+    decode_ggml,
     fuse_quant,
+    pack_decoded,
     pack_ggml,
+    unfuse_quant,
 )
 from llm_tpu_torch.ops.qmatmul import coalesce_auto
 
@@ -109,6 +115,20 @@ def fuse_layer_weights(layers: LayerParams) -> LayerParams:
     return dataclasses.replace(layers, **kw)
 
 
+def unfuse_layer_weights(layers: LayerParams) -> LayerParams:
+    """Undo fuse_layer_weights (exact plane slicing)."""
+    kw = {}
+    if layers.w_qkv is not None:
+        wq, wk, wv = unfuse_quant(layers.w_qkv)
+        kw.update(wq=wq, wk=wk, wv=wv, w_qkv=None)
+    if layers.w_gate_up is not None:
+        w_gate, w_up = unfuse_quant(layers.w_gate_up)
+        kw.update(w_gate=w_gate, w_up=w_up, w_gate_up=None)
+    if not kw:
+        return layers
+    return dataclasses.replace(layers, **kw)
+
+
 _W_FIELDS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_qkv",
              "w_gate_up")
 
@@ -162,13 +182,17 @@ def stack_layers(layers: list[LayerParams]) -> LayerParams:
 
 class WeightSource:
     """Fetch-and-pack adapter over a GgmlReader: packs each tensor on
-    `device` straight from its raw bytes."""
+    `device` straight from its raw bytes. A quantized tensor whose rows
+    are selected (a fused q|k|v) is fetched and decoded once for all of
+    its selections: the decode is kept until another tensor is asked
+    for."""
 
     def __init__(self, reader: GgmlReader, device, progress=None):
         self.reader = reader
         self.device = torch.device(device)
         self.progress = progress
         self._loaded = 0
+        self._decoded = (None, None)  # (name, decode_ggml's result)
 
     def has(self, name: str) -> bool:
         return name in self.reader.tensors
@@ -182,9 +206,17 @@ class WeightSource:
         return info, data
 
     def matrix(self, name: str, rows: Optional[np.ndarray] = None) -> Weight:
-        info, data = self._raw(name)
-        return pack_ggml(info.element_type, data, info.dims, rows=rows,
-                         device=self.device)
+        info = self.reader.tensors[name]
+        t = info.element_type
+        if self._decoded[0] != name:
+            self._decoded = (None, None)  # free the last one first
+        if rows is None or not t.is_quantized:
+            return pack_ggml(t, self._raw(name)[1], info.dims, rows=rows,
+                             device=self.device)
+        if self._decoded[0] is None:
+            self._decoded = (name, decode_ggml(t, self._raw(name)[1],
+                                               *info.dims, self.device))
+        return pack_decoded(t, info.dims[0], self._decoded[1], rows=rows)
 
     def vec(self, name: str,
             rows: Optional[np.ndarray] = None) -> torch.Tensor:
@@ -197,6 +229,31 @@ class WeightSource:
 
     def maybe_matrix(self, name: str) -> Optional[Weight]:
         return self.matrix(name) if self.has(name) else None
+
+
+# ---------------------------------------------------------------------------
+# fused-QKV row index helpers
+
+
+def _thirds(n_embd: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    i = np.arange(n_embd)
+    return i, n_embd + i, 2 * n_embd + i
+
+
+def _neox_interleaved(n_head: int, head_dim: int):
+    base = np.arange(n_head)[:, None] * 3 * head_dim + np.arange(head_dim)[None, :]
+    return base.ravel(), (base + head_dim).ravel(), (base + 2 * head_dim).ravel()
+
+
+def _falcon_rows(n_head: int, n_head_kv: int, head_dim: int):
+    q = np.arange(n_head * head_dim)
+    k = n_head * head_dim + np.arange(n_head_kv * head_dim)
+    v = (n_head + n_head_kv) * head_dim + np.arange(n_head_kv * head_dim)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# per-arch parameter builders
 
 
 def _build_llama(ws: WeightSource, spec: ModelSpec) -> ModelParams:
@@ -237,19 +294,261 @@ def _build_llama(ws: WeightSource, spec: ModelSpec) -> ModelParams:
     )
 
 
+def _build_gpt2(ws: WeightSource, spec: ModelSpec) -> ModelParams:
+    q, k, v = _thirds(spec.n_embd)
+    layers = []
+    for i in range(spec.n_layer):
+        p = f"model/h{i}"
+        layers.append(
+            LayerParams(
+                ln1_w=ws.vec(f"{p}/ln_1/g"),
+                ln1_b=ws.vec(f"{p}/ln_1/b"),
+                ln2_w=ws.vec(f"{p}/ln_2/g"),
+                ln2_b=ws.vec(f"{p}/ln_2/b"),
+                wq=ws.matrix(f"{p}/attn/c_attn/w", rows=q),
+                bq=ws.vec(f"{p}/attn/c_attn/b", rows=q),
+                wk=ws.matrix(f"{p}/attn/c_attn/w", rows=k),
+                bk=ws.vec(f"{p}/attn/c_attn/b", rows=k),
+                wv=ws.matrix(f"{p}/attn/c_attn/w", rows=v),
+                bv=ws.vec(f"{p}/attn/c_attn/b", rows=v),
+                wo=ws.matrix(f"{p}/attn/c_proj/w"),
+                bo=ws.vec(f"{p}/attn/c_proj/b"),
+                w_gate=None,
+                w_up=ws.matrix(f"{p}/mlp/c_fc/w"),
+                b_up=ws.vec(f"{p}/mlp/c_fc/b"),
+                w_down=ws.matrix(f"{p}/mlp/c_proj/w"),
+                b_down=ws.vec(f"{p}/mlp/c_proj/b"),
+            )
+        )
+    return ModelParams(
+        wte=ws.matrix("model/wte"),
+        wpe=ws.matrix("model/wpe"),
+        emb_norm_w=None,
+        emb_norm_b=None,
+        final_norm_w=ws.vec("model/ln_f/g"),
+        final_norm_b=ws.vec("model/ln_f/b"),
+        lm_head=ws.maybe_matrix("model/lm_head"),
+        lm_head_b=None,
+        layers=stack_layers(layers),
+    )
+
+
+def _build_gptj(ws: WeightSource, spec: ModelSpec) -> ModelParams:
+    layers = []
+    for i in range(spec.n_layer):
+        p = f"transformer.h.{i}"
+        layers.append(
+            LayerParams(
+                ln1_w=ws.vec(f"{p}.ln_1.weight"),
+                ln1_b=ws.vec(f"{p}.ln_1.bias"),
+                ln2_w=None,
+                ln2_b=None,
+                wq=ws.matrix(f"{p}.attn.q_proj.weight"),
+                bq=None,
+                wk=ws.matrix(f"{p}.attn.k_proj.weight"),
+                bk=None,
+                wv=ws.matrix(f"{p}.attn.v_proj.weight"),
+                bv=None,
+                wo=ws.matrix(f"{p}.attn.out_proj.weight"),
+                bo=None,
+                w_gate=None,
+                w_up=ws.matrix(f"{p}.mlp.fc_in.weight"),
+                b_up=ws.vec(f"{p}.mlp.fc_in.bias"),
+                w_down=ws.matrix(f"{p}.mlp.fc_out.weight"),
+                b_down=ws.vec(f"{p}.mlp.fc_out.bias"),
+            )
+        )
+    return ModelParams(
+        wte=ws.matrix("transformer.wte.weight"),
+        wpe=None,
+        emb_norm_w=None,
+        emb_norm_b=None,
+        final_norm_w=ws.vec("transformer.ln_f.weight"),
+        final_norm_b=ws.vec("transformer.ln_f.bias"),
+        lm_head=ws.matrix("lm_head.weight"),
+        lm_head_b=ws.vec("lm_head.bias"),
+        layers=stack_layers(layers),
+    )
+
+
+def _build_gptneox(ws: WeightSource, spec: ModelSpec) -> ModelParams:
+    q, k, v = _neox_interleaved(spec.n_head, spec.head_dim)
+    layers = []
+    for i in range(spec.n_layer):
+        p = f"gpt_neox.layers.{i}"
+        layers.append(
+            LayerParams(
+                ln1_w=ws.vec(f"{p}.input_layernorm.weight"),
+                ln1_b=ws.vec(f"{p}.input_layernorm.bias"),
+                ln2_w=ws.vec(f"{p}.post_attention_layernorm.weight"),
+                ln2_b=ws.vec(f"{p}.post_attention_layernorm.bias"),
+                wq=ws.matrix(f"{p}.attention.query_key_value.weight", rows=q),
+                bq=ws.vec(f"{p}.attention.query_key_value.bias", rows=q),
+                wk=ws.matrix(f"{p}.attention.query_key_value.weight", rows=k),
+                bk=ws.vec(f"{p}.attention.query_key_value.bias", rows=k),
+                wv=ws.matrix(f"{p}.attention.query_key_value.weight", rows=v),
+                bv=ws.vec(f"{p}.attention.query_key_value.bias", rows=v),
+                wo=ws.matrix(f"{p}.attention.dense.weight"),
+                bo=ws.vec(f"{p}.attention.dense.bias"),
+                w_gate=None,
+                w_up=ws.matrix(f"{p}.mlp.dense_h_to_4h.weight"),
+                b_up=ws.vec(f"{p}.mlp.dense_h_to_4h.bias"),
+                w_down=ws.matrix(f"{p}.mlp.dense_4h_to_h.weight"),
+                b_down=ws.vec(f"{p}.mlp.dense_4h_to_h.bias"),
+            )
+        )
+    return ModelParams(
+        wte=ws.matrix("gpt_neox.embed_in.weight"),
+        wpe=None,
+        emb_norm_w=None,
+        emb_norm_b=None,
+        final_norm_w=ws.vec("gpt_neox.final_layer_norm.weight"),
+        final_norm_b=ws.vec("gpt_neox.final_layer_norm.bias"),
+        lm_head=ws.matrix("embed_out.weight"),
+        lm_head_b=None,
+        layers=stack_layers(layers),
+    )
+
+
+def _build_bloom(ws: WeightSource, spec: ModelSpec) -> ModelParams:
+    q, k, v = _thirds(spec.n_embd)
+    layers = []
+    for i in range(spec.n_layer):
+        p = f"layers.{i}"
+        layers.append(
+            LayerParams(
+                ln1_w=ws.vec(f"{p}.attention_norm.weight"),
+                ln1_b=ws.vec(f"{p}.attention_norm.bias"),
+                ln2_w=ws.vec(f"{p}.ffn_norm.weight"),
+                ln2_b=ws.vec(f"{p}.ffn_norm.bias"),
+                wq=ws.matrix(f"{p}.attention.query_key_value.weight", rows=q),
+                bq=ws.vec(f"{p}.attention.query_key_value.bias", rows=q),
+                wk=ws.matrix(f"{p}.attention.query_key_value.weight", rows=k),
+                bk=ws.vec(f"{p}.attention.query_key_value.bias", rows=k),
+                wv=ws.matrix(f"{p}.attention.query_key_value.weight", rows=v),
+                bv=ws.vec(f"{p}.attention.query_key_value.bias", rows=v),
+                wo=ws.matrix(f"{p}.attention.wo.weight"),
+                bo=ws.vec(f"{p}.attention.wo.bias"),
+                w_gate=None,
+                w_up=ws.matrix(f"{p}.feed_forward.w1.weight"),
+                b_up=ws.vec(f"{p}.feed_forward.w1.bias"),
+                w_down=ws.matrix(f"{p}.feed_forward.w2.weight"),
+                b_down=ws.vec(f"{p}.feed_forward.w2.bias"),
+            )
+        )
+    return ModelParams(
+        wte=ws.matrix("tok_embeddings.weight"),
+        wpe=None,
+        emb_norm_w=ws.vec("norm.weight"),
+        emb_norm_b=ws.vec("norm.bias"),
+        final_norm_w=ws.vec("output_norm.weight"),
+        final_norm_b=ws.vec("output_norm.bias"),
+        lm_head=ws.matrix("output.weight"),
+        lm_head_b=None,
+        layers=stack_layers(layers),
+    )
+
+
+def _build_mpt(ws: WeightSource, spec: ModelSpec) -> ModelParams:
+    q, k, v = _thirds(spec.n_embd)
+    layers = []
+    for i in range(spec.n_layer):
+        p = f"transformer.blocks.{i}"
+        layers.append(
+            LayerParams(
+                ln1_w=ws.vec(f"{p}.norm_1.weight"),
+                ln1_b=None,
+                ln2_w=ws.vec(f"{p}.norm_2.weight"),
+                ln2_b=None,
+                wq=ws.matrix(f"{p}.attn.Wqkv.weight", rows=q),
+                bq=None,
+                wk=ws.matrix(f"{p}.attn.Wqkv.weight", rows=k),
+                bk=None,
+                wv=ws.matrix(f"{p}.attn.Wqkv.weight", rows=v),
+                bv=None,
+                wo=ws.matrix(f"{p}.attn.out_proj.weight"),
+                bo=None,
+                w_gate=None,
+                w_up=ws.matrix(f"{p}.ffn.up_proj.weight"),
+                b_up=None,
+                w_down=ws.matrix(f"{p}.ffn.down_proj.weight"),
+                b_down=None,
+            )
+        )
+    return ModelParams(
+        wte=ws.matrix("transformer.wte.weight"),
+        wpe=None,
+        emb_norm_w=None,
+        emb_norm_b=None,
+        final_norm_w=ws.vec("transformer.norm_f.weight"),
+        final_norm_b=None,
+        lm_head=None,  # tied (mpt/src/lib.rs:243-244)
+        lm_head_b=None,
+        layers=stack_layers(layers),
+    )
+
+
+def _build_falcon(ws: WeightSource, spec: ModelSpec) -> ModelParams:
+    q, k, v = _falcon_rows(spec.n_head, spec.n_head_kv, spec.head_dim)
+    layers = []
+    for i in range(spec.n_layer):
+        p = f"transformer.h.{i}"
+        if spec.n_head_kv == 1:  # falcon 7B: single shared LN
+            ln1_w = ws.vec(f"{p}.input_layernorm.weight")
+            ln1_b = ws.vec(f"{p}.input_layernorm.bias")
+            ln2_w = ln2_b = None
+        else:  # falcon 40B: ln_attn feeds attention, ln_mlp feeds the FFN
+            ln1_w = ws.vec(f"{p}.ln_attn.weight")
+            ln1_b = ws.vec(f"{p}.ln_attn.bias")
+            ln2_w = ws.vec(f"{p}.ln_mlp.weight")
+            ln2_b = ws.vec(f"{p}.ln_mlp.bias")
+        layers.append(
+            LayerParams(
+                ln1_w=ln1_w,
+                ln1_b=ln1_b,
+                ln2_w=ln2_w,
+                ln2_b=ln2_b,
+                wq=ws.matrix(f"{p}.self_attention.query_key_value.weight", rows=q),
+                bq=None,
+                wk=ws.matrix(f"{p}.self_attention.query_key_value.weight", rows=k),
+                bk=None,
+                wv=ws.matrix(f"{p}.self_attention.query_key_value.weight", rows=v),
+                bv=None,
+                wo=ws.matrix(f"{p}.self_attention.dense.weight"),
+                bo=None,
+                w_gate=None,
+                w_up=ws.matrix(f"{p}.mlp.dense_h_to_4h.weight"),
+                b_up=None,
+                w_down=ws.matrix(f"{p}.mlp.dense_4h_to_h.weight"),
+                b_down=None,
+            )
+        )
+    return ModelParams(
+        wte=ws.matrix("transformer.word_embeddings.weight"),
+        wpe=None,
+        emb_norm_w=None,
+        emb_norm_b=None,
+        final_norm_w=ws.vec("transformer.ln_f.weight"),
+        final_norm_b=ws.vec("transformer.ln_f.bias"),
+        lm_head=ws.matrix("lm_head.weight"),
+        lm_head_b=None,
+        layers=stack_layers(layers),
+    )
+
+
 _BUILDERS = {
     "llama": _build_llama,
+    "gpt2": _build_gpt2,
+    "gptj": _build_gptj,
+    "gptneox": _build_gptneox,
+    "bloom": _build_bloom,
+    "mpt": _build_mpt,
+    "falcon": _build_falcon,
 }
 
 
 def build_params(ws: WeightSource, spec: ModelSpec) -> ModelParams:
-    builder = _BUILDERS.get(spec.arch)
-    if builder is None:
-        raise NotImplementedError(
-            f"architecture {spec.arch!r} is not ported yet "
-            f"(ported: {sorted(_BUILDERS)})"
-        )
-    return builder(ws, spec)
+    return _BUILDERS[spec.arch](ws, spec)
 
 
 # ---------------------------------------------------------------------------

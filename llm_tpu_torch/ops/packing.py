@@ -286,7 +286,7 @@ _SCALAR = (GgmlType.Q4_0, GgmlType.Q4_1, GgmlType.Q5_0, GgmlType.Q5_1,
            GgmlType.Q8_0)
 
 
-def _decode(t: GgmlType, data, K: int, R: int, device):
+def decode_ggml(t: GgmlType, data, K: int, R: int, device):
     """(q int32 [R, K], scale f32 [R, K/g], bias f32 [R, K/g] | None) on
     `device`. The 32-block formats decode there with torch ops; K-quants
     decode on the host (ggml/quant.py) and are then moved."""
@@ -365,10 +365,31 @@ def pack_ggml(
             w = w[idx]
         return w.t().contiguous()
 
+    return pack_decoded(t, K, decode_ggml(t, data, K, R, device), rows=rows,
+                        r_multiple=r_multiple, k_multiple=k_multiple)
+
+
+def pack_decoded(
+    t: GgmlType,
+    K: int,
+    decoded: tuple,
+    *,
+    rows: Optional[np.ndarray] = None,
+    r_multiple: int = 128,
+    k_multiple: int = 0,
+) -> QuantTensor:
+    """The planes `pack_ggml` builds, from a quantized tensor that
+    `decode_ggml` has already decoded ((q [R, K], scale, bias) on their
+    device): a fused tensor is decoded once for all of its row
+    selections."""
     fmt = FORMATS[t]
     g = fmt.gsize
-    q, scale, bias = _decode(t, data, K, R, device)
-    if idx is not None:
+    q, scale, bias = decoded
+    device = q.device
+    R = q.shape[0]
+    if rows is not None:
+        idx = torch.as_tensor(np.asarray(rows), dtype=torch.long,
+                              device=device)
         q, scale = q[idx], scale[idx]
         if bias is not None:
             bias = bias[idx]
