@@ -36,7 +36,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             and full), and repeated launches, and a launch after one with
             another grid, must give bit-equal results.
 3. e2e:     a full-width random LLaMA-7B Q4_0 checkpoint (seed 0, ~3.9 GB,
-            written under build/smoke/ and removed afterwards) is loaded
+            written under build/smoke/, removed by the gguf phase) is loaded
             on the card, and `InferenceSession.infer` answers three greedy
             prompts (16, 64 and 1100 tokens, 32 new tokens each) with the
             launch counters set to 0 just before and read just after
@@ -101,6 +101,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             bytes. One captured step is held bit-equal to the eager step
             (paged int8 greedy and a per-stream sampled mix; dense bf16
             with a masked slot, whose rows must stay).
+   gguf:    the e2e file converted to GGUF v3 by the cli's `gguf-convert`
+            (the classic file is removed after it) and loaded on the card:
+            spec, vocabulary and every weight plane equal to the GGML
+            load's; greedy `infer` of the e2e 64-token prompt (32 new)
+            gives the e2e tokens, the first prefill and decode logits are
+            bit-equal, the launches counted exactly (129 qmatmul a
+            forward, 32 dense attention a decode step). Conversion and
+            both loads timed.
+   perplexity: `InferenceSession.perplexity` over 4 windows of 2048
+            seeded random ids: 16 sub-chunks of 512 rows, each 129
+            qmatmul launches on the wide path (counted exactly) and no
+            attention kernel (prefill attention is plain torch). The first
+            window's summed NLL held against the same window under the
+            plain versions (x and W rounded to bf16) within 2^-7; ms a
+            sub-chunk (CUDA events, and at each n_past of a window),
+            scored tokens/s, the sub-chunk's bound and a profiled
+            sub-chunk.
+   snapshot: the e2e 64-token prompt and 16 greedy tokens, the session
+            written by `snapshot.write_session`, read back onto the card
+            by `read_session` (the cache equal), 16 more tokens: the e2e
+            phase's uninterrupted 32. Snapshot bytes, write and read s.
+   verify:  the port's harness on the GGUF file as `llm-tpu-torch verify
+            -m <file>.gguf -a llama` runs it (context 2048, no goldens):
+            Hyperparameters, CanSend, Inference (32 new tokens in place of
+            128, determinism), Tokens (determinism) and Delete (rewind and
+            refeed at the card's tolerance) pass; the inputs are `<tN>`
+            markers, the bench vocabulary's. The GGUF file is removed
+            after it.
    archs:   the six other architectures, each written with
             `make_bench_file` at its published width (seed 0, under
             build/smoke/, removed after loading) and loaded on the card:
@@ -1063,9 +1091,8 @@ def e2e_phase(dev):
     from llm_tpu_torch.testing import make_bench_file
 
     out = {}
-    smoke_dir = ROOT / "build" / "smoke"
-    smoke_dir.mkdir(parents=True, exist_ok=True)
-    path = smoke_dir / "llama7b-q4_0.bin"
+    path = bench_path()
+    path.parent.mkdir(parents=True, exist_ok=True)
     try:
         t0 = time.monotonic()
         make_bench_file("llama", path, GgmlType.Q4_0, seed=0, n_ff=FF,
@@ -1080,8 +1107,9 @@ def e2e_phase(dev):
                             device=dev)
         torch.cuda.synchronize()
         out["load_s"] = time.monotonic() - t0
-    finally:
+    except BaseException:
         path.unlink(missing_ok=True)
+        raise
     spec = model.spec
     if (spec.n_embd, spec.n_head, spec.n_layer, spec.n_vocab) != \
             (E, H, N_LAYER, V):
@@ -1104,16 +1132,12 @@ def e2e_phase(dev):
     out["launches"] = launches
 
     # a step is a prefill chunk or a decode token; a 1-token chunk is
-    # decode-shaped and reads the cache through the attention kernel too
+    # decode-shaped and reads the cache through the attention kernel too;
+    # every other chunk runs 512 rows
     steps = sum(math.ceil(n / N_BATCH) + N_PREDICT for n in PROMPT_LENS)
     decode_steps = sum(N_PREDICT + (n % N_BATCH == 1) for n in PROMPT_LENS)
-    per = 4 * N_LAYER + 1  # every chunk but a 1-token one runs 512 rows
-    want = {"qmatmul": per * steps, "qmatmul_swapped": per * decode_steps,
-            "qmatmul_wide": per * (steps - decode_steps),
-            "dense_attention": N_LAYER * decode_steps, "paged_attention": 0}
-    out["launches_expected"] = want
-    if launches != want:
-        fail(f"kernel launches {launches}, expected {want}")
+    out["launches_expected"] = path_launches(
+        "infer", launches, steps, steps - decode_steps, decode_steps, spec)
     # the 1100-token prompt's third chunk reads a 1024 window: online branch
     if online[0] != N_LAYER:
         fail(f"online prefill passes {online[0]}, expected {N_LAYER}")
@@ -2324,6 +2348,340 @@ def multi_step_phase(model, dev, serve) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: GGUF, perplexity, session snapshots and verify on the e2e model
+
+
+PPL_CHUNKS = 4  # context windows (2048 tokens each) the perplexity reads
+PPL_SUB = 512  # the session's sub-chunk: one forward of 512 rows
+SNAP_HALF = 16  # greedy tokens before the snapshot, and after it
+VERIFY_TOKENS = 32  # the Inference case's new tokens (its default: 128)
+# Perplexity, kernel path against the plain path whose qmatmul rounds x and
+# W to bf16 as the kernel does, on the same chunk: a token's NLL is
+# lse(z) - z_t, a difference of logits, and the phases hold the logits to
+# a relative 2^-8 (E2E_REL_L2); each of the two terms may carry that
+# error, so the chunk's summed NLL is held to a relative 2 * 2^-8.
+PPL_REL_TOL = 2 * E2E_REL_L2
+
+
+def bench_path() -> Path:
+    """The e2e phase's LLaMA-7B Q4_0 file; the gguf phase converts it, and
+    then removes it."""
+    return ROOT / "build" / "smoke" / "llama7b-q4_0.bin"
+
+
+def path_launches(name, launches, forwards: int, wide: int,
+                  decode: int, spec) -> dict:
+    """Exact launches of a B=1 run of `forwards` forwards, `wide` of them
+    of more than 32 rows, `decode` of them T=1 (the dense cache's kernel
+    once a layer each)."""
+    per = 4 * spec.n_layer + 1
+    want = {"qmatmul": per * forwards, "qmatmul_swapped": per * (forwards
+                                                                  - wide),
+            "qmatmul_wide": per * wide,
+            "dense_attention": spec.n_layer * decode, "paged_attention": 0}
+    if launches != want:
+        fail(f"{name}: kernel launches {launches}, expected {want}")
+    return want
+
+
+def weights_equal(a, b) -> tuple[int, int]:
+    """Every weight of two models' params torch.equal, plane by plane:
+    (tensors compared, their bytes)."""
+    from dataclasses import fields as dc_fields
+
+    from llm_tpu_torch.ops.packing import QuantTensor
+
+    pairs = [(f.name, getattr(a.layers, f.name), getattr(b.layers, f.name))
+             for f in dc_fields(a.layers)]
+    pairs += [(f.name, getattr(a, f.name), getattr(b, f.name))
+              for f in dc_fields(a) if f.name != "layers"]
+    n = nbytes = 0
+    for name, x, y in pairs:
+        if isinstance(x, QuantTensor):
+            if not isinstance(y, QuantTensor) or (
+                    x.fmt_name, x.k, x.r, x.splits) != (
+                    y.fmt_name, y.k, y.r, y.splits):
+                fail(f"gguf: weight {name} differs in kind or shape")
+            tensors = list(zip(x.planes(), y.planes()))
+        else:
+            tensors = [(x, y)]
+        for p, q in tensors:
+            if (p is None) != (q is None):
+                fail(f"gguf: weight {name}: a plane is missing")
+            if p is None:
+                continue
+            if p.dtype != q.dtype or not torch.equal(p, q):
+                fail(f"gguf: weight {name} is not equal to the GGML load's")
+            n += 1
+            nbytes += p.numel() * p.element_size()
+    return n, nbytes
+
+
+def gguf_phase(model, dev, e2e) -> tuple[dict, Path]:
+    """The e2e file converted to GGUF v3 by the cli's `gguf-convert` and
+    loaded on the card: spec, vocabulary and every plane equal to the GGML
+    load's; greedy `infer` of the e2e 64-token prompt gives its 32 tokens,
+    and the first prefill and decode logits are bit-equal (the same planes
+    through the same kernels)."""
+    from dataclasses import asdict
+
+    from llm_tpu_torch import loader
+    from llm_tpu_torch.cli import main as cli_main
+
+    src = bench_path()
+    dst = src.with_suffix(".gguf")
+    out = {"ggml_load_s": e2e["load_s"], "ggml_bytes": e2e["file_bytes"]}
+    t0 = time.monotonic()
+    try:
+        cli_main(["gguf-convert", str(src), str(dst), "-a", "llama"])
+    finally:
+        src.unlink(missing_ok=True)
+    out["convert_s"] = time.monotonic() - t0
+    out["gguf_bytes"] = dst.stat().st_size
+
+    t0 = time.monotonic()
+    gm = loader.load(dst, "llama",
+                     params=loader.ModelParameters(context_size=CTX),
+                     device=dev)
+    torch.cuda.synchronize()
+    out["gguf_load_s"] = time.monotonic() - t0
+    if gm.container_type.kind != "gguf":
+        fail(f"gguf: loaded a {gm.container_type} container")
+    if asdict(gm.spec) != asdict(model.spec):
+        fail(f"gguf: spec {gm.spec} differs from the GGML load's")
+    vocab = [gm.tokenizer.token(i) for i in range(V)]
+    if vocab != [model.tokenizer.token(i) for i in range(V)]:
+        fail("gguf: the vocabulary differs from the GGML load's")
+    out["weights_equal"], out["weights_bytes_equal"] = weights_equal(
+        gm.params, model.params)
+
+    prompt = e2e_prompts()[1]
+    zero_launches()
+    run = greedy_prompt_run(gm, prompt)
+    launches = read_launches()
+    out["launches"] = launches
+    out["launches_expected"] = path_launches(
+        "gguf", launches, 1 + N_PREDICT, 1, N_PREDICT, gm.spec)
+    out["run"] = {k: v for k, v in run.items() if k != "new_ids"}
+    if run["new_ids"] != e2e["runs"][1]["new_ids"]:
+        fail(f"gguf: greedy tokens {run['new_ids']} differ from the GGML "
+             f"model's {e2e['runs'][1]['new_ids']}")
+    for a, b, what in zip(first_logits(gm, prompt),
+                          first_logits(model, prompt),
+                          ("prefill", "decode")):
+        if not torch.equal(a, b):
+            fail(f"gguf: {what} logits not bit-equal to the GGML model's "
+                 f"(max |d| {float((a - b).abs().max())})")
+    out["first_logits_bit_equal"] = True
+    del gm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, dst
+
+
+def perplexity_phase(model, dev) -> dict:
+    """`InferenceSession.perplexity` over PPL_CHUNKS windows of seeded
+    random ids (bf16 cache): every sub-chunk one forward of 512 rows, its
+    4 n_layer + 1 projections and head on qmatmul's wide path (counted
+    exactly, no attention kernel: prefill attention is plain torch). The
+    first chunk's summed NLL held against the same chunk under
+    `plain_versions(bf16=True)` within PPL_REL_TOL; the f32 plain path's
+    reported beside. ms a sub-chunk by CUDA events over the whole run,
+    scored tokens/s, the sub-chunk's bound, and a profiled sub-chunk."""
+    from llm_tpu_torch import session as S
+    from llm_tpu_torch.models.forward import nll_step, window_bucket
+
+    spec = model.spec
+    ctx = spec.n_ctx
+    tokens = np.random.default_rng(7).integers(1, V, PPL_CHUNKS * ctx)
+    tokens = tokens.tolist()
+    n_sub = PPL_CHUNKS * (ctx // PPL_SUB)
+    first = min(512, ctx // 2)
+    scored = ctx - 1 - first  # a chunk's scored positions
+    out = {"chunks": PPL_CHUNKS, "sub_chunks": n_sub, "context": ctx,
+           "scored_tokens": PPL_CHUNKS * scored}
+
+    S.InferenceSession(model).perplexity(tokens[:ctx], lambda i, p: None)
+    torch.cuda.synchronize()  # warm-up: the first window's allocations
+    sess = S.InferenceSession(model)
+    ppl = []
+    zero_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.monotonic()
+    start.record()
+    sess.perplexity(tokens, lambda i, p: ppl.append(p))
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = read_launches()
+    out["launches"] = launches
+    out["launches_expected"] = path_launches("perplexity", launches, n_sub,
+                                             n_sub, 0, spec)
+    if len(ppl) != PPL_CHUNKS or not all(map(math.isfinite, ppl)):
+        fail(f"perplexity: {ppl}")
+    out["perplexity"] = ppl
+    out["ms_per_sub_chunk"] = start.elapsed_time(end) / n_sub
+    out["wall_s"] = wall_s
+    out["scored_tok_s"] = PPL_CHUNKS * scored / wall_s
+    out["rows_tok_s"] = PPL_CHUNKS * ctx / wall_s
+
+    nll = math.log(ppl[0]) * scored
+    for key, bf16 in (("plain_bf16", True), ("plain_f32", False)):
+        plain = []
+        with plain_versions(bf16=bf16):
+            S.InferenceSession(model).perplexity(
+                tokens[:ctx], lambda i, p: plain.append(p))
+        ref = math.log(plain[0]) * scored
+        out[f"first_chunk_nll_{key}"] = ref
+        out[f"first_chunk_rel_err_{key}"] = abs(nll - ref) / abs(ref)
+    out["first_chunk_nll"] = nll
+    out["tolerance"] = PPL_REL_TOL
+    if out["first_chunk_rel_err_plain_bf16"] > PPL_REL_TOL:
+        fail(f"perplexity: first chunk's NLL {nll} against the plain "
+             f"path's {out['first_chunk_nll_plain_bf16']}")
+
+    # the bound of a sub-chunk: the weights read once, and the products of
+    # the projections and of this run's causal attention (each query over
+    # the keys at and before it), at the bf16 tensor-core peak
+    w_bytes, w_flops_token = weight_traffic(model)
+    keys = sum(PPL_SUB * p + PPL_SUB * (PPL_SUB + 1) // 2
+               for p in range(0, ctx, PPL_SUB)) / (ctx // PPL_SUB)
+    attn_flops = 4.0 * spec.head_dim * spec.n_head * spec.n_layer * keys
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        w_bytes, w_flops_token * PPL_SUB + attn_flops)
+    out["k1_bound_ms"] = bound_ms(w_bytes, w_flops_token * PPL_SUB)[0]
+
+    # one profiled sub-chunk: at half the window (n_past 1024 of 2048)
+    p = ctx // 2
+    ids = torch.tensor(tokens[p:p + PPL_SUB])
+    targets = torch.tensor(tokens[p + 1:p + PPL_SUB + 1])
+    valid = torch.ones(PPL_SUB, dtype=torch.bool)
+
+    def step():
+        s, _ = nll_step(spec, model.params, ids, targets, valid, p,
+                        sess.cache, window_bucket(p + PPL_SUB, ctx))
+        float(s)
+
+    out["profile"] = step_profile(step, steps=2)
+
+    # ms of one sub-chunk at each n_past of a window (CUDA events, median
+    # of 3): the projections are the same work at each, attention grows
+    # with the keys before the chunk
+    by_past = {}
+    for p in range(0, ctx, PPL_SUB):
+        ids = torch.tensor(tokens[p:p + PPL_SUB])
+        targets = torch.tensor(tokens[p + 1:p + PPL_SUB + 1])
+        times = []
+        for _ in range(3):
+            start.record()
+            nll_step(spec, model.params, ids, targets, valid, p, sess.cache,
+                     window_bucket(p + PPL_SUB, ctx))
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        by_past[p] = float(np.median(times))
+    out["ms_by_n_past"] = by_past
+    return out
+
+
+def snapshot_phase(model, dev, e2e) -> dict:
+    """The e2e 64-token prompt and SNAP_HALF greedy tokens; the session
+    written with `snapshot.write_session`, read back onto the card with
+    `read_session`, SNAP_HALF more tokens: all of them the e2e phase's
+    uninterrupted 32."""
+    from llm_tpu_torch import session as S
+    from llm_tpu_torch import snapshot
+    from llm_tpu_torch.samplers import build_sampler_chain
+
+    prompt = e2e_prompts()[1]
+    params = S.InferenceParameters(sampler=build_sampler_chain(
+        ["topk:k=1"], bias=[(model.eot_token_id(), float("-inf"))]))
+    config = S.InferenceSessionConfig(
+        memory_k_type=S.ModelKVMemoryType.Float16,
+        memory_v_type=S.ModelKVMemoryType.Float16, n_batch=N_BATCH)
+    path = bench_path().with_suffix(".session")
+    out = {}
+    zero_launches()
+    sess = S.InferenceSession(model, config)
+    sess.infer(S.InferenceRequest(prompt=prompt, parameters=params,
+                                  maximum_token_count=SNAP_HALF),
+               rng=np.random.default_rng(0))
+    try:
+        t0 = time.monotonic()
+        snapshot.write_session(sess, path)
+        out["write_s"] = time.monotonic() - t0
+        out["file_bytes"] = path.stat().st_size
+        t0 = time.monotonic()
+        back = snapshot.read_session(model, path)
+        torch.cuda.synchronize()
+        out["read_s"] = time.monotonic() - t0
+    finally:
+        path.unlink(missing_ok=True)
+    out["kv_bytes"] = sum(t.numel() * t.element_size()
+                          for t in (back.cache.k, back.cache.v))
+    if back.cache.k.device != sess.cache.k.device or not (
+            torch.equal(back.cache.k, sess.cache.k)
+            and torch.equal(back.cache.v, sess.cache.v)):
+        fail("snapshot: the restored cache differs")
+    del sess
+    back.infer(S.InferenceRequest(prompt=[], parameters=params,
+                                  maximum_token_count=SNAP_HALF),
+               rng=np.random.default_rng(0))
+    launches = read_launches()
+    out["launches"] = launches
+    out["launches_expected"] = path_launches(
+        "snapshot", launches, 1 + 2 * SNAP_HALF, 1, 2 * SNAP_HALF,
+        model.spec)
+    got = back.tokens[len(prompt):]
+    if got != e2e["runs"][1]["new_ids"][:2 * SNAP_HALF]:
+        fail(f"snapshot: tokens {got} differ from the uninterrupted run's")
+    out["tokens_equal"] = len(got)
+    return out
+
+
+def verify_phase(dev, gguf: Path) -> dict:
+    """The port's harness on the GGUF file as `llm-tpu-torch verify -m
+    <file>.gguf -a llama` runs it (context 2048, no goldens): the
+    real-file cases Hyperparameters, CanSend, Inference (determinism, with
+    VERIFY_TOKENS new tokens), Tokens (determinism) and Delete (rewind and
+    refeed at the card's tolerance). The bench vocabulary is `<tN>`
+    markers, so the inputs are such markers."""
+    from llm_tpu_torch import harness
+
+    text = "".join(f"<t{t}>" for t in e2e_prompts()[0])
+    config = {"test_cases": [
+        {"Inference": {"input": text,
+                       "maximum_token_count": VERIFY_TOKENS}},
+        {"Tokens": {"input": text}},
+        {"Delete": {}},
+    ]}
+    zero_launches()
+    t0 = time.monotonic()
+    try:
+        report = harness.run_arch("llama", harness.DEFAULT_CONFIG_DIR,
+                                  overrides={"model_path": str(gguf)},
+                                  config=config, device=dev)
+    finally:
+        gguf.unlink(missing_ok=True)
+    out = {"s": time.monotonic() - t0, "launches": read_launches(),
+           "cases": {c.name: {"status": c.status, "s": c.duration_s,
+                              "message": c.message[:300]}
+                     for c in report.cases}}
+    if report.status != "ok":
+        fail(f"verify: {report.error[:2000]}")
+    want = {"Hyperparameters", "CanSend", "Inference", "Tokens", "Delete"}
+    bad = {k: v for k, v in out["cases"].items() if v["status"] != "passed"}
+    if set(out["cases"]) != want or bad:
+        fail(f"verify: {out['cases']}")
+    ls = out["launches"]
+    if not (ls["qmatmul"] and ls["dense_attention"]) or \
+            ls["paged_attention"]:
+        fail(f"verify: kernel launches {ls}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4c: the six other architectures
 
 
@@ -3181,7 +3539,8 @@ def attn_by_case(recs, label) -> dict:
 
 
 def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
-                   cinf, ab, dsamp, multi, archs) -> list[dict]:
+                   cinf, ab, dsamp, multi, archs,
+                   session_paths) -> list[dict]:
     """One entry per kernel: times summed over the launches of one decode
     step at 7B (qmatmul: the 4 projections x 32 layers + lm_head at M=1;
     dense_attention: 32 layers at W=512, bf16 cache, full window;
@@ -3197,7 +3556,9 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
     directly (`multi_step_loops`), and the six other architectures'
     runs (`archs`), whose kernel cases are in `archs_by_case`: K1 one
     decode token of each model at M=1, K2 at Falcon-7B's decode, K4 at
-    MPT-7B's paged cell."""
+    MPT-7B's paged cell; and the runs of `session_paths`: greedy `infer`
+    on the GGUF load, perplexity, a session continued from its snapshot
+    and the verify harness."""
     per_token = {"qkv": N_LAYER, "wo": N_LAYER, "gate_up": N_LAYER,
                  "down": N_LAYER, "lm_head": 1}
     dec = [r for r in qrecs if r["M"] == 1 and r["case"] in per_token]
@@ -3301,6 +3662,8 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
             for g in loops)
     for e in entries[1:4]:
         e["launches_by_path"]["archs"] = archs["launches"][e["name"]]
+        for path, ls in session_paths.items():
+            e["launches_by_path"][path] = ls[e["name"]]
     entries[1]["archs_by_case"] = {
         name: m["qmatmul"]["per_token"]
         for name, m in archs["models"].items()}
@@ -3319,7 +3682,8 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
         name: {"swapped": ls["qmatmul_swapped"], "wide": ls["qmatmul_wide"]}
         for name, ls in (("infer", e2e["launches"]),
                          ("serve_paged", serve["paged_launches"]),
-                         ("serve_dense", serve["dense_launches"]))}
+                         ("serve_dense", serve["dense_launches"]),
+                         *session_paths.items())}
     return entries
 
 
@@ -3419,10 +3783,36 @@ def main() -> None:
     multi = multi_step_phase(model, dev, serve)
     results["multi_step"] = multi
     emit({"multi_step": multi})
+    lap("multi_step")
+
+    gguf, gguf_path = gguf_phase(model, dev, e2e)
+    results["gguf"] = gguf
+    emit({"gguf": gguf})
+    lap("gguf")
+
+    ppl = perplexity_phase(model, dev)
+    results["perplexity"] = ppl
+    emit({"perplexity": ppl})
+    lap("perplexity")
+
+    snap = snapshot_phase(model, dev, e2e)
+    results["snapshot"] = snap
+    emit({"snapshot": snap})
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    lap("multi_step")
+    lap("snapshot")
+
+    ver = verify_phase(dev, gguf_path)
+    results["verify"] = ver
+    emit({"verify": ver})
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("verify")
+    session_paths = {"gguf_infer": gguf["launches"],
+                     "perplexity": ppl["launches"],
+                     "snapshot": snap["launches"],
+                     "verify": ver["launches"]}
 
     archs = archs_phase(dev, timer)
     results["archs"] = archs
@@ -3434,7 +3824,7 @@ def main() -> None:
     lap("probes")
 
     kernels = kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
-                             cinf, ab, dsamp, multi, archs)
+                             cinf, ab, dsamp, multi, archs, session_paths)
     kernels += probe_entries(probes, checks, dev, timer)
     del timer
     lap("kernel_entries")

@@ -1,4 +1,5 @@
-"""llm-tpu-torch command line interface: `infer`, `info` and `serve`.
+"""llm-tpu-torch command line interface: `infer`, `perplexity`, `info`,
+`verify`, `prompt-tokens`, `repl`, `chat`, `gguf-convert` and `serve`.
 
 The counterpart of `llm_tpu/cli.py` for the subcommands this port has, with
 the reference's flags for what it supports, plus `--device` (default: the
@@ -294,10 +295,16 @@ def _print_token(text: str) -> None:
 
 def cmd_infer(args) -> None:
     from llm_tpu_torch import session as S
+    from llm_tpu_torch import snapshot as snap
 
     prompt = resolve_prompt(args)
     model = load_model(args)
-    sess = S.InferenceSession(model, session_config(args, model))
+    persist = Path(args.persist_session) if args.persist_session else None
+    load_path = Path(args.load_session) if args.load_session else None
+    sess, session_loaded = snap.read_or_create_session(
+        model, persist, load_path, session_config(args, model)
+    )
+    save_to = args.save_session or args.persist_session
     params = inference_parameters(args, model)
     rng = np.random.default_rng(args.seed)
 
@@ -331,6 +338,8 @@ def cmd_infer(args) -> None:
         except S.ContextFull:
             print()
             print("Context window full, stopping inference.", file=sys.stderr)
+        if save_to:
+            snap.write_session(sess, save_to)
         return
 
     try:
@@ -338,6 +347,7 @@ def cmd_infer(args) -> None:
             S.InferenceRequest(
                 prompt=prompt,
                 parameters=params,
+                play_back_previous_tokens=session_loaded,
                 maximum_token_count=args.num_predict,
             ),
             rng=rng,
@@ -352,17 +362,113 @@ def cmd_infer(args) -> None:
         print()
         print("Context window full, stopping inference.", file=sys.stderr)
 
+    if save_to:
+        snap.write_session(sess, save_to)
+        print(f"Successfully wrote session to {save_to}", file=sys.stderr)
+
+
+def cmd_perplexity(args) -> None:
+    from llm_tpu_torch.session import InferenceSession
+
+    prompt = resolve_prompt(args)
+    model = load_model(args)
+    sess = InferenceSession(model, session_config(args, model))
+    sess.perplexity(
+        prompt, lambda chunk, ppl: print(f"Perplexity[{chunk}]: {ppl}")
+    )
+
+
+def cmd_verify(args) -> None:
+    """The llm-test golden cases (Inference / Tokens / Delete /
+    hyperparameter round-trip / CanSend) and an optional perplexity gate
+    against a local model file. With --config, goldens, url and sha256
+    come from a llm-test style JSON (test_configs/real/*.json); -m
+    overrides its model path."""
+    import json as _json
+
+    from llm_tpu_torch import harness
+
+    overrides = {}
+    if args.model_path:
+        overrides["model_path"] = args.model_path
+    if args.model_architecture:
+        overrides["architecture"] = args.model_architecture
+    if args.num_ctx_tokens:
+        overrides["context_size"] = args.num_ctx_tokens
+
+    # without --config, start from an empty config (determinism-only
+    # defaults): the tiny models' goldens in test_configs/ must never apply
+    # to a user's real checkpoint
+    cfg = {}
+    arch = args.model_architecture
+    if args.config:
+        cfg_path = Path(args.config)
+        cfg = _json.loads(cfg_path.read_text())
+        arch = arch or cfg.get("architecture") or cfg_path.stem
+    if not arch:
+        raise SystemExit("verify: pass -a/--model-architecture or --config "
+                         "with an 'architecture' key")
+
+    extra = []
+    if args.ppl_corpus:
+        case = {"corpus": args.ppl_corpus, "tolerance": args.ppl_tolerance}
+        if args.ppl_expected is not None:
+            case["expected"] = args.ppl_expected
+        extra.append({"Perplexity": case})
+
+    record = bool(args.record)
+    if record:
+        cfg.setdefault("architecture", arch)
+        if not (overrides.get("model_path") or cfg.get("model_path")
+                or cfg.get("url")):
+            raise SystemExit(
+                "verify --record: needs a local checkpoint (-m) or a "
+                "--config with a model_path/url"
+            )
+
+    report = harness.run_arch(arch, harness.DEFAULT_CONFIG_DIR,
+                              overrides=overrides, extra_cases=extra,
+                              config=cfg, record=record, device=args.device)
+    ok = report.status == "ok" and all(
+        c.status == "passed" for c in report.cases
+    )
+    for c in report.cases:
+        line = f"  {c.name}: {c.status}"
+        if c.message:
+            line += f" ({c.message})"
+        print(line)
+    if report.error:
+        print(report.error.splitlines()[0], file=sys.stderr)
+    if record and ok and report.recorded is not None:
+        out_path = Path(
+            args.record_out or args.config
+            or harness.DEFAULT_CONFIG_DIR / "real" / f"{arch}.recorded.json"
+        )
+        if args.model_path and args.config and cfg.get("url"):
+            # -m overrode a url-pinned config: the url stays canonical and
+            # this machine's local path stays out of the shared file
+            report.recorded.pop("model_path", None)
+        out_path.write_text(_json.dumps(report.recorded, indent=2) + "\n")
+        print(f"recorded goldens -> {out_path}")
+    print("PASS" if ok else "FAIL")
+    if not ok:
+        raise SystemExit(1)
+
 
 def cmd_info(args) -> None:
+    from llm_tpu_torch.ggml.gguf import GgufReader, is_gguf
     from llm_tpu_torch.ggml.reader import GgmlReader
     from llm_tpu_torch.models.spec import get_arch
 
-    if not args.model_architecture:
-        _err("a model architecture is required at present")
-    arch = get_arch(args.model_architecture)
-    reader = GgmlReader(args.model_path).load(
-        lambda f: (lambda h: (h, h.n_vocab))(arch.read_hparams(f))
-    )
+    if is_gguf(args.model_path):
+        reader = GgufReader(args.model_path).load(args.model_architecture)
+    else:
+        if not args.model_architecture:
+            _err("a model architecture is required at present")
+        arch = get_arch(args.model_architecture)
+        reader = GgmlReader(args.model_path).load(
+            lambda f: (lambda h: (h, h.n_vocab))(arch.read_hparams(f))
+        )
     print(f"Container type: {reader.container!r}")
     print(f"Hyperparameters: {reader.hyperparameters}")
     print(f"Tokenizer vocabulary size: {len(reader.vocabulary)}")
@@ -380,6 +486,138 @@ def cmd_info(args) -> None:
         print("Tensors:")
         for name, ti in reader.tensors.items():
             print(f"- {name} ({ti.element_type} {list(ti.dims)})")
+
+
+def cmd_prompt_tokens(args) -> None:
+    prompt = resolve_prompt(args)
+    model = load_model(args)
+    toks = model.tokenizer.tokenize(prompt, False)
+    print("=== Dumping prompt tokens:")
+    print(", ".join(str(tid) for _, tid in toks))
+    print(
+        ", ".join(
+            f"{tok.decode('utf-8', errors='replace')!r}:{tid}"
+            for tok, tid in toks
+        )
+    )
+
+
+def cmd_repl(args) -> None:
+    """A fresh session for each line."""
+    from llm_tpu_torch import session as S
+
+    model = load_model(args)
+    config = session_config(args, model)
+    params = inference_parameters(args, model)
+    template = None
+    if args.prompt_file:
+        template = Path(args.prompt_file).read_text().rstrip("\n")
+
+    print(">> ", end="", flush=True)
+    pending: list[str] = []
+    for line in sys.stdin:
+        line = line.rstrip("\n")
+        if line.endswith("\\"):
+            # rustyline-style line continuation
+            pending.append(line[:-1])
+            print(".. ", end="", flush=True)
+            continue
+        if pending:
+            line = "\n".join(pending + [line])
+            pending = []
+        if not line:
+            print(">> ", end="", flush=True)
+            continue
+        prompt = template.replace("{{PROMPT}}", line) if template else line
+        sess = S.InferenceSession(model, config)
+        rng = np.random.default_rng(args.seed)
+
+        def callback(r):
+            if r.kind == "inferred_token":
+                _print_token(r.text)
+            return S.InferenceFeedback.Continue
+
+        try:
+            sess.infer(
+                S.InferenceRequest(
+                    prompt=prompt,
+                    parameters=params,
+                    maximum_token_count=args.num_predict,
+                ),
+                rng=rng,
+                callback=callback,
+            )
+        except S.ContextFull:
+            print("Context window full.", file=sys.stderr)
+        except Exception as e:  # noqa: BLE001 (a bad line keeps the repl)
+            print(f"error: {e}", file=sys.stderr)
+        print()
+        print(">> ", end="", flush=True)
+
+
+def cmd_chat(args) -> None:
+    """A prelude, then a prefix before each message; the prefix is also
+    the stop sequence."""
+    from llm_tpu_torch import session as S
+    from llm_tpu_torch.tokenizer import TokenUtf8Buffer
+
+    model = load_model(args)
+    config = session_config(args, model)
+    params = inference_parameters(args, model)
+
+    prelude = Path(args.prelude_prompt_file).read_text()
+    if args.message_prompt_prefix and args.message_prompt_prefix_file:
+        _err("cannot specify both --message-prompt-prefix and "
+             "--message-prompt-prefix-file")
+    if args.message_prompt_prefix_file:
+        prefix = Path(args.message_prompt_prefix_file).read_text().rstrip(
+            "\n")
+    elif args.message_prompt_prefix:
+        prefix = args.message_prompt_prefix
+    else:
+        _err("a message prompt prefix is required")
+
+    sess = S.InferenceSession(model, config)
+    sess.feed_prompt(prelude)
+    stop_sequence = prefix.strip()
+
+    print(">> ", end="", flush=True)
+    for line in sys.stdin:
+        line = line.rstrip("\n")
+        rng = np.random.default_rng(args.seed)
+        try:
+            sess.feed_prompt(f"{prefix}{line}")
+            cb = S.conversation_inference_callback(stop_sequence,
+                                                   _print_token)
+            utf8 = TokenUtf8Buffer()  # a character split over tokens
+            while True:
+                try:
+                    token = sess.infer_next_token(rng, params)
+                except (S.EndOfText, S.ContextFull):
+                    break
+                piece = utf8.push(token)
+                if not piece:
+                    continue
+                resp = S.InferenceResponse("inferred_token", piece)
+                if cb(resp) is S.InferenceFeedback.Halt:
+                    break
+        except S.ContextFull:
+            print("Context window full.", file=sys.stderr)
+        print()
+        print(">> ", end="", flush=True)
+
+
+def cmd_gguf_convert(args) -> None:
+    from llm_tpu_torch.ggml.gguf import convert_ggml_to_gguf
+
+    tmpl = args.chat_template
+    if tmpl and os.path.exists(tmpl):
+        tmpl = Path(tmpl).read_text()
+    convert_ggml_to_gguf(
+        args.source, args.destination, args.model_architecture,
+        tokenizer_json=args.tokenizer_json, chat_template=tmpl,
+    )
+    print(f"wrote {args.destination}", file=sys.stderr)
 
 
 def cmd_serve(args) -> None:
@@ -430,14 +668,95 @@ def build_parser() -> argparse.ArgumentParser:
     add_generate_args(p)
     add_prompt_args(p)
     p.add_argument("--hide-prompt", action="store_true")
+    p.add_argument("--load-session", default=None)
+    p.add_argument("--save-session", default=None)
+    p.add_argument("--persist-session", default=None)
     p.add_argument("--stats", action="store_true")
     p.set_defaults(fn=cmd_infer)
+
+    p = sub.add_parser("perplexity", help="measure perplexity over a prompt")
+    add_model_args(p)
+    add_load_args(p)
+    add_generate_args(p)
+    add_prompt_args(p)
+    p.set_defaults(fn=cmd_perplexity)
 
     p = sub.add_parser("info", help="dump model metadata")
     add_model_args(p)
     p.add_argument("-t", "--tensors", action="store_true")
     p.add_argument("-k", "--tokenizer", action="store_true")
     p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser(
+        "verify",
+        help="run the llm-test golden cases (+ an optional perplexity "
+        "gate) against a local checkpoint",
+    )
+    p.add_argument("-m", "--model-path", default=None,
+                   help="path to the model file (overrides --config)")
+    p.add_argument("-a", "--model-architecture", default=None)
+    p.add_argument("--config", default=None,
+                   help="llm-test style JSON with goldens/url/sha256 "
+                   "(see test_configs/real/)")
+    p.add_argument("--num-ctx-tokens", type=int, default=None)
+    p.add_argument("--ppl-corpus", default=None,
+                   help="text file (e.g. wikitext-2 wiki.test.raw) for the "
+                   "perplexity gate")
+    p.add_argument("--ppl-expected", type=float, default=None,
+                   help="reference PPL; ours must be <= expected + tolerance")
+    p.add_argument("--ppl-tolerance", type=float, default=0.1)
+    p.add_argument("--record", action="store_true",
+                   help="record the observed goldens (Tokens argmax, greedy "
+                   "Inference text, measured PPL) and the file's sha256 "
+                   "into the config instead of asserting them")
+    p.add_argument("--record-out", default=None,
+                   help="where to write the recorded config (default: the "
+                   "--config path, or test_configs/real/<arch>.recorded.json)")
+    p.add_argument("--device", default=None,
+                   help="torch device to run on (default: cuda)")
+    p.set_defaults(fn=cmd_verify)
+
+    p = sub.add_parser("prompt-tokens", help="print the token ids of a prompt")
+    add_model_args(p)
+    add_load_args(p)
+    add_prompt_args(p)
+    p.set_defaults(fn=cmd_prompt_tokens)
+
+    p = sub.add_parser("repl", help="interactive REPL (fresh session per line)")
+    add_model_args(p)
+    add_load_args(p)
+    add_generate_args(p)
+    p.add_argument("-f", "--prompt-file", default=None,
+                   help="template file; {{PROMPT}} is replaced per line")
+    p.set_defaults(fn=cmd_repl)
+
+    p = sub.add_parser("chat", help="chat with a model")
+    add_model_args(p)
+    add_load_args(p)
+    add_generate_args(p)
+    p.add_argument("-f", "--prelude-prompt-file", required=True)
+    p.add_argument("-p", "--message-prompt-prefix", default=None)
+    p.add_argument("-q", "--message-prompt-prefix-file", default=None)
+    p.set_defaults(fn=cmd_chat)
+
+    p = sub.add_parser(
+        "gguf-convert",
+        help="convert a classic GGML/GGJT checkpoint to GGUF v3",
+    )
+    p.add_argument("source")
+    p.add_argument("destination")
+    p.add_argument("-a", "--model-architecture", required=True)
+    p.add_argument(
+        "--tokenizer-json", default=None,
+        help="HF tokenizer.json to source BPE merges from "
+        "(emits tokenizer.ggml.merges / model=gpt2)",
+    )
+    p.add_argument(
+        "--chat-template", default=None,
+        help="HF-convention jinja chat template to embed as "
+        "tokenizer.chat_template (file path or literal template text)",
+    )
+    p.set_defaults(fn=cmd_gguf_convert)
 
     p = sub.add_parser(
         "serve",

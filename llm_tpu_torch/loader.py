@@ -7,8 +7,9 @@ The counterpart of `llm_tpu/loader.py`:
 
 Loading runs on the card unless the caller asks for the CPU: `device=None`
 means "cuda", and raises when there is no GPU. All seven architectures
-load (`models/params.build_params`); GGUF files and LoRA adapters are not
-ported yet.
+load (`models/params.build_params`), from the classic containers and from
+GGUF v2/v3 (`ggml/gguf.py`, with the BPE tokenizer for gpt2-style
+vocabularies); LoRA adapters are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Callable, Optional
 
 import torch
 
+from llm_tpu_torch.ggml.gguf import GgufReader, is_gguf
 from llm_tpu_torch.ggml.reader import GgmlReader
 from llm_tpu_torch.ggml.types import ContainerType
 from llm_tpu_torch.models.params import ModelParams, WeightSource, build_params
@@ -75,6 +77,17 @@ class LoadProgress:
 
 ProgressCallback = Callable[[LoadProgress], None]
 
+_GGUF_BYTE_TOKEN = re.compile(rb"^<0x([0-9A-Fa-f]{2})>$")
+
+
+def _gguf_sp_token_bytes(tok: bytes) -> bytes:
+    """GGUF SentencePiece surface form -> raw bytes: '▁' (U+2581) is
+    the word boundary (space), '<0xNN>' tokens are single bytes."""
+    m = _GGUF_BYTE_TOKEN.match(tok)
+    if m:
+        return bytes([int(m.group(1), 16)])
+    return tok.replace("▁".encode(), b" ")
+
 
 def resolve_device(device=None) -> torch.device:
     """`None` means the card; a CUDA device without a GPU raises."""
@@ -101,6 +114,8 @@ def find_all_model_files(path: Path) -> list[Path]:
 class Model:
     """A loaded model: static spec + packed params + tokenizer. Immutable
     after construction; any number of sessions may share it."""
+
+    chat_template = None  # GGUF tokenizer.chat_template (HF jinja), if any
 
     def __init__(
         self,
@@ -160,8 +175,8 @@ def load(
     progress: Optional[ProgressCallback] = None,
     device=None,
 ) -> Model:
-    """Load a GGML/GGJT model file for the named architecture onto `device`
-    (default: the card)."""
+    """Load a GGML/GGJT or GGUF model file for the named architecture onto
+    `device` (default: the card)."""
     device = resolve_device(device)
     path = Path(path)
     params = params or ModelParameters()
@@ -173,12 +188,14 @@ def load(
     tokenizer_source = tokenizer_source or TokenizerSource.embedded()
     external_tokenizer = tokenizer_source.retrieve()
 
-    with open(path, "rb") as f:
-        if f.read(4) == b"GGUF":
-            raise LoadError("GGUF files are not supported by this port yet")
-    reader = GgmlReader(path).load(
-        lambda f: (lambda h: (h, h.n_vocab))(arch.read_hparams(f))
-    )
+    if is_gguf(path):
+        # hyperparameters come from the metadata store; tensor names are
+        # translated to the classic names at index time (ggml/gguf.py)
+        reader = GgufReader(path).load(architecture)
+    else:
+        reader = GgmlReader(path).load(
+            lambda f: (lambda h: (h, h.n_vocab))(arch.read_hparams(f))
+        )
     hp: Hyperparameters = reader.hyperparameters
     progress(LoadProgress("hyperparameters_loaded"))
 
@@ -196,28 +213,56 @@ def load(
                 "(requantize this model with a current converter)"
             )
 
+    md = getattr(reader, "metadata", {}) or {}
     if external_tokenizer is not None:
         tokenizer = external_tokenizer
+    elif md.get("tokenizer.ggml.model") in (b"gpt2", "gpt2") and md.get(
+            "tokenizer.ggml.merges"):
+        # a GGUF BPE vocabulary (mapped-form tokens + ranked merges): its
+        # scores mean nothing, so the score-greedy tokenizer would split
+        # words wrongly
+        from llm_tpu_torch.tokenizer.bpe import BpeTokenizer
+
+        bos = md.get("tokenizer.ggml.bos_token_id")
+        tokenizer = Tokenizer(BpeTokenizer(
+            reader.vocabulary.tokens,
+            md["tokenizer.ggml.merges"],
+            token_types=md.get("tokenizer.ggml.token_type"),
+            bos_id=int(bos) if bos is not None else None,
+        ))
     else:
         from llm_tpu_torch.tokenizer.embedded import EmbeddedTokenizer
 
+        toks = reader.vocabulary.tokens
+        if "tokenizer.ggml.tokens" in md:
+            # GGUF stores SentencePiece surface forms ('▁hello', literal
+            # '<0xNN>' byte tokens) and the embedded tokenizer works on
+            # bytes; control tokens (type 3) keep their text. The reader's
+            # vocabulary stays as it is, so a GGUF rewrite passes the
+            # surface forms through.
+            types = md.get("tokenizer.ggml.token_type") or []
+            toks = [t if i < len(types) and types[i] == 3
+                    else _gguf_sp_token_bytes(t)
+                    for i, t in enumerate(toks)]
         emb = EmbeddedTokenizer()
-        for i, (tok, score) in enumerate(
-            zip(reader.vocabulary.tokens, reader.vocabulary.scores)
-        ):
+        for i, (tok, score) in enumerate(zip(toks, reader.vocabulary.scores)):
             emb.push_token(i, tok, score)
         tokenizer = Tokenizer(emb)
 
     total_bytes = sum(t.calc_size() for t in reader.tensors.values())
     progress(LoadProgress("context_size", byte_size=total_bytes))
 
+    # a --rope-* override wins; else the file's own rope settings (GGUF
+    # metadata; None for the classic containers)
     rope = params.rope_overrides
     spec = with_runtime_params(
         arch.make_spec(hp),
         context_size=params.context_size,
         n_gqa=params.n_gqa,
-        rope_freq_base=float(rope.frequency_base) if rope else None,
-        rope_freq_scale=rope.frequency_scale if rope else None,
+        rope_freq_base=(float(rope.frequency_base) if rope
+                        else hp.rope_freq_base),
+        rope_freq_scale=(rope.frequency_scale if rope
+                         else hp.rope_freq_scale),
     )
     if params.n_gqa is not None and spec.arch == "llama":
         hp.n_head_kv = spec.n_head_kv
@@ -236,7 +281,7 @@ def load(
     model_params = build_params(ws, spec)
     progress(LoadProgress("loaded", byte_size=total_bytes))
 
-    return Model(
+    model = Model(
         arch=arch,
         hyperparameters=hp,
         spec=spec,
@@ -246,3 +291,9 @@ def load(
         container_type=reader.container,
         device=device,
     )
+    # a GGUF file may carry the HF-convention jinja chat template
+    tmpl = md.get("tokenizer.chat_template")
+    if isinstance(tmpl, bytes):
+        tmpl = tmpl.decode("utf-8", errors="replace")
+    model.chat_template = tmpl
+    return model

@@ -509,6 +509,22 @@ def forward_step(spec, params, ids, n_past, cache, window=None):
     return forward(spec, params, ids, n_past, cache, window)
 
 
+@torch.no_grad()
+def nll_step(spec, params, ids, targets, valid, n_past, cache, window=None):
+    """Evaluate `ids` at n_past and return (summed NLL of `targets` at the
+    `valid` positions as a 0-d f32 tensor on the cache's device, cache):
+    the perplexity inner loop, with the log-softmax and the gather on the
+    device so that no [T, n_vocab] logits cross to the host."""
+    _check_window(window, n_past, extra=len(ids))
+    logits, _, cache = forward(spec, params, ids, n_past, cache, window)
+    dev = logits.device
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    targets = torch.as_tensor(targets, device=dev).to(torch.int64)
+    valid = torch.as_tensor(valid, device=dev)
+    tok_logp = logp.gather(1, targets[:, None])[:, 0]
+    return -torch.where(valid, tok_logp, 0.0).sum(), cache
+
+
 def window_bucket(n_past: int, n_ctx: int, granule: int = 512) -> int:
     """Read-window bucket covering n_past: multiples of `granule` (bounded
     by n_ctx), so decode cache traffic tracks the actual context length."""

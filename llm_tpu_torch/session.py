@@ -1,6 +1,7 @@
-"""InferenceSession: KV cache + prompt feeding + generation.
+"""InferenceSession: KV cache + prompt feeding + generation + perplexity +
+snapshots.
 
-The counterpart of `llm_tpu/session.py` for the `infer` paths:
+The counterpart of `llm_tpu/session.py`:
 
 - feed_prompt: chunks of n_batch with the ContextFull guard; each chunk is
   padded up to the n_batch bucket (padding beyond n_past is written to the
@@ -13,8 +14,15 @@ The counterpart of `llm_tpu/session.py` for the `infer` paths:
   host reads the tokens once a block.
 - rewind: pop tokens and decrement n_past; cache entries are indexed by
   absolute position, so the cache needs no invalidation.
-
-Snapshots and perplexity are not ported yet.
+- perplexity: chunks of the context size, BOS at each chunk's first
+  position, positions >= min(512, n_ctx / 2) scored; each chunk restarts
+  the context at 0 and runs `forward.nll_step` over sub-chunks of 512 (on
+  the card: the qmatmul kernel at M = 512), reading the summed NLL back
+  once a chunk.
+- snapshots: get/restore with a KV size and layout check. The bytes are
+  the reference's: a bf16 cache is stored as its raw 2-byte words under
+  the dtype "bfloat16", so a snapshot of either package loads in the
+  other.
 """
 
 from __future__ import annotations
@@ -67,6 +75,10 @@ class UnsupportedArchitecture(RewindError):
 class NotEnoughTokens(RewindError):
     def __init__(self):
         super().__init__("cannot rewind more tokens than have been processed")
+
+
+class SnapshotError(Exception):
+    pass
 
 
 class ModelKVMemoryType(enum.Enum):
@@ -145,6 +157,43 @@ class InferenceResponse:
 
     kind: str
     text: str = ""
+
+
+@dataclass
+class InferenceSnapshot:
+    """n_past + config + tokens + last_logits + raw KV bytes."""
+
+    npast: int
+    config: InferenceSessionConfig
+    tokens: list
+    last_logits: np.ndarray
+    memory_k: bytes
+    memory_v: bytes
+    k_shape: tuple
+    v_shape: tuple
+    k_dtype: str
+    v_dtype: str
+    # int8 KV caches carry per-(position, head) scales
+    memory_k_scale: Optional[bytes] = None
+    memory_v_scale: Optional[bytes] = None
+    scale_shape: Optional[tuple] = None
+
+
+def _tensor_bytes(t: torch.Tensor) -> tuple[bytes, str]:
+    """(raw bytes, numpy dtype name); bf16 as its 2-byte words."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().tobytes(), "bfloat16"
+    a = t.numpy()
+    return a.tobytes(), str(a.dtype)
+
+
+def _tensor_from_bytes(b: bytes, dtype: str, shape, device) -> torch.Tensor:
+    if dtype == "bfloat16":
+        a = np.frombuffer(b, np.int16).reshape(shape)
+        return torch.from_numpy(a.copy()).view(torch.bfloat16).to(device)
+    a = np.frombuffer(b, np.dtype(dtype)).reshape(shape)
+    return torch.from_numpy(a.copy()).to(device)
 
 
 class InferenceSession:
@@ -459,3 +508,158 @@ class InferenceSession:
         stats.predict_duration = time.monotonic() - start_at
         stats.predict_tokens = self.n_past
         return stats
+
+    def perplexity(
+        self,
+        prompt: Union[str, Sequence[TokenId], Prompt],
+        callback: Callable[[int, float], None],
+    ) -> None:
+        """Chunked perplexity; `callback(chunk, ppl so far)` once a chunk."""
+        from llm_tpu_torch.models.forward import nll_step
+
+        model = self.model
+        spec = model.spec
+        tokens = np.asarray(
+            Prompt.of(prompt).to_tokens(model.tokenizer, True), np.int64
+        )
+        context_size = model.context_size
+        n_chunk = len(tokens) // context_size
+        first = min(512, context_size // 2)  # the first scored position
+        C = min(512, context_size)  # sub-chunk: one forward each
+        bot = model.bot_token_id()
+        bos = bot if bot is not None else 1
+
+        count = 0
+        nll = 0.0
+        for i in range(n_chunk):
+            start = i * context_size
+            chunk = tokens[start : start + context_size].copy()
+            chunk[0] = bos
+            # logit row j predicts tokens[start + j + 1]; the last row has
+            # no target inside the chunk and is never scored
+            targets = np.zeros(context_size, np.int64)
+            targets[:-1] = tokens[start + 1 : start + context_size]
+
+            self.n_past = 0  # each chunk restarts the context window
+            chunk_nll = []
+            for p in range(0, context_size, C):
+                c = min(C, context_size - p)
+                pos = p + np.arange(c)
+                valid = (pos >= first) & (pos <= context_size - 2)
+                s, self.cache = nll_step(
+                    spec,
+                    model.params,
+                    torch.from_numpy(chunk[p : p + c]),
+                    torch.from_numpy(targets[p : p + c]),
+                    torch.from_numpy(valid),
+                    self.n_past,
+                    self.cache,
+                    window_bucket(self.n_past + c, spec.n_ctx),
+                )
+                chunk_nll.append(s)
+                self.n_past += c
+
+            nll += float(torch.stack(chunk_nll).sum())  # one read a chunk
+            count += context_size - 1 - first
+            callback(i, float(np.exp(nll / count)))
+
+    # -- snapshots ----------------------------------------------------------
+
+    def get_snapshot(self) -> InferenceSnapshot:
+        c = self.cache
+        k, k_dtype = _tensor_bytes(c.k)
+        v, v_dtype = _tensor_bytes(c.v)
+        ks = vs = None
+        if c.k_scale is not None:
+            ks, _ = _tensor_bytes(c.k_scale)
+            vs, _ = _tensor_bytes(c.v_scale)
+        return InferenceSnapshot(
+            npast=self.n_past,
+            config=self.config,
+            tokens=list(self.tokens),
+            last_logits=np.asarray(self.last_logits, np.float32).copy(),
+            memory_k=k,
+            memory_v=v,
+            k_shape=tuple(c.k.shape),
+            v_shape=tuple(c.v.shape),
+            k_dtype=k_dtype,
+            v_dtype=v_dtype,
+            memory_k_scale=ks,
+            memory_v_scale=vs,
+            scale_shape=tuple(c.k_scale.shape) if ks is not None else None,
+        )
+
+    @classmethod
+    def from_snapshot(cls, snapshot: InferenceSnapshot,
+                      model) -> "InferenceSession":
+        """A session on `model`'s device continuing from `snapshot`."""
+        session = cls(model, snapshot.config)
+        k, v = session.cache.k, session.cache.v
+        if (len(snapshot.memory_k) != k.numel() * k.element_size()
+                or len(snapshot.memory_v) != v.numel() * v.element_size()):
+            raise SnapshotError(
+                "snapshot KV memory size does not match this model/config"
+            )
+        if tuple(snapshot.k_shape) != tuple(k.shape):
+            # the same byte count in another layout (a position-major
+            # [L, S, H, D] snapshot): reshaping would transpose the cache
+            raise SnapshotError(
+                f"snapshot KV layout {tuple(snapshot.k_shape)} does not match "
+                f"this build's cache layout {tuple(k.shape)}"
+            )
+        dev = k.device
+        kk = _tensor_from_bytes(snapshot.memory_k, snapshot.k_dtype,
+                                snapshot.k_shape, dev)
+        vv = _tensor_from_bytes(snapshot.memory_v, snapshot.v_dtype,
+                                snapshot.v_shape, dev)
+        ks = vs = None
+        if snapshot.memory_k_scale is not None:
+            ks = _tensor_from_bytes(snapshot.memory_k_scale, "float32",
+                                    snapshot.scale_shape, dev)
+            vs = _tensor_from_bytes(snapshot.memory_v_scale, "float32",
+                                    snapshot.scale_shape, dev)
+        session.cache = KVCache(kk, vv, ks, vs)
+        session.n_past = snapshot.npast
+        session.tokens = list(snapshot.tokens)
+        session.last_logits = np.asarray(snapshot.last_logits, np.float32)
+        session.decoded_tokens = bytearray(
+            b"".join(model.tokenizer.token(t) for t in session.tokens)
+            if model.tokenizer.is_embedded
+            else model.tokenizer.decode(session.tokens, True)
+        )
+        return session
+
+
+# ---------------------------------------------------------------------------
+# callback helpers
+
+
+def feed_prompt_callback(callback):
+    """Adapt an InferenceResponse callback for feed_prompt."""
+
+    def inner(token_bytes: bytes):
+        text = token_bytes.decode("utf-8", errors="replace")
+        return callback(InferenceResponse("prompt_token", text))
+
+    return inner
+
+
+def conversation_inference_callback(stop_sequence: str, on_token):
+    """Stream tokens until the stop sequence (the message prefix) appears."""
+    buf = [""]
+
+    def inner(resp: InferenceResponse):
+        if resp.kind != "inferred_token":
+            return InferenceFeedback.Continue
+        text = buf[0] + resp.text
+        if text.startswith(stop_sequence):
+            buf[0] = ""
+            return InferenceFeedback.Halt
+        if stop_sequence.startswith(text):
+            buf[0] = text
+            return InferenceFeedback.Continue
+        buf[0] = ""
+        on_token(text)
+        return InferenceFeedback.Continue
+
+    return inner

@@ -14,6 +14,7 @@ cap on the architectures besides LLaMA:
   64: both packages cap the context at 32 and give the same logits
   (atol = rtol = 1e-5, as test_torch_model.py)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -61,6 +62,19 @@ def models(request, tmp_path_factory):
     path = tmp_path_factory.mktemp(f"torch_archs_{name}") / "m.bin"
     make_tiny_file(arch, path, et, **overrides)
     return load_both(path, arch)
+
+
+@pytest.fixture(autouse=True)
+def reference_step_waits(monkeypatch):
+    """The reference's `PagedEngine.step` dispatches `paged_step` with a
+    zero-copy view of its page tables on the CPU and may clear a retiring
+    stream's row before the step has read it; waiting for the step's
+    outputs gives the tables as they were at dispatch
+    (test_torch_step_multi.py)."""
+    step = jpaged.paged_step
+    monkeypatch.setattr(
+        jpaged, "paged_step",
+        lambda *a, **kw: jax.block_until_ready(step(*a, **kw)))
 
 
 def _engine(side, model, kind, kv):

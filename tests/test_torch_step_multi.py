@@ -63,6 +63,21 @@ def models(tmp_path_factory):
     return jm, tm
 
 
+@pytest.fixture(autouse=True)
+def reference_step_waits(monkeypatch):
+    """The reference's `PagedEngine.step` dispatches `paged_step` with its
+    page tables as a zero-copy view (`jnp.asarray(self.tables)` on the
+    CPU), then retires a context-full stream and clears its table row,
+    sometimes before the dispatched step has read it: that stream's last
+    logits then vary from run to run. Waiting for the step's outputs
+    before the engine goes on gives the tables as they were at dispatch,
+    as a TPU's copy of them does."""
+    step = jpaged.paged_step
+    monkeypatch.setattr(
+        jpaged, "paged_step",
+        lambda *a, **kw: jax.block_until_ready(step(*a, **kw)))
+
+
 def _engine(side, models, kind, kv, **kw):
     model = models[0] if side is JAX else models[1]
     dtype = KV[kv][0 if side is JAX else 1]
