@@ -129,6 +129,42 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             refeed at the card's tolerance) pass; the inputs are `<tN>`
             markers, the bench vocabulary's. The GGUF file is removed
             after it.
+   speculative: speculative decoding on the e2e model (still loaded)
+            with two drafts: the target itself, and a draft at the
+            published geometry of JackFram/llama-160m (768 wide, 12
+            layers of 12 heads of 64, n_ff 3072, Q4_0, seed 1, written
+            under build/smoke/ and freed at the end). K1 at the new
+            shapes against its plain version and torch.matmul: the 7B
+            target at M=4, the draft at M=1 and 16. (i) SpeculativeSession
+            (k=4) over the e2e 64-token prompt, 32 new greedy tokens, each
+            draft: tokens equal to the plain T=1 path's (at the first
+            difference both paths' logits of the two tokens are printed
+            and it counts only where the plain row's top-2 gap is below
+            the two rows' largest difference); the plain tokens against
+            the e2e phase's host chain (repetition 1.3, EoT banned): they
+            may differ only where that chain penalizes or bans the argmax;
+            a second pass from position 0 timed by CUDA events and wall,
+            its tokens equal to the first's, the launch counters set to 0
+            just before it and held to its forwards, each graph's
+            launches a replay (T=1: 4 n_layer + 1 K1 and n_layer K2;
+            T=k: 4 n_layer + 1 K1) and its replays against the rounds and
+            the formula, one replay of the verify and both bonus graphs
+            bit-equal to its eager run, a profiled round's busy share.
+            (ii) SampledSpeculativeSession, self-draft, temperature 0.8:
+            two runs with seed 1 equal. (iii) SpeculativeEngine, bf16, 16
+            slots, the 160M draft, the serve phase's 16 prompts (chunks of
+            512), 32 new each: tokens equal to a plain Engine's by the
+            same rule; tok/s, a round's parts (draft, verify with K1 at
+            M=64 in situ from a profiled verify, host). (iv)
+            SampledSpeculativeEngine over 4 of the prompts, top-k 40 at
+            0.8, seeded twice: equal. (v) PagedSpeculativeEngine (int8
+            pool, page 256, prefix cache) against a plain PagedEngine, the
+            eager T=k page pass's wall and kernel ms;
+            PagedSampledSpeculativeEngine over 4 prompts, its T=1 tail
+            evals launching K4. (vi) LlmServer over PagedSpeculativeEngine:
+            16 concurrent temperature-0 completions, tokens equal to (v)'s.
+            Every run's launches are held exactly to the forwards it ran;
+            `speculative_summary` is the phase's line.
    archs:   the six other architectures, each written with
             `make_bench_file` at its published width (seed 0, under
             build/smoke/, removed after loading) and loaded on the card:
@@ -1621,9 +1657,10 @@ def check_engine_launches(name, launches, counts, attention, spec) -> dict:
     return want
 
 
-def http_completion(url: str, body: dict) -> dict:
+def http_completion(url: str, body: dict, exact: bool = True) -> dict:
     """POST one completion; for a streamed one, also the client's time to
-    its first text fragment."""
+    its first text fragment. `exact`: it must give max_tokens tokens and
+    end at that length."""
     import urllib.request
 
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
@@ -1649,8 +1686,8 @@ def http_completion(url: str, body: dict) -> dict:
                     parts.append(choice["text"])
             out.update(text="".join(parts), finish=finish)
     out["total_s"] = time.monotonic() - t0
-    if out["text"].count("<t") != body["max_tokens"] or \
-            out["finish"] != "length":
+    if exact and (out["text"].count("<t") != body["max_tokens"]
+                  or out["finish"] != "length"):
         fail(f"completion of {len(body['prompt'])} tokens: "
              f"{out['text'].count('<t')} tokens, finish {out['finish']}")
     return out
@@ -2682,6 +2719,897 @@ def verify_phase(dev, gguf: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: speculative decoding on the e2e model
+
+
+SPEC_K = 4  # draft proposals a round
+SPEC_NEW = 32
+# the second draft, at the published geometry of JackFram/llama-160m (the
+# draft SpecInfer pairs with LLaMA-7B): hidden 768, 12 layers, 12 heads of
+# 64, intermediate 3072, vocab 32000, 2048 positions
+DRAFT_E, DRAFT_FF, DRAFT_H, DRAFT_LAYERS = 768, 3072, 12, 12
+SPEC_SAMPLED_STREAMS = 4  # the sampled engines' requests (host acceptance
+#                           in float64 over V = 32000 is the slow part)
+SPEC_TEMPERATURE = 0.8
+REPEAT_WINDOW = 64  # the host chain's default repetition slot: last 64
+
+
+def spec_prompts() -> list[list[int]]:
+    """The serve phase's 16 prompts (16-700 tokens, seed 4)."""
+    rng = np.random.default_rng(4)
+    lens = rng.integers(16, 701, SERVE_STREAMS)
+    return [rng.integers(1, V, n).tolist() for n in lens]
+
+
+@contextlib.contextmanager
+def all_forwards():
+    """Record every forward that any path runs while the block is open,
+    eagerly, as a graph's warm-up or as its capture: (n_layer of the spec,
+    T == 1, B * T rows past qmatmul's swapped path, paged) each."""
+    from llm_tpu_torch import paged as pm
+    from llm_tpu_torch import serve as sm
+    from llm_tpu_torch import speculative as spm
+    from llm_tpu_torch.models import forward as fm
+    from llm_tpu_torch.ops import qmatmul as qm
+
+    calls, saved = [], []
+
+    def wrap(mod, name, paged):
+        inner = getattr(mod, name)
+
+        def wrapped(spec, params, ids, *a, **k):
+            shape = tuple(getattr(ids, "shape", np.shape(ids)))
+            calls.append((spec.n_layer, shape[-1] == 1,
+                          int(np.prod(shape)) > qm.SWAPPED_MAX_M, paged))
+            return inner(spec, params, ids, *a, **k)
+
+        saved.append((mod, name, inner))
+        setattr(mod, name, wrapped)
+
+    for mod in (fm, sm, spm):
+        wrap(mod, "forward_batched", False)
+    for mod in (pm, spm):
+        wrap(mod, "paged_forward_batched", True)
+    try:
+        yield calls
+    finally:
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+
+
+def launches_exact(name, calls) -> dict:
+    """The counters against the forwards `all_forwards` recorded: per
+    forward 4 n_layer + 1 qmatmul (on the wide path past 32 rows), and per
+    T=1 forward n_layer launches of the dense or the paged attention
+    kernel; longer forwards take the plain attention."""
+    got = read_launches()
+    want = {"qmatmul": 0, "qmatmul_swapped": 0, "qmatmul_wide": 0,
+            "dense_attention": 0, "paged_attention": 0}
+    for L, t1, wide, paged in calls:
+        want["qmatmul"] += 4 * L + 1
+        want["qmatmul_wide" if wide else "qmatmul_swapped"] += 4 * L + 1
+        if t1:
+            want["paged_attention" if paged else "dense_attention"] += L
+    if got != want:
+        fail(f"speculative {name}: kernel launches {got}, expected {want} "
+             f"for {len(calls)} forwards")
+    return got
+
+
+def spec_graphs(name, cache, spec, before: Optional[dict] = None) -> list:
+    """Each CUDA graph captured over a dense cache of `spec`, held to the
+    launches one replay must make: a T=1 step or forward 4 L + 1 qmatmul
+    and L dense attention, a T=k forward 4 L + 1 qmatmul and no
+    attention kernel. `replays` counts those since `before` (key ->
+    replays)."""
+    recs = []
+    for key, g in cache.graphs.items():
+        T = key[3] if key[0] == "forward" else 1
+        kind = key[0] if isinstance(key[0], str) else "decode_loop"
+        want = {"qmatmul": 4 * spec.n_layer + 1,
+                "dense_attention": spec.n_layer if T == 1 else 0,
+                "paged_attention": 0}
+        if g.launches != want:
+            fail(f"speculative {name}: a {kind} graph (T={T}) counted "
+                 f"{g.launches} launches a replay, not {want}")
+        recs.append({"kind": kind, "T": T, "window": key[1] if kind !=
+                     "forward" else key[4], "launches_per_replay": g.launches,
+                     "replays": g.replays - (before or {}).get(key, 0),
+                     "capture_s": g.capture_s, "pool_bytes": g.pool_bytes})
+    return recs
+
+
+def replays_of(cache) -> dict:
+    return {key: g.replays for key, g in cache.graphs.items()}
+
+
+def graph_launches(recs) -> dict:
+    return {k: sum(r["launches_per_replay"][k] * r["replays"] for r in recs)
+            for k in ("qmatmul", "dense_attention", "paged_attention")}
+
+
+def add_launches(total: dict, *parts) -> None:
+    for part in parts:
+        for k in ("qmatmul", "dense_attention", "paged_attention"):
+            total[k] = total.get(k, 0) + part.get(k, 0)
+
+
+def tokens_held(name, got, want, got_rows, want_rows) -> dict:
+    """Greedy tokens of a speculative path `got` against the plain path's
+    `want`. Where they first differ, both paths' logits for the two tokens
+    are printed with the plain row's top-2 gap; the divergence counts as a
+    tie flipped by rounding only where that gap is below the largest
+    absolute difference between the two paths' rows at that position (the
+    verify path's T=k forward against the T=1 path). After it the two
+    contexts differ, so nothing later is compared."""
+    rec = {"equal": got == want, "tokens": len(got)}
+    if got == want:
+        return rec
+    n = min(len(got), len(want))
+    j = next((i for i in range(n) if got[i] != want[i]), n)
+    if j == n:
+        fail(f"speculative {name}: {len(got)} tokens against {len(want)}, "
+             "equal as far as both go")
+    a, b = np.asarray(got_rows[j]), np.asarray(want_rows[j])
+    tg, tw = int(got[j]), int(want[j])
+    rec.update({
+        "first_divergence": j, "token": tg, "plain_token": tw,
+        "path_logits": [float(a[tg]), float(a[tw])],
+        "plain_logits": [float(b[tg]), float(b[tw])],
+        "top2_gap": float(b[tw] - b[tg]),
+        "max_abs_row_diff": float(np.abs(a - b).max())})
+    emit({"speculative_token_differs": dict(rec, path=name)})
+    if not rec["top2_gap"] < rec["max_abs_row_diff"]:
+        fail(f"speculative {name}: token {j} is {tg}, the plain path's "
+             f"{tw}, top-2 gap {rec['top2_gap']:.4g} not below the rows' "
+             f"difference {rec['max_abs_row_diff']:.4g}")
+    return rec
+
+
+def plain_greedy_rows(model, prompt, n: int):
+    """`n` greedy tokens after `prompt` on the T=1 path (the prompt as one
+    512-row chunk, as the session feeds it; then one captured decode step
+    a token, no ban) and the logits row each token was picked from."""
+    from llm_tpu_torch.models.forward import (
+        decode_loop,
+        forward_step,
+        init_cache,
+        window_bucket,
+    )
+    from llm_tpu_torch.ops.sampling import DeviceSampler
+
+    spec = model.spec
+    cache = init_cache(spec, torch.bfloat16, model.device)
+    ids = np.zeros(N_BATCH, np.int64)
+    ids[: len(prompt)] = prompt
+    logits, _, _ = forward_step(spec, model.params, torch.from_numpy(ids),
+                                0, cache, window_bucket(0, spec.n_ctx))
+    logits = logits[len(prompt) - 1]
+    toks, rows, n_past = [], [], len(prompt)
+    for _ in range(n):
+        rows.append(logits.cpu().numpy())
+        toks.append(int(np.argmax(rows[-1])))
+        if toks[-1] == model.eot_token_id():
+            break
+        t, logits, _, _ = decode_loop(
+            spec, model.params, logits, n_past, cache, 1,
+            window_bucket(n_past + 1, spec.n_ctx), DeviceSampler.greedy())
+        if int(t[0]) != toks[-1]:
+            fail("speculative: the decode step's argmax differs from the "
+                 "host's")
+        n_past += 1
+    return toks, rows
+
+
+def e2e_tokens_held(plain, prompt, e2e_ids, eot) -> dict:
+    """The plain greedy tokens against the e2e phase's (host chain
+    `topk:k=1`: repetition 1.3 over the last 64 tokens, EoT banned): they
+    may differ first only where the plain argmax is a token the chain
+    penalizes or bans."""
+    if plain == e2e_ids:
+        return {"equal": True}
+    j = next((i for i, (a, b) in enumerate(zip(plain, e2e_ids)) if a != b),
+             min(len(plain), len(e2e_ids)))
+    window = (prompt + plain[:j])[-REPEAT_WINDOW:]
+    explained = j < len(plain) and (plain[j] in window or plain[j] == eot)
+    rec = {"equal": False, "first_divergence": j,
+           "explained_by_the_chain": explained}
+    if not explained:
+        fail(f"speculative: plain greedy tokens differ from the e2e phase's "
+             f"at {j} where the host chain changes nothing: {rec}")
+    return rec
+
+
+def timed_module_fn(mod, name, log: list):
+    """Wrap mod.<name>: its wall seconds, through the card's work (a
+    synchronize after it), appended to `log`. Returns the restore."""
+    inner = getattr(mod, name)
+
+    def wrapped(*a, **k):
+        t0 = time.monotonic()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        log.append(time.monotonic() - t0)
+        return out
+
+    setattr(mod, name, wrapped)
+    return lambda: setattr(mod, name, inner)
+
+
+def profile_call(fn) -> tuple:
+    """fn() under torch.profiler: (its result, the card's kernel ms, K1's
+    share of it, kernels launched, the top kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    ks = [(e.time_range.end - e.time_range.start, e.name)
+          for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by: dict[str, float] = {}
+    for t, k in ks:
+        by[k] = by.get(k, 0.0) + t
+    return out, {
+        "traced_wall_ms": 1e3 * wall,
+        "kernel_ms": sum(t for t, _ in ks) / 1e3 if ks else None,
+        "k1_ms": sum(t for t, k in ks if "qmm" in k or "sum_splits" in k)
+        / 1e3 if ks else None,
+        "launches": len(ks),
+        "top": [{"kernel": k[:80], "ms": t / 1e3}
+                for k, t in sorted(by.items(), key=lambda kv: -kv[1])[:6]]}
+
+
+def session_run(model, draft, prompt, plain, dev) -> dict:
+    """SpeculativeSession (k = 4) over the prompt, 32 new tokens: a first
+    pass that captures the graphs and gives the tokens, held against the
+    plain T=1 path; then the same session from position 0 again (caches
+    and graphs reused; rows at and past n_past are masked) with the launch
+    counters set to 0 just before it: its tokens equal the first pass's,
+    ms a token by CUDA events and wall, the launches of each graph and
+    their replays against the rounds, each captured graph replayed once
+    bit-equal to its eager run, and a profiled round's busy share."""
+    from llm_tpu_torch import speculative as sp
+    from llm_tpu_torch.models.forward import forward_replay, window_bucket
+
+    s = sp.SpeculativeSession(model, draft, k=SPEC_K,
+                              kv_dtype=torch.bfloat16, n_batch=N_BATCH)
+    rounds = []
+    verify = s._verify
+
+    def recorded(proposals, w):  # (n_past, head row, verify rows) a round
+        head = np.array(s.last_logits)
+        t = verify(proposals, w)
+        rounds.append((s.n_past, head, t))
+        return t
+
+    s._verify = recorded
+    s.feed_prompt(prompt)
+    first = s.generate(SPEC_NEW)
+    rows = {}
+    for n_past, head, t in rounds:
+        for j, row in enumerate([head, *t]):
+            rows[n_past - len(prompt) + j] = row
+    out = {"tokens_vs_plain": tokens_held(
+        "session", first, plain[0], [rows[j] for j in range(len(first))],
+        plain[1]), "first_pass_acceptance": s.acceptance_rate}
+    rounds.clear()
+
+    # the timed pass, launches counted
+    s.n_past, s.tokens, s.accepted, s.drafted = 0, [], 0, 0
+    t_before, d_before = replays_of(s.t_cache), replays_of(s.d_cache)
+    log = {"draft": [], "verify": [], "bonus": []}
+    restore = [timed_module_fn(sp, "decode_loop", log["draft"])]
+    bonus = s._eval_bonus
+
+    def timed_bonus(tok, w):
+        t0 = time.monotonic()
+        r = bonus(tok, w)
+        log["bonus"].append(time.monotonic() - t0)
+        return r
+
+    def timed_verify(proposals, w):
+        t0 = time.monotonic()
+        r = recorded(proposals, w)
+        log["verify"].append(time.monotonic() - t0)
+        return r
+
+    s._verify, s._eval_bonus = timed_verify, timed_bonus
+    toks = []
+    with all_forwards() as calls:
+        zero_launches()
+        s.feed_prompt(prompt)
+        dev_ms, wall_ms = events_ms(lambda: toks.extend(s.generate(SPEC_NEW)))
+        counted = launches_exact("session", calls)
+    for r in restore:
+        r()
+    s._verify, s._eval_bonus = verify, bonus
+    if toks != first:
+        fail(f"speculative session: the second pass's tokens {toks} differ "
+             f"from the first's {first}")
+    spec_t, spec_d = model.spec, draft.spec
+    tg = spec_graphs("session target", s.t_cache, spec_t, t_before)
+    dg = spec_graphs("session draft", s.d_cache, spec_d, d_before)
+    # a round: k draft steps, the T=k verify (a T=1 forward when k = 1),
+    # and, unless the budget ends it, both models' T=1 bonus evals
+    ks = [len(t) for _, _, t in rounds]
+    n_rounds, n_bonus = len(ks), len(log["bonus"])
+    t_replays = sum(r["replays"] for r in tg)
+    d_steps = sum(r["replays"] for r in dg if r["kind"] == "decode_loop")
+    d_bonus = sum(r["replays"] for r in dg if r["kind"] == "forward")
+    if (t_replays != n_rounds + n_bonus or d_steps != sum(ks)
+            or sum(ks) != s.drafted or d_bonus != n_bonus
+            or (model.eot_token_id() not in toks
+                and len(toks) != s.accepted + n_bonus)):
+        fail(f"speculative session: {t_replays} target, {d_steps} "
+             f"draft-step and {d_bonus} draft-bonus replays for {n_rounds} "
+             f"rounds of k {ks}, {n_bonus} bonus evals, {s.drafted} "
+             f"proposals, {s.accepted} accepted, {len(toks)} tokens")
+    replayed = graph_launches(tg + dg)
+    k1_t, k1_d = 4 * spec_t.n_layer + 1, 4 * spec_d.n_layer + 1
+    formula = {"qmatmul": sum(ks) * k1_d + n_rounds * k1_t
+               + n_bonus * (k1_t + k1_d),
+               "dense_attention": sum(ks) * spec_d.n_layer
+               + ks.count(1) * spec_t.n_layer
+               + n_bonus * (spec_t.n_layer + spec_d.n_layer),
+               "paged_attention": 0}
+    if replayed != formula:
+        fail(f"speculative session: graph launches {replayed}, formula "
+             f"{formula}")
+
+    # one replay of each captured verify and bonus graph against its eager
+    # run on the same inputs, at the session's frontier
+    w = window_bucket(s.n_past + SPEC_K + 1, spec_t.n_ctx)
+    cases = {"verify": (model, s.t_cache, toks[-SPEC_K:]),
+             "bonus_target": (model, s.t_cache, toks[-1:]),
+             "bonus_draft": (draft, s.d_cache, toks[-1:])}
+    bit_equal = {}
+    for name, (m, cache, ids) in cases.items():
+        ids = torch.tensor([ids], device=dev)
+        eager, replay = (forward_replay(m.spec, m.params, ids, [s.n_past],
+                                        cache, w, graph=g)
+                         for g in (False, True))
+        torch.cuda.synchronize()
+        bit_equal[name] = bool(torch.equal(eager, replay))
+        if not bit_equal[name] or not bool(torch.isfinite(replay).all()):
+            fail(f"speculative session: the {name} replay is not "
+                 f"bit-equal to its eager run (max |diff| "
+                 f"{float((eager - replay).abs().max()):.3g})")
+    prof = step_profile(lambda: s.generate(SPEC_K), steps=2)
+    med = {k: 1e3 * float(np.median(v)) if v else 0.0
+           for k, v in log.items()}
+    out.update({
+        "tokens": toks, "acceptance": s.acceptance_rate,
+        "rounds": n_rounds, "round_k": ks,
+        "tokens_per_round": len(toks) / n_rounds,
+        "ms_per_token": dev_ms / len(toks),
+        "wall_ms_per_token": wall_ms / len(toks),
+        "round_ms": med,
+        "round_wall_ms": wall_ms / n_rounds,
+        # the rest of a round's wall: acceptance, bookkeeping, callbacks
+        "host_ms_per_round": (wall_ms - 1e3 * sum(map(sum, log.values())))
+        / n_rounds,
+        "round_ms_per_call": {"draft": "one decode_loop block of k steps",
+                              "verify": "the T=k verify and its read",
+                              "bonus": "both models' T=1 bonus evals"},
+        "launches_per_round": {k: v / n_rounds for k, v in replayed.items()},
+        "counted_launches": counted, "graph_launches": replayed,
+        "graphs": tg + dg, "replay_bit_equal": bit_equal,
+        "profile": {k: prof[k] for k in (
+            "wall_ms_per_step", "device_ms_per_step", "device_busy_share",
+            "device_launches_per_step", "top_device")},
+        "profile_how": f"step_profile of generate({SPEC_K}) calls (one or "
+                       "more rounds each)",
+    })
+    out["launches"] = dict(counted)
+    add_launches(out["launches"], replayed)
+    del s
+    return out
+
+
+def sampled_session_runs(model, prompt) -> dict:
+    """SampledSpeculativeSession with the target as its own draft at
+    temperature 0.8, twice with seed 1: equal tokens; the acceptance."""
+    from llm_tpu_torch import speculative as sp
+
+    runs, launches = [], {}
+    for _ in range(2):
+        s = sp.SampledSpeculativeSession(model, model, k=SPEC_K,
+                                         temperature=SPEC_TEMPERATURE)
+        s.feed_prompt(prompt)
+        toks = []
+        with all_forwards() as calls:
+            zero_launches()
+            dev_ms, wall_ms = events_ms(
+                lambda: toks.extend(s.generate(SPEC_NEW, seed=1)))
+            counted = launches_exact("sampled session", calls)
+        recs = (spec_graphs("sampled session", s.t_cache, model.spec)
+                + spec_graphs("sampled session", s.d_cache, model.spec))
+        add_launches(launches, counted, graph_launches(recs))
+        runs.append({"tokens": toks, "acceptance": s.acceptance_rate,
+                     "accepted": s.accepted, "drafted": s.drafted,
+                     "ms_per_token": dev_ms / len(toks),
+                     "wall_ms_per_token": wall_ms / len(toks),
+                     "graphs": recs})
+        del s
+    if runs[0]["tokens"] != runs[1]["tokens"] or \
+            len(runs[0]["tokens"]) != SPEC_NEW:
+        fail(f"speculative sampled session: seeded runs differ: "
+             f"{[r['tokens'] for r in runs]}")
+    return {"runs": runs, "acceptance": runs[0]["acceptance"],
+            "launches": launches,
+            "timing_note": "each run captures its own graphs (new caches)"}
+
+
+def record_rows(engine) -> dict:
+    """Record, per request id, the logits row each emitted token was
+    picked from (the stream's last_logits when _finish_token runs)."""
+    rows: dict[int, list] = {}
+    inner = engine._finish_token
+
+    def wrapped(slot, stream, tok, logits_row):
+        rows.setdefault(stream.request_id, []).append(
+            np.array(stream.last_logits, np.float32))
+        return inner(slot, stream, tok, logits_row)
+
+    engine._finish_token = wrapped
+    return rows
+
+
+def engine_run(name, engine, prompts, make_req) -> dict:
+    """Submit one request a prompt, step the engine to the end with the
+    launch counters set to 0 just before; the new tokens and each token's
+    logits row, wall, the steps' log, the exact launches."""
+    rows = record_rows(engine)
+    log = record_steps(engine)
+    ids = [engine.submit(make_req(i, p)) for i, p in enumerate(prompts)]
+    with all_forwards() as calls:
+        zero_launches()
+        t0 = time.monotonic()
+        while engine.has_work():
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counted = launches_exact(name, calls)
+    fins = [engine.finished[i] for i in ids]
+    bad = [f.finish_reason for f in fins
+           if f.finish_reason not in ("max_tokens", "eot")]
+    if bad:
+        fail(f"speculative {name}: requests ended with {bad}")
+    return {"tokens": [f.tokens[len(p):] for f, p in zip(fins, prompts)],
+            "rows": [rows[i] for i in ids], "wall_s": wall, "log": log,
+            "counted_launches": counted,
+            "generated": sum(f.generated for f in fins)}
+
+
+def engine_summary(run, streams: int) -> dict:
+    return {"wall_s": run["wall_s"],
+            "generated_tok_s": run["generated"] / run["wall_s"],
+            **step_summary(run["log"], streams)}
+
+
+def greedy_req(i, p):
+    from llm_tpu_torch.samplers import GreedySampler
+    from llm_tpu_torch.serve import GenerationRequest
+
+    return GenerationRequest(prompt=p, max_tokens=SPEC_NEW,
+                             sampler=GreedySampler())
+
+
+def sampled_req(i, p):
+    from llm_tpu_torch.ops.sampling import DeviceSampler
+    from llm_tpu_torch.serve import GenerationRequest
+
+    return GenerationRequest(
+        prompt=p, max_tokens=SPEC_NEW, seed=100 + i,
+        device_sampler=DeviceSampler(kind="sample",
+                                     temperature=SPEC_TEMPERATURE, top_k=40))
+
+
+def engines_held(name, got, want) -> list:
+    return [tokens_held(f"{name} request {i}", g, w, gr, wr)
+            for i, (g, w, gr, wr) in enumerate(zip(
+                got["tokens"], want["tokens"], got["rows"], want["rows"]))]
+
+
+def spec_engine_parts(engine, sp_mod) -> tuple[dict, list]:
+    """Time a speculative engine's rounds by part: the draft block (a
+    synchronize after it), the verify with its read, and the tail evals
+    of the sampled engines; profile one verify in the middle of the run
+    (the card's kernel ms, K1's share). Returns (log, restores)."""
+    log = {"draft": [], "verify": [], "tail": [], "verify_profile": None}
+    restores = [timed_module_fn(sp_mod, name, log["draft"])
+                for name in ("decode_loop_batched", "_draft_propose_batched")]
+    verify = engine._verify_batch
+
+    def timed_verify(*a, **k):
+        if len(log["verify"]) == 10 and log["verify_profile"] is None:
+            r, log["verify_profile"] = profile_call(lambda: verify(*a, **k))
+            log["verify_profile"]["decoding"] = len(engine._decodable())
+            return r
+        t0 = time.monotonic()
+        r = verify(*a, **k)
+        log["verify"].append(time.monotonic() - t0)
+        return r
+
+    engine._verify_batch = timed_verify
+    if hasattr(engine, "_tail_eval_target"):
+        tail = engine._tail_eval_target
+
+        def timed_tail(*a, **k):
+            t0 = time.monotonic()
+            r = tail(*a, **k)
+            torch.cuda.synchronize()
+            log["tail"].append(time.monotonic() - t0)
+            return r
+
+        engine._tail_eval_target = timed_tail
+    return log, restores
+
+
+def verify_calls(log) -> int:
+    """Rounds that ran a verify (one of them profiled, not timed)."""
+    return len(log["verify"]) + (log["verify_profile"] is not None)
+
+
+def parts_summary(log, run, streams: int) -> dict:
+    """Median ms of each part of a round, the median step in which every
+    stream decoded and no prompt chunk ran, and the host's rest of that
+    step (acceptance, bookkeeping): the step less the parts' medians,
+    which noise can take below 0."""
+    med = {k: (1e3 * float(np.median(log[k])) if log[k] else 0.0)
+           for k in ("draft", "verify", "tail")}
+    step = step_summary(run["log"], streams)[f"decode_step_ms_{streams}"]
+    return {"median_ms": med, "rounds": verify_calls(log),
+            "round_ms_all_decoding": step,
+            "host_ms": None if step is None else step - sum(med.values()),
+            "verify_profile": log["verify_profile"]}
+
+
+def dense_engines(model, draft, prompts) -> dict:
+    """(iii) the dense bf16 SpeculativeEngine (16 slots, the 160M draft)
+    against a plain Engine, and (iv) SampledSpeculativeEngine, seeded
+    twice, over the first 4 prompts."""
+    from llm_tpu_torch import speculative as sp
+    from llm_tpu_torch.serve import Engine
+
+    out = {"launches": {}}
+    plain = engine_run("plain dense engine", Engine(
+        model, max_streams=SERVE_STREAMS, kv_dtype=torch.bfloat16,
+        n_batch=N_BATCH), prompts, greedy_req)
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = sp.SpeculativeEngine(model, draft, k=SPEC_K,
+                                  max_streams=SERVE_STREAMS,
+                                  kv_dtype=torch.bfloat16, n_batch=N_BATCH)
+    parts, restores = spec_engine_parts(engine, sp)
+    try:
+        run = engine_run("dense SpeculativeEngine", engine, prompts,
+                         greedy_req)
+    finally:
+        for r in restores:
+            r()
+    tg = spec_graphs("dense engine", engine.cache, model.spec)
+    dg = spec_graphs("dense engine draft", engine.d_cache, draft.spec)
+    rounds = sum(r["replays"] for r in tg if r["T"] == SPEC_K)
+    d_steps = sum(r["replays"] for r in dg if r["kind"] == "dense")
+    if d_steps != SPEC_K * rounds or rounds != verify_calls(parts):
+        fail(f"speculative dense engine: {rounds} verify replays, "
+             f"{d_steps} draft steps, {verify_calls(parts)} rounds")
+    wide = [r for r in tg if r["T"] == SPEC_K]
+    out["dense"] = {
+        "tokens_vs_plain": engines_held("dense engine", run, plain),
+        "acceptance": engine.acceptance_rate,
+        "plain": engine_summary(plain, SERVE_STREAMS),
+        "speculative": engine_summary(run, SERVE_STREAMS),
+        "parts": parts_summary(parts, run, SERVE_STREAMS),
+        "verify_k1_rows": SERVE_STREAMS * SPEC_K,
+        "verify_k1_launches_per_replay": wide[0]["launches_per_replay"],
+        "graphs": tg + dg, "counted_launches": run["counted_launches"],
+        "plain_counted_launches": plain["counted_launches"]}
+    add_launches(out["launches"], run["counted_launches"],
+                 graph_launches(tg + dg), plain["counted_launches"])
+    del engine, plain, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sampled = []
+    for _ in range(2):
+        engine = sp.SampledSpeculativeEngine(
+            model, draft, k=SPEC_K, max_streams=SPEC_SAMPLED_STREAMS,
+            kv_dtype=torch.bfloat16, n_batch=N_BATCH)
+        run = engine_run("dense SampledSpeculativeEngine", engine,
+                         prompts[:SPEC_SAMPLED_STREAMS], sampled_req)
+        recs = (spec_graphs("sampled engine", engine.cache, model.spec)
+                + spec_graphs("sampled engine draft", engine.d_cache,
+                              draft.spec))
+        add_launches(out["launches"], run["counted_launches"],
+                     graph_launches(recs))
+        sampled.append({"tokens": run["tokens"],
+                        "acceptance": engine.acceptance_rate,
+                        **engine_summary(run, SPEC_SAMPLED_STREAMS),
+                        "graphs": recs})
+        del engine, run
+        gc.collect()
+    if sampled[0]["tokens"] != sampled[1]["tokens"]:
+        fail("speculative sampled engine: seeded runs differ")
+    out["sampled"] = sampled
+    torch.cuda.empty_cache()
+    return out
+
+
+def paged_spec_engine(model, draft, streams: int, sampled: bool = False):
+    from llm_tpu_torch import speculative as sp
+
+    cls = (sp.PagedSampledSpeculativeEngine if sampled
+           else sp.PagedSpeculativeEngine)
+    return cls(model, draft, k=SPEC_K, max_streams=streams,
+               page_size=SERVE_PAGE, kv_dtype="int8", n_batch=N_BATCH,
+               prefix_cache=True)
+
+
+def paged_engines(model, draft, prompts) -> tuple[dict, dict]:
+    """(v) PagedSpeculativeEngine (int8 pool, page 256, prefix cache, the
+    160M draft) against a plain PagedEngine; its eager T=k page pass's
+    host and kernel ms; PagedSampledSpeculativeEngine over the first 4
+    prompts, whose T=1 tail evals launch K4 (counted exactly)."""
+    from llm_tpu_torch import speculative as sp
+    from llm_tpu_torch.paged import PagedEngine
+
+    out = {"launches": {}}
+    plain = engine_run("plain paged engine", PagedEngine(
+        model, max_streams=SERVE_STREAMS, page_size=SERVE_PAGE,
+        kv_dtype="int8", n_batch=N_BATCH, prefix_cache=True), prompts,
+        greedy_req)
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = paged_spec_engine(model, draft, SERVE_STREAMS)
+    parts, restores = spec_engine_parts(engine, sp)
+    try:
+        run = engine_run("PagedSpeculativeEngine", engine, prompts,
+                         greedy_req)
+    finally:
+        for r in restores:
+            r()
+    dg = spec_graphs("paged engine draft", engine.d_cache, draft.spec)
+    out["paged"] = {
+        "tokens_vs_plain": engines_held("paged engine", run, plain),
+        "acceptance": engine.acceptance_rate,
+        "plain": engine_summary(plain, SERVE_STREAMS),
+        "speculative": engine_summary(run, SERVE_STREAMS),
+        "parts": parts_summary(parts, run, SERVE_STREAMS),
+        "page_pass_note": "verify = the eager T=k paged forward (plain "
+                          "page pass) with its read; verify_profile its "
+                          "kernels in one round",
+        "graphs": dg, "counted_launches": run["counted_launches"],
+        "plain_counted_launches": plain["counted_launches"]}
+    add_launches(out["launches"], run["counted_launches"],
+                 graph_launches(dg), plain["counted_launches"])
+    ref = run
+    del engine, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    engine = paged_spec_engine(model, draft, SPEC_SAMPLED_STREAMS, True)
+    parts, restores = spec_engine_parts(engine, sp)
+    try:
+        run = engine_run("PagedSampledSpeculativeEngine", engine,
+                         prompts[:SPEC_SAMPLED_STREAMS], sampled_req)
+    finally:
+        for r in restores:
+            r()
+    dg = spec_graphs("paged sampled draft", engine.d_cache, draft.spec)
+    k4 = run["counted_launches"]["paged_attention"]
+    if not parts["tail"] or k4 < N_LAYER * len(parts["tail"]):
+        fail(f"speculative paged sampled engine: {len(parts['tail'])} tail "
+             f"evals, {k4} paged attention launches")
+    out["paged_sampled"] = {
+        "tokens": run["tokens"], "acceptance": engine.acceptance_rate,
+        **engine_summary(run, SPEC_SAMPLED_STREAMS),
+        "parts": parts_summary(parts, run, SPEC_SAMPLED_STREAMS),
+        "tail_evals": len(parts["tail"]), "k4_launches": k4,
+        "graphs": dg, "counted_launches": run["counted_launches"]}
+    add_launches(out["launches"], run["counted_launches"],
+                 graph_launches(dg))
+    del engine, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, ref
+
+
+def spec_server(model, draft, prompts, ref) -> dict:
+    """(vi) LlmServer over PagedSpeculativeEngine: 16 concurrent
+    temperature-0 completions, texts equal to (v)'s."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from llm_tpu_torch.server import LlmServer
+
+    engine = paged_spec_engine(model, draft, SERVE_STREAMS)
+    rows = record_rows(engine)
+    srv = LlmServer(model, engine, host="127.0.0.1", port=0)
+    url = "http://%s:%d/v1/completions" % srv.address
+    srv.start()
+    try:
+        srv.warmup()
+        rows.clear()
+        with all_forwards() as calls:
+            zero_launches()
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(SERVE_STREAMS) as pool:
+                results = list(pool.map(lambda p: http_completion(
+                    url, {"prompt": p, "max_tokens": SPEC_NEW,
+                          "temperature": 0}, exact=False), prompts))
+            wall = time.monotonic() - t0
+    finally:
+        srv.shutdown()
+    counted = launches_exact("server", calls)
+    errors = [r["finish"] for r in results
+              if r["finish"] not in ("length", "stop")]
+    if errors:
+        fail(f"speculative server: completions failed: {errors}")
+    by_prompt = {}
+    for rid, rs in rows.items():
+        s = engine.finished[rid]
+        by_prompt[tuple(s.tokens[: len(s.tokens) - s.generated])] = (
+            s.tokens[len(s.tokens) - s.generated:], rs)
+    held = []
+    for i, (p, r) in enumerate(zip(prompts, results)):
+        toks, rs = by_prompt[tuple(p)]
+        if [int(x) for x in TOKEN.findall(r["text"])] != \
+                [t for t in toks if t != model.eot_token_id()]:
+            fail(f"speculative server: request {i}'s text is not its "
+                 "stream's tokens")
+        held.append(tokens_held(f"server request {i}", toks,
+                                ref["tokens"][i], rs, ref["rows"][i]))
+    dg = spec_graphs("server draft", engine.d_cache, draft.spec)
+    out = {"requests": len(prompts), "wall_s": wall,
+           "generated_tok_s": sum(len(by_prompt[tuple(p)][0])
+                                  for p in prompts) / wall,
+           "tokens_vs_paged_engine": held,
+           "acceptance": engine.acceptance_rate,
+           "counted_launches": counted, "graphs": dg}
+    out["launches"] = dict(counted)
+    add_launches(out["launches"], graph_launches(dg))
+    del engine, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def speculative_phase(model, dev, e2e, timer) -> dict:
+    """Speculative decoding on the loaded e2e LLaMA-7B (no second load)
+    with two drafts: the target itself and a LLaMA-160M-width draft
+    written and loaded here (seed 1; freed at the end). With random
+    weights these are the two poles of acceptance: the self-draft accepts
+    ~every proposal; the 160M draft only proposal 0 (the draft's pick from
+    the target's own head logits). Not a realistic acceptance rate."""
+    from llm_tpu_torch import loader
+    from llm_tpu_torch.ggml.types import GgmlType
+    from llm_tpu_torch.testing import make_bench_file
+
+    out, part_s = {}, {}
+    clock = [time.monotonic()]
+
+    def lap(name):
+        now = time.monotonic()
+        part_s[name] = now - clock[0]
+        clock[0] = now
+
+    path = ROOT / "build" / "smoke" / "llama160m-q4_0.bin"
+    try:
+        make_bench_file("llama", path, GgmlType.Q4_0, seed=1, n_ff=DRAFT_FF,
+                        n_vocab=V, n_embd=DRAFT_E, n_head=DRAFT_H,
+                        n_layer=DRAFT_LAYERS, n_mult=256)
+        draft = loader.load(path, "llama",
+                            params=loader.ModelParameters(context_size=CTX),
+                            device=dev)
+    finally:
+        path.unlink(missing_ok=True)
+    spec = draft.spec
+    if (spec.n_embd, spec.n_head, spec.n_layer, spec.n_vocab, spec.n_ctx) \
+            != (DRAFT_E, DRAFT_H, DRAFT_LAYERS, V, CTX):
+        fail(f"draft spec {spec}")
+    ff = draft.params.layers.w_gate_up
+    out["draft"] = {"geometry": "JackFram/llama-160m: hidden 768, 12 "
+                    "layers, 12 heads of 64, intermediate 3072, vocab "
+                    "32000, 2048 positions", "n_ff": ff.r // 2 if ff
+                    is not None else None, "format": "Q4_0", "seed": 1}
+    lap("draft_load")
+
+    # K1 at the path's new shapes: the 7B target at M = 4 (a verify); the
+    # draft (K = 768) at M = 1 (a session step) and 16 (a batched step)
+    rng = np.random.default_rng(7)
+    out["k1_cases"] = {"target_M4": arch_qmatmul("llama7b", model, rng, dev,
+                                                 timer, M=SPEC_K),
+                       "draft_M1": arch_qmatmul("llama160m", draft, rng,
+                                                dev, timer, M=1),
+                       "draft_M16": arch_qmatmul("llama160m", draft, rng,
+                                                 dev, timer,
+                                                 M=SERVE_STREAMS)}
+    lap("k1_cases")
+
+    prompt = e2e_prompts()[1]  # the 64-token prompt
+    plain = plain_greedy_rows(model, prompt, SPEC_NEW)
+    eot = model.eot_token_id()
+    out["plain_vs_e2e"] = e2e_tokens_held(plain[0], prompt,
+                                          e2e["runs"][1]["new_ids"], eot)
+    out["plain_tokens"] = plain[0]
+    launches = {}
+    sessions = {}
+    for name, d in (("self", model), ("llama160m", draft)):
+        sessions[name] = session_run(model, d, prompt, plain, dev)
+        add_launches(launches, sessions[name].pop("launches"))
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["session"] = sessions
+    lap("sessions")
+    out["sampled_session"] = sampled_session_runs(model, prompt)
+    add_launches(launches, out["sampled_session"].pop("launches"))
+    lap("sampled_session")
+
+    prompts = spec_prompts()
+    out["engines"] = dense_engines(model, draft, prompts)
+    add_launches(launches, out["engines"].pop("launches"))
+    lap("dense_engines")
+    paged, ref = paged_engines(model, draft, prompts)
+    add_launches(launches, paged.pop("launches"))
+    out["engines"].update(paged)
+    lap("paged_engines")
+    out["server"] = spec_server(model, draft, prompts, ref)
+    add_launches(launches, out["server"].pop("launches"))
+    lap("server")
+    del draft, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in ("qmatmul", "dense_attention", "paged_attention"):
+        if not launches.get(k):
+            fail(f"speculative: {k} never launched in the phase")
+    out["launches"] = launches
+    out["part_s"] = part_s
+    sess, eng = out["session"], out["engines"]
+    out["summary"] = {
+        "session_ms_per_token": {k: v["ms_per_token"]
+                                 for k, v in sess.items()},
+        "session_wall_ms_per_token": {k: v["wall_ms_per_token"]
+                                      for k, v in sess.items()},
+        "session_acceptance": {k: v["acceptance"] for k, v in sess.items()},
+        "session_tokens_per_round": {k: v["tokens_per_round"]
+                                     for k, v in sess.items()},
+        "session_launches_per_round": {k: v["launches_per_round"]
+                                       for k, v in sess.items()},
+        "session_busy_share": {k: v["profile"]["device_busy_share"]
+                               for k, v in sess.items()},
+        "sampled_session_acceptance": out["sampled_session"]["acceptance"],
+        "dense_tok_s": {k: eng["dense"][k]["generated_tok_s"]
+                        for k in ("plain", "speculative")},
+        "dense_round_ms": eng["dense"]["parts"]["median_ms"],
+        "dense_acceptance": eng["dense"]["acceptance"],
+        "sampled_engine_acceptance": eng["sampled"][0]["acceptance"],
+        "paged_tok_s": {k: eng["paged"][k]["generated_tok_s"]
+                        for k in ("plain", "speculative")},
+        "paged_round_ms": eng["paged"]["parts"]["median_ms"],
+        "paged_verify_profile": eng["paged"]["parts"]["verify_profile"],
+        "paged_sampled_k4_launches": eng["paged_sampled"]["k4_launches"],
+        "server_tok_s": out["server"]["generated_tok_s"],
+        "texts_equal": {
+            "sessions": {k: v["tokens_vs_plain"]["equal"]
+                         for k, v in sess.items()},
+            "dense": sum(r["equal"] for r in eng["dense"]["tokens_vs_plain"]),
+            "paged": sum(r["equal"] for r in eng["paged"]["tokens_vs_plain"]),
+            "server": sum(r["equal"]
+                          for r in out["server"]["tokens_vs_paged_engine"])},
+        "launches": launches, "part_s": part_s,
+        "note": "random weights: the self-draft is the acceptance pole, the "
+                "160M draft the rejection pole; not a realistic rate",
+    }
+    emit({"speculative_summary": out["summary"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4c: the six other architectures
 
 
@@ -2939,10 +3867,11 @@ def arch_device_sampling(name, model, prompts, runs, n_new) -> dict:
     }
 
 
-def arch_qmatmul(name, model, rng, dev, timer) -> dict:
-    """K1 at M=1 on the model's own weights (layer 0 of each projection,
-    and the head), held against its plain version and timed; the sums of
-    one decode token's launches (n_layer x the layer's, + the head)."""
+def arch_qmatmul(name, model, rng, dev, timer, M: int = 1) -> dict:
+    """K1 at M rows (default 1, a decode token) on the model's own weights
+    (layer 0 of each projection, and the head), held against its plain
+    version and timed; the sums of one forward's launches (n_layer x the
+    layer's, + the head)."""
     p = model.params
     head = p.lm_head if p.lm_head is not None else p.wte
     L = model.spec.n_layer
@@ -2951,7 +3880,7 @@ def arch_qmatmul(name, model, rng, dev, timer) -> dict:
           if getattr(p.layers, f) is not None] + [("head", head, 1)]
     recs = []
     for f, w, n in ws:
-        r = check_qmatmul(f"{name}:{f}", w, 1, rng, dev, timer, True)
+        r = check_qmatmul(f"{name}:{f}", w, M, rng, dev, timer, True)
         r["per_token"] = n
         if not r["ok"]:
             fail(f"{name}: qmatmul out of tolerance: {r}")
@@ -3540,7 +4469,7 @@ def attn_by_case(recs, label) -> dict:
 
 def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
                    cinf, ab, dsamp, multi, archs,
-                   session_paths) -> list[dict]:
+                   session_paths, spec) -> list[dict]:
     """One entry per kernel: times summed over the launches of one decode
     step at 7B (qmatmul: the 4 projections x 32 layers + lm_head at M=1;
     dense_attention: 32 layers at W=512, bf16 cache, full window;
@@ -3558,7 +4487,11 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
     decode token of each model at M=1, K2 at Falcon-7B's decode, K4 at
     MPT-7B's paged cell; and the runs of `session_paths`: greedy `infer`
     on the GGUF load, perplexity, a session continued from its snapshot
-    and the verify harness."""
+    and the verify harness; and the speculative phase's runs
+    (`speculative`: eager launches plus each graph's launches times its
+    replays), with K1 at the phase's new shapes in `speculative_by_case`
+    (the 7B target at M=4, the 160M draft at M=1 and 16: one forward's
+    launches each)."""
     per_token = {"qkv": N_LAYER, "wo": N_LAYER, "gate_up": N_LAYER,
                  "down": N_LAYER, "lm_head": 1}
     dec = [r for r in qrecs if r["M"] == 1 and r["case"] in per_token]
@@ -3661,6 +4594,10 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
             g["launches_per_replay"][e["name"]] * g["replays"]
             for g in loops)
     for e in entries[1:4]:
+        e["launches_by_path"]["speculative"] = spec["launches"][e["name"]]
+    entries[1]["speculative_by_case"] = {
+        name: case["per_token"] for name, case in spec["k1_cases"].items()}
+    for e in entries[1:4]:
         e["launches_by_path"]["archs"] = archs["launches"][e["name"]]
         for path, ls in session_paths.items():
             e["launches_by_path"][path] = ls[e["name"]]
@@ -3673,7 +4610,9 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
             "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
             "max_abs_err")}}
     for e in entries[1:4]:
-        errs = ([r["max_abs_err"] for m in archs["models"].values()
+        errs = ([r["max_abs_err"] for m in [*archs["models"].values(),
+                                             *({"qmatmul": c} for c in
+                                               spec["k1_cases"].values())]
                  for r in m["qmatmul"]["cases"]] if e["name"] == "qmatmul"
                 else [archs["kernel_cases"][e["name"]]["max_abs_err"]])
         e["max_abs_err"] = max([e["max_abs_err"], *errs])
@@ -3798,9 +4737,6 @@ def main() -> None:
     snap = snapshot_phase(model, dev, e2e)
     results["snapshot"] = snap
     emit({"snapshot": snap})
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
     lap("snapshot")
 
     ver = verify_phase(dev, gguf_path)
@@ -3809,6 +4745,14 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     lap("verify")
+
+    spec = speculative_phase(model, dev, e2e, timer)
+    results["speculative"] = spec
+    emit({"speculative": spec})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("speculative")
     session_paths = {"gguf_infer": gguf["launches"],
                      "perplexity": ppl["launches"],
                      "snapshot": snap["launches"],
@@ -3824,7 +4768,8 @@ def main() -> None:
     lap("probes")
 
     kernels = kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
-                             cinf, ab, dsamp, multi, archs, session_paths)
+                             cinf, ab, dsamp, multi, archs, session_paths,
+                             spec)
     kernels += probe_entries(probes, checks, dev, timer)
     del timer
     lap("kernel_entries")

@@ -85,6 +85,12 @@ def add_generate_args(p: argparse.ArgumentParser) -> None:
                         "host-only")
     g.add_argument("--decode-steps", type=int, default=32,
                    help="tokens generated per block with --device-sampling")
+    g.add_argument("--draft-model", default=None,
+                   help="speculative decoding: path to a small draft model "
+                        "of the same vocabulary, loaded on the same device "
+                        "and context (greedy sampling only; the output is "
+                        "plain greedy decoding, up to argmax ties on the "
+                        "card)")
 
 
 def add_prompt_args(p: argparse.ArgumentParser) -> None:
@@ -293,12 +299,87 @@ def _print_token(text: str) -> None:
     sys.stdout.flush()
 
 
+def load_draft(args):
+    """The --draft-model file, on the target's device and context."""
+    from llm_tpu_torch.loader import ModelParameters, load
+
+    return load(args.draft_model, args.model_architecture,
+                tokenizer_source=tokenizer_source(args),
+                params=ModelParameters(context_size=args.num_ctx_tokens),
+                device=args.device)
+
+
+def _infer_speculative(args, model) -> None:
+    import time
+
+    import torch
+
+    from llm_tpu_torch.speculative import SpeculativeSession
+    from llm_tpu_torch.tokenizer import Prompt, TokenUtf8Buffer
+
+    draft = load_draft(args)
+    if args.kv_int8:
+        kv_dtype = "int8"
+    elif args.no_float16:
+        kv_dtype = torch.float32
+    else:
+        kv_dtype = torch.bfloat16
+    s = SpeculativeSession(model, draft, k=4, kv_dtype=kv_dtype,
+                           n_batch=session_config(args, model).n_batch)
+    prompt = resolve_prompt(args)
+    toks = Prompt.of(prompt).to_tokens(model.tokenizer, True)
+    if not args.hide_prompt:
+        print(prompt, end="", flush=True)
+    t0 = time.monotonic()
+    s.feed_prompt(toks)
+
+    decoded = [len(model.tokenizer.decode(s.tokens, True))]
+    utf8 = TokenUtf8Buffer()  # hold back split multi-byte characters
+
+    def emit(tok):
+        # whole-sequence decode diff; the UTF-8 buffer keeps a character
+        # whose bytes span two accepted tokens from printing as garbage
+        if tok == model.eot_token_id():
+            return
+        text = model.tokenizer.decode(s.tokens, True)
+        piece = utf8.push(text[decoded[0]:])
+        decoded[0] = len(text)
+        if piece:
+            sys.stdout.write(piece)
+            sys.stdout.flush()
+
+    out = s.generate(
+        args.num_predict if args.num_predict is not None else 2**31,
+        callback=emit,
+    )
+    dt = time.monotonic() - t0
+    print(file=sys.stderr)
+    if args.stats:
+        print(
+            f"predict_tokens: {len(out)}\n"
+            f"per_token_duration: {dt / max(len(out), 1) * 1e3:.3f}ms\n"
+            f"draft_acceptance: {s.acceptance_rate:.2f}",
+            file=sys.stderr,
+        )
+
+
 def cmd_infer(args) -> None:
     from llm_tpu_torch import session as S
     from llm_tpu_torch import snapshot as snap
 
+    # pure-argument validation BEFORE the multi-GB model load
+    if args.draft_model:
+        if args.sampler_options or args.device_sampling:
+            _err("--draft-model supports greedy sampling only")
+        if args.token_bias or args.ignore_eos:
+            _err("--draft-model does not support --token-bias/--ignore-eos "
+                 "(greedy acceptance has no bias hook)")
+        if args.load_session or args.save_session or args.persist_session:
+            _err("--draft-model does not support session snapshots")
     prompt = resolve_prompt(args)
     model = load_model(args)
+    if args.draft_model:
+        return _infer_speculative(args, model)
     persist = Path(args.persist_session) if args.persist_session else None
     load_path = Path(args.load_session) if args.load_session else None
     sess, session_loaded = snap.read_or_create_session(
@@ -635,6 +716,7 @@ def cmd_serve(args) -> None:
         raise SystemExit("--prefix-cache requires --paged")
 
     model = load_model(args)
+    draft = load_draft(args) if args.draft_model else None
     try:
         serve_forever(
             model,
@@ -650,6 +732,9 @@ def cmd_serve(args) -> None:
             prefix_cache=args.prefix_cache,
             multi_step=args.multi_step,
             warmup=not args.no_warmup,
+            draft=draft,
+            draft_k=args.draft_k,
+            draft_sampled=args.draft_sampled,
         )
     except KeyboardInterrupt:
         pass
@@ -793,6 +878,19 @@ def build_parser() -> argparse.ArgumentParser:
                    "penalties)")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip the startup warm-up request")
+    p.add_argument("--draft-model", default=None,
+                   help="speculative decoding: small same-vocabulary draft "
+                   "checkpoint, loaded on the same device and context "
+                   "(greedy requests only; dense KV, or paged with --paged "
+                   "incl. --prefix-cache/--kv-int8). With --multihost: not "
+                   "in this port yet")
+    p.add_argument("--draft-k", type=int, default=4,
+                   help="draft proposals per speculative round")
+    p.add_argument("--draft-sampled", action="store_true",
+                   help="rejection-sampling speculative decoding: serves "
+                   "SAMPLED requests (temperature/top-k/top-p/min-p; "
+                   "greedy maps to top-k 1) with the output distribution "
+                   "exactly the target's")
     p.set_defaults(fn=cmd_serve)
     return parser
 

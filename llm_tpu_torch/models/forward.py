@@ -22,6 +22,8 @@ The counterpart of `llm_tpu/models/forward.py`:
 - `decode_loop` (one stream) and `decode_loop_batched` (B streams)
   generate n_steps tokens with on-device sampling; on the card their T=1
   step is a captured CUDA graph, replayed once a token.
+- `forward_replay` runs one forward of static shape (the speculative
+  verify and tail evaluations) as a captured CUDA graph on the card.
 """
 
 from __future__ import annotations
@@ -64,8 +66,9 @@ class KVCache:
     """Dense KV cache, absolute positions, head-major [L, B, H_kv, S, D],
     with K stored after rope. With k_scale/v_scale present the cache is
     INT8: k/v hold int8 codes and the scales are per (position, kv-head) f32
-    amax/127. `graphs` holds the decode-step CUDA graphs captured over
-    this cache (`decode_loop`), which hold its tensors' addresses."""
+    amax/127. `graphs` holds the CUDA graphs captured over this cache
+    (`decode_loop`, `decode_loop_batched`, `forward_replay`), which hold
+    its tensors' addresses."""
 
     k: torch.Tensor  # [L, B, H_kv, S, D]
     v: torch.Tensor
@@ -670,22 +673,23 @@ def _launch_counts() -> dict:
 
 
 def _capture(g: DecodeGraph, dev, step) -> None:
-    """Warm `step` (one decode step over g.state) up eagerly on a side
-    stream (builds and loads the kernels, sizes the attention workspace of
-    that stream at the step's own shapes), then capture one step on it.
-    Each warm-up is a first step: the step index and npast go back to
-    their loaded values. A dense cache's warm-up writes its rows at npast,
-    which no read sees before the first replay overwrites them; a paged
-    step writes only the block's rows. Raises if the capture fails: there
-    is no eager fallback on the card."""
+    """Warm `step` (one decode step, or one forward, over g.state) up
+    eagerly on a side stream (builds and loads the kernels, sizes the
+    attention workspace of that stream at the step's own shapes), then
+    capture one step on it. Each warm-up is a first step: the step index
+    and npast go back to their loaded values. A dense cache's warm-up
+    writes its rows at npast, which no read sees before the first replay
+    overwrites them; a paged step writes only the block's rows. Raises if
+    the capture fails: there is no eager fallback on the card."""
     st = g.state
-    npast = st["npast"].clone()
+    # the buffers a step advances (a forward graph has no step index)
+    loaded = {k: st[k].clone() for k in ("i", "npast") if k in st}
     s = torch.cuda.Stream(dev)
     s.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(s):
         for _ in range(_WARMUPS):
-            st["i"].zero_()
-            st["npast"].copy_(npast)
+            for k, v in loaded.items():
+                st[k].copy_(v)
             step()
     torch.cuda.current_stream(dev).wait_stream(s)
     torch.cuda.synchronize(dev)
@@ -753,6 +757,58 @@ def _run_block(g: DecodeGraph, step, load, n_steps: int, graph: bool,
         for _ in range(n_steps):
             step()
     return st
+
+
+@torch.no_grad()
+def forward_replay(spec, params, ids, n_past, cache: KVCache, window: int,
+                   write_mask=None, graph: bool = True) -> torch.Tensor:
+    """`forward_batched`'s logits [B, T, V] of ids [B, T] at n_past [B]
+    over the dense cache (updated in place): the speculative verify (T=k)
+    and the T=1 evaluations of bonus and tail tokens.
+
+    On the card the forward is a CUDA graph captured at the first call
+    with this cache and static key (`cache.graphs`: the weights, B, T, the
+    window, the cache's dtype, whether a write mask is given) and replayed:
+    ids, n_past and the mask go into its static buffers first (device to
+    device where they already lie on the card), and the replay does not
+    sync with the host. `graph=False` runs the same forward eagerly there
+    (the CPU always does). Returns a copy of the logits."""
+    dev = cache.k.device
+    ids = torch.as_tensor(ids, device=dev)
+    B, T = ids.shape
+    W = min(window, cache.k.shape[3])
+    _check_window(W, n_past)
+    if not _on_card(graph, dev):
+        return forward_batched(spec, params, ids, n_past, cache, W,
+                               write_mask)[0]
+    masked = write_mask is not None
+    key = ("forward", id(params), B, T, W, cache.k.dtype, masked)
+
+    def make():
+        st = {"ids": torch.zeros((B, T), dtype=torch.int64, device=dev),
+              "npast": torch.zeros(B, dtype=torch.int32, device=dev),
+              "logits": torch.zeros((B, T, spec.n_vocab),
+                                    dtype=torch.float32, device=dev)}
+        if masked:
+            st["mask"] = torch.zeros(B, dtype=torch.bool, device=dev)
+        return DecodeGraph(st, None, params)
+
+    g = _graph_entry(cache.graphs, key, make)
+    st = g.state
+
+    def step():
+        st["logits"].copy_(forward_batched(spec, params, st["ids"],
+                                           st["npast"], cache, W,
+                                           st.get("mask"))[0])
+
+    def load(st):
+        st["ids"].copy_(ids)
+        st["npast"].copy_(torch.as_tensor(n_past, dtype=torch.int32))
+        if masked:
+            st["mask"].copy_(torch.as_tensor(write_mask, dtype=torch.bool))
+
+    _run_block(g, step, load, 1, True, dev)
+    return st["logits"].clone()
 
 
 @torch.no_grad()

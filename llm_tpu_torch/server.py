@@ -31,8 +31,13 @@ min-p, tail-free, typical, mirostat, penalties and logit bias) carries a
 DeviceSampler, and the engine decodes blocks of N tokens on the device
 while no prompt is pending or prefilling.
 
+With a draft model (`build_engine`'s `draft`) the engine is one of the
+four speculative engines (`speculative.py`). A greedy-only one serves
+temperature 0 with its own greedy sampler; a sampled one needs a device
+sampler on every request, so an omitted temperature means 1.0 there.
+
 Not ported yet: chat completions, embeddings, engine checkpoints and the
-admin endpoint, speculative and multi-host engines.
+admin endpoint, multi-host engines.
 """
 
 from __future__ import annotations
@@ -366,10 +371,16 @@ class LlmServer:
     def warmup(self) -> None:
         """Run one tiny request end to end before the first client arrives,
         so the kernels are built and loaded. Requires the engine loop to be
-        running."""
+        running. sampler=None: every engine takes its own default (the
+        plain ones the default chain, a greedy-only speculative engine its
+        greedy sampler); an engine that requires a device sampler gets
+        one, or the submit would fail."""
+        dev = None
+        if getattr(self.loop.engine, "requires_device_sampler", False):
+            dev = DeviceSampler(kind="sample", temperature=1.0)
         gen = self._events(
             GenerationRequest(prompt=[min(2, self.model.spec.n_vocab - 1)],
-                              max_tokens=2),
+                              max_tokens=2, device_sampler=dev),
             _StopScanner(None),
         )
         for _ in gen:
@@ -385,7 +396,22 @@ class LlmServer:
         """Build + validate the request EAGERLY (sampler errors must reach
         the caller as exceptions, not escape a half-started generator),
         then return the (fragment, done, reason, info) iterator."""
-        sampler = sampler_from_params(body, n_vocab=self.model.spec.n_vocab)
+        engine = self.loop.engine
+        needs_device = getattr(engine, "requires_device_sampler", False)
+        if needs_device and body.get("temperature") is None \
+                and not body.get("sampler"):
+            # a sampled speculative engine needs a device sampler for every
+            # request; an omitted temperature means the OpenAI default 1.0
+            body = dict(body, temperature=1.0)
+        temp = body.get("temperature")
+        if getattr(engine, "greedy_only", False) and temp is not None \
+                and float(temp) <= 0.0 and not body.get("sampler"):
+            # a greedy-only engine forces its own greedy sampler; the
+            # equivalent topk:k=1 chain would fail its submit() guard
+            sampler = None
+        else:
+            sampler = sampler_from_params(body,
+                                          n_vocab=self.model.spec.n_vocab)
         max_tokens = body.get("max_tokens", self.default_max_tokens)
         req = GenerationRequest(
             prompt=body.get("prompt", ""),
@@ -393,12 +419,12 @@ class LlmServer:
             sampler=sampler,
             seed=body.get("seed"),
             # a multi-step server decodes in device blocks while every
-            # active request's sampling is device-expressible
+            # active request's sampling is device-expressible; a sampled
+            # speculative engine takes the device sampler every round
             device_sampler=(
                 device_sampler_from_params(
-                    body, allow_logprobs=(
-                        self.loop.engine.supports_device_logprobs))
-                if self.loop.multi_step > 1 else None
+                    body, allow_logprobs=engine.supports_device_logprobs)
+                if self.loop.multi_step > 1 or needs_device else None
             ),
             logprobs=(int(body["logprobs"])
                       if body.get("logprobs") is not None else None),
@@ -613,12 +639,30 @@ def _make_handler(server: LlmServer):
 
 def build_engine(model, max_streams=8, kv_dtype=None, n_batch=64,
                  paged=False, page_size=256, n_pages=None,
-                 prefix_cache=False) -> Engine:
-    """The dense Engine, or a PagedEngine with `paged`; kv_dtype defaults
-    to bf16."""
+                 prefix_cache=False, draft=None, draft_k=4,
+                 draft_sampled=False) -> Engine:
+    """The dense Engine, or a PagedEngine with `paged`; with a `draft`
+    model the speculative engine of the same kind (greedy, or rejection
+    sampling with `draft_sampled`), proposing `draft_k` tokens a round.
+    kv_dtype defaults to bf16."""
     kv_dtype = kv_dtype if kv_dtype is not None else torch.bfloat16
     if prefix_cache and not paged:
         raise ValueError("--prefix-cache requires --paged")
+    if draft is not None:
+        from llm_tpu_torch import speculative as sp
+
+        if paged:
+            cls = (sp.PagedSampledSpeculativeEngine if draft_sampled
+                   else sp.PagedSpeculativeEngine)
+            kwargs = {} if n_pages is None else {"n_pages": n_pages}
+            return cls(model, draft, k=draft_k, max_streams=max_streams,
+                       kv_dtype=kv_dtype, n_batch=n_batch,
+                       page_size=page_size, prefix_cache=prefix_cache,
+                       **kwargs)
+        cls = (sp.SampledSpeculativeEngine if draft_sampled
+               else sp.SpeculativeEngine)
+        return cls(model, draft, k=draft_k, max_streams=max_streams,
+                   kv_dtype=kv_dtype, n_batch=n_batch)
     if paged:
         from llm_tpu_torch.paged import PagedEngine
 
@@ -634,10 +678,12 @@ def build_engine(model, max_streams=8, kv_dtype=None, n_batch=64,
 def serve_forever(model, host="127.0.0.1", port=8080, max_streams=8,
                   kv_dtype=None, n_batch=64, paged=False, page_size=256,
                   n_pages=None, warmup=True, prefix_cache=False,
-                  multi_step=0) -> None:
+                  multi_step=0, draft=None, draft_k=4,
+                  draft_sampled=False) -> None:
     """CLI entry: build the engine and serve until interrupted."""
     engine = build_engine(model, max_streams, kv_dtype, n_batch, paged,
-                          page_size, n_pages, prefix_cache)
+                          page_size, n_pages, prefix_cache, draft, draft_k,
+                          draft_sampled)
     srv = LlmServer(model, engine, host=host, port=port,
                     multi_step=multi_step)
     srv.loop.start()
@@ -650,7 +696,8 @@ def serve_forever(model, host="127.0.0.1", port=8080, max_streams=8,
     print(f"llm-tpu-torch serving {srv.model_id} on http://{host}:{port} "
           f"({'paged' if paged else 'dense'} KV, {max_streams} streams, "
           f"{model.device}"
-          + (f", blocks of {multi_step}" if multi_step > 1 else "") + ")",
+          + (f", blocks of {multi_step}" if multi_step > 1 else "")
+          + (f", draft k={draft_k}" if draft is not None else "") + ")",
           flush=True)
     try:
         srv.httpd.serve_forever()

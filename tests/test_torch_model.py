@@ -246,7 +246,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "llm_tpu_torch.probes.dequant_variants",
             "llm_tpu_torch.ops.sampling", "llm_tpu_torch.ggml.gguf",
             "llm_tpu_torch.tokenizer.bpe", "llm_tpu_torch.snapshot",
-            "llm_tpu_torch.harness"} <= set(modules)
+            "llm_tpu_torch.harness", "llm_tpu_torch.speculative"} \
+        <= set(modules)
     # importing every module of the port loads neither package
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
