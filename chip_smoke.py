@@ -1064,11 +1064,12 @@ def attention_launches_held(name, profile, spec) -> None:
              f"not {spec.n_layer}")
 
 
-def step_profile(step, steps: int = 4) -> dict:
+def step_profile(step, steps: int = 4, split=None) -> dict:
     """Host wall ms per call of `step` (which must end by reading a result
     back, as sampling does), and the device kernels torch.profiler sees
     over `steps` more calls: their time, launches and the card's busy
-    share of the untraced wall time."""
+    share of the untraced wall time. `split` (kernel name -> category)
+    adds the device ms a call of each category."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1097,7 +1098,14 @@ def step_profile(step, steps: int = 4) -> dict:
         agg[0] += end - start
         agg[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    extra = {}
+    if split is not None:
+        cats: dict[str, float] = {}
+        for k, (t, _) in by_name.items():
+            cats[split(k)] = cats.get(split(k), 0.0) + t / 1e3 / steps
+        extra["split_ms_per_step"] = cats
     return {
+        **extra,
         "wall_ms_per_step": wall_ms,
         "traced_wall_ms_per_step": traced_ms,
         "device_ms_per_step": (sum(t for t, _ in by_name.values()) / 1e3
@@ -4155,6 +4163,744 @@ def archs_phase(dev, timer) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4i: routes (chat completions, embeddings, engine checkpoints)
+
+
+ROUTES_STREAMS, ROUTES_PAGES, ROUTES_NEW = 4, 16, 32
+ROUTES_EMBED_LENS = (16, 64)
+# role strings in the bench vocabulary (its tokens are `<tN>` markers), as
+# a request would send its own template
+ROUTES_TEMPLATE = {"system": "{content}", "user": "<t11>{content}",
+                   "assistant": "<t12>{content}",
+                   "generation_prefix": "<t12>", "stop": "<t11>"}
+ROUTES_JINJA = ("{% for m in messages %}<t2>{{ m.content }}{% endfor %}"
+                "{% if add_generation_prompt %}<t3>{% endif %}")
+
+
+def serve_prompts(n: int) -> list[list[int]]:
+    """The serve phase's first n concurrent prompts (`http_traffic`'s
+    draws from the serve phase's seed 4)."""
+    rng = np.random.default_rng(4)
+    lens = rng.integers(16, 701, SERVE_STREAMS)
+    return [rng.integers(1, V, int(k)).tolist() for k in lens][:n]
+
+
+def as_text(ids) -> str:
+    return "".join(f"<t{int(t)}>" for t in ids)
+
+
+def http_json(url: str, body) -> tuple[int, dict, float]:
+    """(status, JSON body, seconds) of one POST, error statuses too."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read()), \
+                time.monotonic() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.monotonic() - t0
+
+
+def http_chat_stream(url: str, body) -> tuple[str, str]:
+    """(the content deltas joined, finish reason) of a streamed chat."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps(dict(body, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    parts, finish = [], None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for line in resp:
+            line = line.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            chunk = json.loads(line[6:])
+            if chunk["object"] != "chat.completion.chunk":
+                fail(f"routes: a chat stream chunk is {chunk['object']}")
+            c = chunk["choices"][0]
+            parts.append(c["delta"].get("content", ""))
+            finish = c["finish_reason"] or finish
+    return "".join(parts), finish
+
+
+def chat_case(base: str, name: str, messages, template, jinja, eot) -> dict:
+    """One chat request, non-streamed and streamed, against
+    /v1/completions on the prompt `render_chat` gives, with its stop."""
+    from llm_tpu_torch.server import render_chat
+
+    prompt, stop = render_chat(messages, template, jinja)
+    body = {"messages": messages, "max_tokens": ROUTES_NEW,
+            "temperature": 0, "logit_bias": {str(eot): -100}}
+    if template is not None:
+        body["chat_template"] = template
+    status, chat, chat_s = http_json(base + "/v1/chat/completions", body)
+    if status != 200 or chat["object"] != "chat.completion":
+        fail(f"routes {name}: chat answered {status} {chat}")
+    streamed, s_finish = http_chat_stream(base + "/chat/completions", body)
+    _, comp, _ = http_json(base + "/v1/completions", {
+        "prompt": prompt, "max_tokens": ROUTES_NEW, "temperature": 0,
+        "logit_bias": {str(eot): -100}, "stop": [stop]})
+    choice, cchoice = chat["choices"][0], comp["choices"][0]
+    content = choice["message"]["content"]
+    if not (content == streamed.rstrip() == cchoice["text"].rstrip()):
+        fail(f"routes {name}: chat {content!r}, streamed {streamed!r}, "
+             f"completion {cchoice['text']!r}")
+    if not choice["finish_reason"] == s_finish == cchoice["finish_reason"]:
+        fail(f"routes {name}: finish reasons {choice['finish_reason']}, "
+             f"{s_finish}, {cchoice['finish_reason']}")
+    return {"prompt": prompt[:120], "stop": stop,
+            "tokens": content.count("<t"), "finish": choice["finish_reason"],
+            "content": content[:200], "chat_s": chat_s}
+
+
+def snapshot_header(path) -> dict:
+    import struct
+
+    with open(path, "rb") as f:
+        f.read(9)
+        (n,) = struct.unpack("<I", f.read(4))
+        return json.loads(f.read(n))
+
+
+def wait_for(cond, timeout: float, what: str) -> None:
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            fail(f"routes: timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def routes_checkpoint(model, srv, engine, base, d, eot) -> dict:
+    """4 greedy streamed completions of the serve phase's prompts, a live
+    /admin/checkpoint once every stream has decoded 8 tokens, then the
+    streams finish; a fresh engine behind a new LlmServer restores the
+    file and its streams finish headless with the same tokens."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from llm_tpu_torch.paged import PagedEngine
+    from llm_tpu_torch.server import LlmServer
+
+    mid = d / "mid.snap"
+    bodies = [{"prompt": p, "max_tokens": ROUTES_NEW, "temperature": 0,
+               "logit_bias": {str(eot): -100}, "stream": True}
+              for p in serve_prompts(ROUTES_STREAMS)]
+    url = base + "/v1/completions"
+    with ThreadPoolExecutor(ROUTES_STREAMS) as pool:
+        futs = [pool.submit(http_completion, url, b) for b in bodies]
+
+        def decoding():
+            live = [s for s in list(engine.slots) if s is not None]
+            return len(live) == ROUTES_STREAMS and all(
+                not s.prefilling and s.generated >= 8 for s in live)
+
+        wait_for(decoding, 300, "4 decoding streams")
+        status, body, write_s = http_json(base + "/admin/checkpoint",
+                                          {"path": str(mid)})
+        if status != 200:
+            fail(f"routes: /admin/checkpoint answered {status} {body}")
+        texts = [f.result()["text"] for f in futs]
+    header = snapshot_header(mid)
+    rids = [s["request_id"] for s in header["streams"]]
+    if len(rids) != ROUTES_STREAMS or any(
+            s["generated"] >= ROUTES_NEW for s in header["streams"]):
+        fail(f"routes: the checkpoint holds {header['streams']!r:.300}")
+    want = {rid: list(engine.finished[rid].tokens) for rid in rids}
+    status, body, _ = http_json(base + "/admin/checkpoint",
+                                {"path": str(ROOT / "build" / "x.snap")})
+    if status != 409:
+        fail(f"routes: a path outside the snapshot directory got {status}")
+    out = {"file_bytes": mid.stat().st_size, "write_s": write_s,
+           "generated_at_checkpoint": [s["generated"]
+                                       for s in header["streams"]],
+           "outside_path_status": status, "texts_tokens": [
+               t.count("<t") for t in texts]}
+
+    engine2 = PagedEngine(model, max_streams=ROUTES_STREAMS,
+                          page_size=SERVE_PAGE, kv_dtype="int8", n_batch=64,
+                          n_pages=ROUTES_PAGES, prefix_cache=True)
+    t0 = time.monotonic()
+    srv2 = LlmServer(model, engine2, host="127.0.0.1", port=0,
+                     engine_snapshot=str(mid))
+    torch.cuda.synchronize()
+    out["read_s"] = time.monotonic() - t0
+    if engine2.active != ROUTES_STREAMS:
+        fail(f"routes: the restore holds {engine2.active} streams")
+    srv2.start()
+    try:
+        wait_for(lambda: all(r in engine2.finished for r in rids), 300,
+                 "the restored streams")
+        got = {rid: list(engine2.finished[rid].tokens) for rid in rids}
+    finally:
+        srv2.loop.snapshot_path = None  # no final checkpoint of this one
+        srv2.shutdown()
+    if got != want:
+        fail("routes: the restored streams' tokens differ from the "
+             "uninterrupted run's")
+    out["restored_tokens_equal"] = len(rids)
+    mid.unlink()
+    return out
+
+
+def dense_round_trip(model, d, eot) -> dict:
+    """`write_engine` / `read_engine` on a dense bf16 engine of 2 slots:
+    2 greedy requests (the e2e prompts of 16 and 64 tokens) checkpointed
+    with 8 tokens decoded, the original run to its end, a fresh engine
+    restored and run: the same tokens."""
+    from llm_tpu_torch.engine_snapshot import read_engine, write_engine
+    from llm_tpu_torch.samplers import build_sampler_chain
+    from llm_tpu_torch.serve import Engine, GenerationRequest
+
+    def make():
+        return Engine(model, max_streams=2, kv_dtype=torch.bfloat16,
+                      n_batch=64)
+
+    def request(p):
+        return GenerationRequest(prompt=p, max_tokens=ROUTES_NEW,
+                                 sampler=build_sampler_chain(
+                                     ["topk:k=1"],
+                                     bias=[(eot, float("-inf"))]))
+
+    path = d / "dense.snap"
+    a = make()
+    for p in e2e_prompts()[:2]:  # 16 and 64 tokens
+        a.submit(request(p))
+    while not all(s is not None and not s.prefilling and s.generated >= 8
+                  for s in a.slots):
+        a.step()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    write_engine(a, path)
+    out = {"write_s": time.monotonic() - t0,
+           "file_bytes": path.stat().st_size,
+           "cache_bytes": sum(t.numel() * t.element_size()
+                              for t in (a.cache.k, a.cache.v))}
+    while a.has_work():
+        a.step()
+    want = {r: list(s.tokens) for r, s in a.finished.items()}
+    del a
+    torch.cuda.empty_cache()
+    b = make()
+    t0 = time.monotonic()
+    read_engine(b, path)
+    torch.cuda.synchronize()
+    out["read_s"] = time.monotonic() - t0
+    while b.has_work():
+        b.step()
+    got = {r: list(s.tokens) for r, s in b.finished.items()}
+    if got != want or len(got) != 2:
+        fail("routes: the dense engine's restored tokens differ")
+    out["restored_tokens_equal"] = len(got)
+    path.unlink()
+    del b
+    torch.cuda.empty_cache()
+    return out
+
+
+def routes_phase(model, dev) -> dict:
+    """The server's chat completions, embeddings and engine checkpoints on
+    the e2e LLaMA-7B Q4_0 (already loaded): a paged int8 engine (4 slots,
+    page 256, 16 pages, prefix cache) behind
+    `LlmServer(engine_snapshot=build/smoke/routes/engine.snap)`.
+
+    (a) /v1/chat/completions, greedy, 32 new tokens, non-streamed and
+        streamed: its text equals /v1/completions on the prompt
+        `render_chat` gives (with the user prefix as stop), for a
+        per-request template, the model's jinja template and the built-in
+        default (whose "### Human:" text the bench vocabulary cannot
+        tokenize: both routes end with the tokenizer's error).
+    (b) /v1/embeddings of a 16- and a 64-token input: 4096 values each,
+        within E2E_REL_L2 relative L2 of the same session's under the
+        kernels' plain versions; ms an input.
+    (c) a live checkpoint mid-decode and a restore in a fresh server
+        (`routes_checkpoint`); a path outside the snapshot directory gets
+        409; the same round trip through `write_engine` / `read_engine` on
+        a dense bf16 engine of 2 slots (`dense_round_trip`).
+    Launches are counted from just before the traffic to just after."""
+    from llm_tpu_torch.paged import PagedEngine
+    from llm_tpu_torch.server import LlmServer
+    from llm_tpu_torch.session import (
+        InferenceSession,
+        InferenceSessionConfig,
+        OutputRequest,
+    )
+
+    out = {}
+    d = ROOT / "build" / "smoke" / "routes"
+    d.mkdir(parents=True, exist_ok=True)
+    snap = d / "engine.snap"
+    snap.unlink(missing_ok=True)
+    eot = model.eot_token_id()
+    engine = PagedEngine(model, max_streams=ROUTES_STREAMS,
+                         page_size=SERVE_PAGE, kv_dtype="int8", n_batch=64,
+                         n_pages=ROUTES_PAGES, prefix_cache=True)
+    out["pool_bytes"] = engine.pool.nbytes()
+    srv = LlmServer(model, engine, host="127.0.0.1", port=0,
+                    engine_snapshot=str(snap))
+    base = "http://%s:%d" % srv.address
+    srv.start()
+    try:
+        srv.warmup()
+        zero_launches()
+        rng = np.random.default_rng(17)
+        a, b = (as_text(rng.integers(1, V, n)) for n in (8, 24))
+        messages = [{"role": "system", "content": a},
+                    {"role": "user", "content": b}]
+        chat = {"template": chat_case(base, "request template", messages,
+                                      ROUTES_TEMPLATE, None, eot)}
+        model.chat_template = ROUTES_JINJA
+        try:
+            chat["model_jinja"] = chat_case(base, "model template", messages,
+                                            None, ROUTES_JINJA, eot)
+        finally:
+            model.chat_template = None
+        chat["default"] = chat_case(base, "default template", messages,
+                                    None, None, eot)
+        if chat["template"]["tokens"] == 0 or \
+                chat["model_jinja"]["tokens"] == 0:
+            fail("routes: a chat completion generated no token")
+        out["chat"] = chat
+
+        inputs = [as_text(rng.integers(1, V, n)) for n in ROUTES_EMBED_LENS]
+        emb = []
+        for text in inputs:
+            status, body, sec = http_json(base + "/v1/embeddings",
+                                          {"input": text})
+            vec = torch.tensor(body["data"][0]["embedding"])
+            if status != 200 or vec.shape != (model.spec.n_embd,):
+                fail(f"routes: embeddings answered {status}, "
+                     f"{tuple(vec.shape)}")
+            with plain_versions(bf16=True):
+                sess = InferenceSession(model, InferenceSessionConfig())
+                req = OutputRequest(embeddings=[])
+                sess.feed_prompt(text, output_request=req)
+                del sess
+            ref = torch.tensor(req.embeddings[-model.spec.n_embd:])
+            rel = float((vec - ref).norm() / ref.norm())
+            if rel > E2E_REL_L2 or not bool(torch.isfinite(vec).all()):
+                fail(f"routes: an embedding differs from the plain path's: "
+                     f"rel L2 {rel:.3g}")
+            emb.append({"tokens": text.count("<t"), "ms": 1e3 * sec,
+                        "rel_l2_vs_plain": rel,
+                        "values": int(vec.numel())})
+        out["embeddings"] = emb
+        out["checkpoint"] = routes_checkpoint(model, srv, engine, base, d,
+                                              eot)
+    finally:
+        # the final checkpoint on shutdown would write the pool once more
+        # (~12 s of zlib); the CPU tests hold it
+        srv.loop.snapshot_path = None
+        srv.shutdown()
+    out["launches_server"] = read_launches()
+    del srv, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    zero_launches()
+    out["dense"] = dense_round_trip(model, d, eot)
+    out["launches_dense"] = read_launches()
+    out["launches"] = {k: out["launches_server"][k] + out["launches_dense"][k]
+                       for k in ("qmatmul", "dense_attention",
+                                 "paged_attention")}
+    for k, v in out["launches"].items():
+        if not v:
+            fail(f"routes: {k} was not launched")
+    out["summary"] = {
+        "chat_tokens": {k: c["tokens"] for k, c in out["chat"].items()},
+        "chat_finish": {k: c["finish"] for k, c in out["chat"].items()},
+        "embedding_ms": [e["ms"] for e in emb],
+        "embedding_rel_l2": [e["rel_l2_vs_plain"] for e in emb],
+        "paged_checkpoint": {k: out["checkpoint"][k] for k in (
+            "file_bytes", "write_s", "read_s", "restored_tokens_equal",
+            "outside_path_status")},
+        "dense_checkpoint": {k: out["dense"][k] for k in (
+            "file_bytes", "cache_bytes", "write_s", "read_s",
+            "restored_tokens_equal")},
+        "launches": out["launches"],
+    }
+    emit({"routes_summary": out["summary"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: adapters (quantize, LoRA, the dense upcast) on GPT-2 117M
+
+
+# GPT-2 117M at its published geometry (openai-community/gpt2 config.json:
+# 768 wide, 12 layers of 12 heads, n_ff 3072, vocab 50257, 1024 positions)
+GPT2_HP = dict(n_vocab=50257, n_embd=768, n_head=12, n_layer=12, n_ctx=1024)
+GPT2_FF = 3072
+ADAPTER_PROMPT, ADAPTER_NEW, ADAPTER_BLOCK = 64, 32, 16
+LORA_R, LORA_ALPHA = 8, 16
+LORA_TARGETS = ("attn/c_attn/w", "mlp/c_fc/w")
+# Each format's error against its f32 source, per block of 32 weights, in
+# the block's largest |w|: Q8_0 rounds to steps of d = amax/127 (half a
+# step, plus d's own f16 rounding over up to 127 steps: under 0.6 steps);
+# Q4_0 steps by d = amax/8 and clamps its top code (one step, plus d's f16
+# rounding over 8 steps)
+FORMAT_ERR = {"Q8_0": 0.6 / 127, "Q4_0": 1.01 / 8}
+QUANTIZED_GPT2 = ("model/wte",) + tuple(
+    f"model/h{i}/{t}" for i in range(GPT2_HP["n_layer"])
+    for t in ("attn/c_attn/w", "attn/c_proj/w", "mlp/c_fc/w",
+              "mlp/c_proj/w"))
+
+
+def gpt2_weights(model):
+    """(file name, the card's weight dequantized as f32 [R, K], the file's
+    row order) for every quantized GPT-2 weight."""
+    from llm_tpu_torch.models.params import unfuse_layer_weights
+
+    ls = unfuse_layer_weights(model.params.layers)
+    parts = {"attn/c_attn/w": (ls.wq, ls.wk, ls.wv), "attn/c_proj/w": (ls.wo,),
+             "mlp/c_fc/w": (ls.w_up,), "mlp/c_proj/w": (ls.w_down,)}
+    for name in QUANTIZED_GPT2:
+        if name == "model/wte":
+            yield name, dequant_any(model.params.wte).t()
+            continue
+        layer, part = int(name.split("/")[1][1:]), name.split("/", 2)[2]
+        yield name, torch.cat([dequant_any(w.layer(layer))
+                               for w in parts[part]], 1).t()
+
+
+def planes_within_format(name, model, source, fmt) -> dict:
+    """Every quantized weight of the load, dequantized on the card, within
+    the format's error (FORMAT_ERR) of the f32 source, block by block."""
+    worst = 0.0
+    for wname, got in gpt2_weights(model):
+        src = torch.from_numpy(np.array(source.fetch_f32(wname))).to(
+            got.device)
+        blocks = src.reshape(src.shape[0], -1, 32)
+        bound = blocks.abs().amax(-1, keepdim=True) * FORMAT_ERR[fmt]
+        err = (got.reshape(blocks.shape) - blocks).abs()
+        ratio = float((err / bound.clamp_min(1e-30)).amax())
+        if not bool((err <= bound).all()):
+            fail(f"{name}: {wname} dequantizes {ratio:.3g} x the {fmt} "
+                 "error bound from its f32 source")
+        worst = max(worst, ratio)
+    return {"weights": len(QUANTIZED_GPT2), "max_err_over_bound": worst}
+
+
+def params_bytes(params) -> int:
+    """Bytes of every tensor of a model's parameters (planes or dense)."""
+    from dataclasses import fields as dc_fields
+
+    from llm_tpu_torch.ops.packing import QuantTensor, QuantTensorC
+
+    def nbytes(v):
+        if isinstance(v, (QuantTensor, QuantTensorC)):
+            return plane_bytes(v)
+        return v.numel() * v.element_size() if v is not None else 0
+
+    total = sum(nbytes(getattr(params.layers, f.name))
+                for f in dc_fields(params.layers))
+    return total + sum(nbytes(getattr(params, f.name))
+                       for f in dc_fields(params) if f.name != "layers")
+
+
+def load_gpt2(path, dev, lora=None) -> tuple:
+    """(model, load seconds) of a GPT-2 file on the card."""
+    from llm_tpu_torch import loader
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    model = loader.load(path, "gpt2", params=loader.ModelParameters(
+        context_size=GPT2_HP["n_ctx"], lora_adapters=lora), device=dev)
+    torch.cuda.synchronize()
+    return model, time.monotonic() - t0
+
+
+def lora_planes_equal(model, path, ggla) -> dict:
+    """The card's patched planes bit-equal to `LoraAdapter.patch` then
+    packing on the host, as the loader packs them: c_attn's thirds fused
+    to q|k|v, c_fc alone."""
+    from llm_tpu_torch.ggml.reader import GgmlReader
+    from llm_tpu_torch.lora import LoraAdapter
+    from llm_tpu_torch.models.params import WeightSource, _thirds
+    from llm_tpu_torch.models.spec import get_arch
+    from llm_tpu_torch.ops.packing import fuse_quant
+
+    arch = get_arch("gpt2")
+    reader = GgmlReader(path).load(
+        lambda f: (lambda h: (h, h.n_vocab))(arch.read_hparams(f)))
+    ws = WeightSource(reader, "cpu", lora_adapters=[LoraAdapter(ggla)])
+    rows = _thirds(GPT2_HP["n_embd"])
+    checked = 0
+    for i in range(GPT2_HP["n_layer"]):
+        p = f"model/h{i}"
+        host = {"w_qkv": fuse_quant([ws.matrix(f"{p}/attn/c_attn/w", rows=r)
+                                     for r in rows]),
+                "w_up": ws.matrix(f"{p}/mlp/c_fc/w")}
+        for field, h in host.items():
+            card = getattr(model.params.layers, field).layer(i)
+            for a, b in zip(card.planes(), h.planes()):
+                if (a is None) != (b is None) or (
+                        a is not None and not torch.equal(a.cpu(), b)):
+                    fail(f"adapters: layer {i} {field}: the card's patched "
+                         "planes differ from the host's patch and pack")
+            checked += 1
+    return {"weights_bit_equal": checked}
+
+
+def logits_against(name, model, ref_model) -> dict:
+    """Teacher-forced first prefill (64 tokens) and decode logits of
+    `model` against `ref_model` on the same card: each decoder layer of
+    `model` runs on `ref_model`'s input for that layer (`layer_trace`);
+    every layer's output and the logits within E2E_REL_L2 relative L2,
+    top-1 equal but at a near-tie (`top1_held`)."""
+    ids = np.random.default_rng(11).integers(
+        1, model.spec.n_vocab, ADAPTER_PROMPT).tolist()
+    ref_h, got_h = [], []
+    with layer_trace(ref_h) as ref_in:
+        pre_r, dec_r = first_logits(ref_model, ids)
+    with layer_trace(got_h, ref_in):
+        pre_g, dec_g = first_logits(model, ids)
+    layer_l2 = [float((g - r).norm() / r.norm())
+                for g, r in zip(got_h, ref_h)]
+    if max(layer_l2) > E2E_REL_L2:
+        fail(f"{name}: a layer's output differs from the reference layer's "
+             f"on the same input: rel L2 {max(layer_l2):.3g}")
+    out = {"layer_rel_l2_max": max(layer_l2)}
+    for part, got, ref in (("prefill", pre_g, pre_r),
+                           ("decode", dec_g, dec_r)):
+        out[part] = {**compare_logits(f"{name} {part}", got, ref),
+                     **top1_held(f"{name} {part}", got, ref)}
+    return out
+
+
+def kernel_category(kernel: str) -> str:
+    """A profiled kernel's share of a token: K1 (its two kernels), K2,
+    the dense products (cuBLAS's nvjet, gemm or gemv kernels) or the
+    rest."""
+    low = kernel.lower()
+    if "qmm_" in kernel or "sum_splits" in kernel:
+        return "qmatmul"
+    if ATTN_KERNEL in kernel:
+        return "dense_attention"
+    if any(s in low for s in ("nvjet", "gemm", "gemv", "cutlass", "xmma")):
+        return "dense_products"
+    return "rest"
+
+
+def device_token_ms(model, prompt, rounds: int = 2) -> dict:
+    """`infer_device` greedy in blocks of ADAPTER_BLOCK (one graph replay a
+    token): ms a token by CUDA events over `rounds` blocks after the
+    capture, the profiled split of a block's kernels, and the captures'
+    launches."""
+    greedy = ds_samplers(model)["greedy"]
+    sess = ds_session(model)
+    sess.infer_device(prompt, ADAPTER_BLOCK, sampler=greedy,
+                      n_steps=ADAPTER_BLOCK, halt_on_eot=False)  # captures
+
+    def block():
+        sess.infer_device([], ADAPTER_BLOCK, sampler=greedy,
+                          n_steps=ADAPTER_BLOCK, halt_on_eot=False)
+
+    times = [events_ms(block) for _ in range(rounds)]
+    prof = step_profile(block, steps=1, split=kernel_category)
+    graphs = graph_records(sess)
+    del sess
+    return {
+        "ms_per_token": [d / ADAPTER_BLOCK for d, _ in times],
+        "wall_ms_per_token": [w / ADAPTER_BLOCK for _, w in times],
+        "split_ms_per_token": {k: v / ADAPTER_BLOCK for k, v in
+                               prof["split_ms_per_step"].items()},
+        "device_busy_share": prof["device_busy_share"],
+        "top_device": prof["top_device"], "graphs": graphs,
+    }
+
+
+def quantize_cli(src, dst, target) -> subprocess.Popen:
+    """`python -m llm_tpu_torch quantize -a gpt2 SRC DST TARGET`."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "llm_tpu_torch", "quantize", "-a", "gpt2",
+         str(src), str(dst), target], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def adapters_phase(dev) -> dict:
+    """The quantizer, LoRA adapters and the dense upcast on GPT-2 117M.
+
+    (a) An f32 GPT-2 from seed 0 (the port's `make_tiny_file` at the
+        published geometry) is quantized by the cli to Q8_0 and to Q4_0,
+        both at once. Each is loaded on the card: every quantized weight
+        dequantizes within its format's error of the f32 source, the
+        teacher-forced logits (64 tokens, then one decode step) are held
+        against the plain path (`arch_logits`), and greedy `infer` gives
+        32 tokens after a 64-token prompt with its launches counted
+        exactly (`arch_infer`).
+    (b) A GGLA adapter from seed 1 (r 8, alpha 16, on every layer's
+        attn/c_attn and mlp/c_fc) is applied to the Q8_0 load: the patched
+        planes bit-equal to the host's patch and pack, the logits held as
+        in (a), load seconds with and without the adapter.
+    (c) The Q8_0 file loaded with LLM_TPU_DENSE_UPCAST=1: bf16 dense
+        weights; its teacher-forced logits held against the quantized
+        load's; weight bytes; device ms a token of the device-sampling
+        loop (graph, blocks of 16) beside the quantized load's, in turns,
+        and the profiler's split of a token between the dense products,
+        K2 and the rest."""
+    import os
+
+    from llm_tpu_torch.ggml.reader import GgmlReader
+    from llm_tpu_torch.ggml.types import GgmlType
+    from llm_tpu_torch.models.spec import get_arch
+    from llm_tpu_torch.testing import make_lora_file, make_tiny_file
+
+    out = {}
+    d = ROOT / "build" / "smoke" / "adapters"
+    d.mkdir(parents=True, exist_ok=True)
+    src, ggla = d / "gpt2_f32.bin", d / "gpt2_lora.ggla"
+    files = {fmt: d / f"gpt2_{fmt.lower()}.bin" for fmt in ("Q8_0", "Q4_0")}
+    spec = None
+    try:
+        t0 = time.monotonic()
+        make_tiny_file("gpt2", src, GgmlType.F32, seed=0, n_ff=GPT2_FF,
+                       **GPT2_HP)
+        out["f32_write_s"] = time.monotonic() - t0
+        out["f32_bytes"] = src.stat().st_size
+        t0 = time.monotonic()
+        procs = {fmt: quantize_cli(src, p, fmt.lower())
+                 for fmt, p in files.items()}
+        quant = {}
+        for fmt, proc in procs.items():
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                fail(f"adapters: quantize {fmt}: {err[-2000:]}")
+            quant[fmt] = {"seconds": time.monotonic() - t0,
+                          "bytes": files[fmt].stat().st_size,
+                          "summary": err.strip().splitlines()[-1][:200]}
+        out["quantize"] = quant
+        arch = get_arch("gpt2")
+        source = GgmlReader(src).load(
+            lambda f: (lambda h: (h, h.n_vocab))(arch.read_hparams(f)))
+        rng = np.random.default_rng(3)
+        prompt = rng.integers(1, GPT2_HP["n_vocab"], ADAPTER_PROMPT).tolist()
+        loads, models = {}, {}
+        for fmt, path in files.items():
+            model, load_s = load_gpt2(path, dev)
+            spec = model.spec
+            rec = {"load_s": load_s, "weights_bytes": params_bytes(
+                model.params)}
+            rec["planes"] = planes_within_format(f"adapters {fmt}", model,
+                                                 source, fmt)
+            rec["logits"] = arch_logits(f"adapters {fmt}", model)
+            rec["infer"] = arch_infer(f"adapters {fmt}", model, [prompt],
+                                      ADAPTER_NEW)
+            loads[fmt] = rec
+            models[fmt] = model
+        del models["Q4_0"], model
+        out["loads"] = loads
+
+        # (b) LoRA on the Q8_0 file
+        names = [f"model/h{i}/{t}" for i in range(GPT2_HP["n_layer"])
+                 for t in LORA_TARGETS]
+        shapes = {n: tuple(source.tensors[n].dims) for n in names}
+        make_lora_file(ggla, names, shapes, LORA_R, LORA_ALPHA, seed=1)
+        lora_model, lora_s = load_gpt2(files["Q8_0"], dev, [str(ggla)])
+        out["lora"] = {
+            "r": LORA_R, "alpha": LORA_ALPHA, "tensors": len(names),
+            "load_s": lora_s, "load_s_without": loads["Q8_0"]["load_s"],
+            **lora_planes_equal(lora_model, files["Q8_0"], ggla),
+            "logits": arch_logits("adapters lora", lora_model),
+            "infer": arch_infer("adapters lora", lora_model, [prompt],
+                                ADAPTER_NEW),
+        }
+        if out["lora"]["infer"]["runs"][0]["new_ids"] == \
+                loads["Q8_0"]["infer"]["runs"][0]["new_ids"]:
+            fail("adapters: the LoRA load gives the base model's tokens")
+        del lora_model, source
+
+        # (c) the dense upcast of the Q8_0 file
+        os.environ["LLM_TPU_DENSE_UPCAST"] = "1"
+        try:
+            up_model, up_s = load_gpt2(files["Q8_0"], dev)
+        finally:
+            del os.environ["LLM_TPU_DENSE_UPCAST"]
+        q8 = models.pop("Q8_0")
+        if not isinstance(up_model.params.layers.wq, torch.Tensor) or \
+                up_model.params.layers.wq.dtype != torch.bfloat16:
+            fail("adapters: the upcast load holds no bf16 dense weights")
+        upcast = {"load_s": up_s,
+                  "weights_bytes": params_bytes(up_model.params),
+                  "quantized_weights_bytes": loads["Q8_0"]["weights_bytes"],
+                  "logits_vs_quantized": logits_against(
+                      "adapters upcast", up_model, q8)}
+        from llm_tpu_torch.ops import qmatmul as qm
+
+        runs = {"quantized": [], "upcast": []}
+        for which in ("quantized", "upcast", "upcast", "quantized"):
+            runs[which].append(device_token_ms(
+                q8 if which == "quantized" else up_model, prompt))
+        upcast["mm_out_dtype"] = qm.MM_OUT_DTYPE
+        for which, rs in runs.items():
+            upcast[which] = {
+                "ms_per_token": [m for r in rs for m in r["ms_per_token"]],
+                "wall_ms_per_token": [m for r in rs
+                                      for m in r["wall_ms_per_token"]],
+                "split_ms_per_token": rs[-1]["split_ms_per_token"],
+                "device_busy_share": rs[-1]["device_busy_share"],
+                "top_device": rs[-1]["top_device"],
+            }
+        graphs = {w: [g for r in rs for g in r["graphs"]]
+                  for w, rs in runs.items()}
+        launches_held("adapters quantized device loop", graphs["quantized"],
+                      spec)
+        want_up = {"qmatmul": 0, "dense_attention": spec.n_layer,
+                   "paged_attention": 0}
+        for g in graphs["upcast"]:
+            if g["launches_per_replay"] != want_up:
+                fail(f"adapters upcast: a capture counted "
+                     f"{g['launches_per_replay']} launches, not {want_up}")
+        out["upcast"] = upcast
+        out["graphs"] = graphs
+        del up_model, q8
+    finally:
+        for p in (src, ggla, *files.values()):
+            p.unlink(missing_ok=True)
+    counted = [r["infer"]["launches"] for r in (*loads.values(),
+                                                out["lora"])]
+    out["launches"] = {
+        k: sum(c[k] for c in counted) + sum(
+            g["launches_per_replay"][k] * g["replays"]
+            for gs in out["graphs"].values() for g in gs)
+        for k in ("qmatmul", "dense_attention", "paged_attention")}
+    for k in ("qmatmul", "dense_attention"):
+        if not out["launches"][k]:
+            fail(f"adapters: {k} was not launched")
+    gc.collect()
+    torch.cuda.empty_cache()
+    up = out["upcast"]
+    out["summary"] = {
+        "quantize_s": {f: q["seconds"] for f, q in quant.items()},
+        "quantize_bytes": {f: q["bytes"] for f, q in quant.items()},
+        "load_s": {f: r["load_s"] for f, r in loads.items()},
+        "max_err_over_bound": {f: r["planes"]["max_err_over_bound"]
+                               for f, r in loads.items()},
+        "logits_rel_l2": {f: [r["logits"][p]["rel_l2"]
+                              for p in ("prefill", "decode")]
+                          for f, r in loads.items()},
+        "lora_load_s": out["lora"]["load_s"],
+        "lora_logits_rel_l2": [out["lora"]["logits"][p]["rel_l2"]
+                               for p in ("prefill", "decode")],
+        "upcast_weights_bytes": up["weights_bytes"],
+        "quantized_weights_bytes": up["quantized_weights_bytes"],
+        "upcast_logits_rel_l2_vs_quantized": [
+            up["logits_vs_quantized"][p]["rel_l2"]
+            for p in ("prefill", "decode")],
+        "device_ms_per_token": {w: up[w]["ms_per_token"]
+                                for w in ("quantized", "upcast")},
+        "split_ms_per_token": {w: up[w]["split_ms_per_token"]
+                               for w in ("quantized", "upcast")},
+        "mm_out_dtype": up["mm_out_dtype"],
+        "launches": out["launches"],
+    }
+    emit({"adapters_summary": out["summary"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the chip probes P1-P3
 
 
@@ -4469,7 +5215,7 @@ def attn_by_case(recs, label) -> dict:
 
 def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
                    cinf, ab, dsamp, multi, archs,
-                   session_paths, spec) -> list[dict]:
+                   session_paths, spec, slice_paths) -> list[dict]:
     """One entry per kernel: times summed over the launches of one decode
     step at 7B (qmatmul: the 4 projections x 32 layers + lm_head at M=1;
     dense_attention: 32 layers at W=512, bf16 cache, full window;
@@ -4491,7 +5237,11 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
     (`speculative`: eager launches plus each graph's launches times its
     replays), with K1 at the phase's new shapes in `speculative_by_case`
     (the 7B target at M=4, the 160M draft at M=1 and 16: one forward's
-    launches each)."""
+    launches each); and the runs of `slice_paths`: the routes phase (the
+    7B server's chat, embeddings and checkpoint traffic, and the dense
+    engine's round trip) and the adapters phase (GPT-2 117M quantized,
+    LoRA-patched and upcast: counted launches plus each graph's launches
+    times its replays)."""
     per_token = {"qkv": N_LAYER, "wo": N_LAYER, "gate_up": N_LAYER,
                  "down": N_LAYER, "lm_head": 1}
     dec = [r for r in qrecs if r["M"] == 1 and r["case"] in per_token]
@@ -4595,6 +5345,8 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
             for g in loops)
     for e in entries[1:4]:
         e["launches_by_path"]["speculative"] = spec["launches"][e["name"]]
+        for path, ls in slice_paths.items():
+            e["launches_by_path"][path] = ls[e["name"]]
     entries[1]["speculative_by_case"] = {
         name: case["per_token"] for name, case in spec["k1_cases"].items()}
     for e in entries[1:4]:
@@ -4749,10 +5501,17 @@ def main() -> None:
     spec = speculative_phase(model, dev, e2e, timer)
     results["speculative"] = spec
     emit({"speculative": spec})
-    del model
     gc.collect()
     torch.cuda.empty_cache()
     lap("speculative")
+
+    routes = routes_phase(model, dev)
+    results["routes"] = routes
+    emit({"routes": routes})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("routes")
     session_paths = {"gguf_infer": gguf["launches"],
                      "perplexity": ppl["launches"],
                      "snapshot": snap["launches"],
@@ -4763,13 +5522,19 @@ def main() -> None:
     emit({"archs": archs})
     lap("archs")
 
+    adapters = adapters_phase(dev)
+    results["adapters"] = adapters
+    emit({"adapters": adapters})
+    lap("adapters")
+
     probes = probe_phase(dev)
     results["probes"] = probes
     lap("probes")
 
     kernels = kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
                              cinf, ab, dsamp, multi, archs, session_paths,
-                             spec)
+                             spec, {"routes": routes["launches"],
+                                    "adapters": adapters["launches"]})
     kernels += probe_entries(probes, checks, dev, timer)
     del timer
     lap("kernel_entries")

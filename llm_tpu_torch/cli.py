@@ -1,5 +1,6 @@
 """llm-tpu-torch command line interface: `infer`, `perplexity`, `info`,
-`verify`, `prompt-tokens`, `repl`, `chat`, `gguf-convert` and `serve`.
+`verify`, `prompt-tokens`, `repl`, `chat`, `gguf-convert`, `serve`,
+`convert-hf` and `quantize`.
 
 The counterpart of `llm_tpu/cli.py` for the subcommands this port has, with
 the reference's flags for what it supports, plus `--device` (default: the
@@ -45,6 +46,13 @@ def add_load_args(p: argparse.ArgumentParser) -> None:
     g = p.add_argument_group("model loading")
     g.add_argument("--num-ctx-tokens", type=int, default=2048,
                    help="size of the context window in tokens (default 2048)")
+    g.add_argument("--no-mmap", action="store_true",
+                   help="accepted for parity; loading always streams+packs")
+    g.add_argument("--lora-paths", nargs="*", default=None,
+                   help="LoRA adapter (GGLA) files to apply")
+    g.add_argument("--gpu-layers", type=int, default=None,
+                   help="accepted for parity; every layer stays on the "
+                        "device")
     g.add_argument("--rope-freq-base", type=int, default=None)
     g.add_argument("--rope-freq-scale", type=float, default=None)
     g.add_argument("--n-gqa", type=int, default=None,
@@ -55,6 +63,9 @@ def add_load_args(p: argparse.ArgumentParser) -> None:
 
 def add_generate_args(p: argparse.ArgumentParser) -> None:
     g = p.add_argument_group("generation")
+    g.add_argument("-t", "--num-threads", type=int, default=None,
+                   help="accepted for parity (recorded in session "
+                        "snapshots); torch owns the device's parallelism")
     g.add_argument("-n", "--num-predict", type=int, default=None,
                    help="how many tokens to generate (default: until EOT)")
     g.add_argument("--batch-size", type=_batch_size, default=8,
@@ -76,6 +87,8 @@ def add_generate_args(p: argparse.ArgumentParser) -> None:
                    help="comma-separated TOKEN_ID=BIAS overrides")
     g.add_argument("--ignore-eos", action="store_true",
                    help="bias the EOT token to -inf so generation never stops")
+    g.add_argument("--use-gpu", action="store_true",
+                   help="accepted for parity; compute runs on --device")
     g.add_argument("--device-sampling", action="store_true",
                    help="sample on the device, N tokens a block (greedy, or "
                         "temperature/top-k/top-p/min-p/tailfree/"
@@ -143,6 +156,7 @@ def load_model(args):
         )
     params = ModelParameters(
         context_size=args.num_ctx_tokens,
+        lora_adapters=args.lora_paths,
         rope_overrides=rope,
         n_gqa=args.n_gqa,
     )
@@ -177,7 +191,8 @@ def session_config(args, model):
     else:
         n_batch = int(args.batch_size)
     return InferenceSessionConfig(memory_k_type=kv, memory_v_type=kv,
-                                  n_batch=n_batch)
+                                  n_batch=n_batch,
+                                  n_threads=args.num_threads or 8)
 
 
 def inference_parameters(args, model):
@@ -735,9 +750,72 @@ def cmd_serve(args) -> None:
             draft=draft,
             draft_k=args.draft_k,
             draft_sampled=args.draft_sampled,
+            engine_snapshot=args.engine_snapshot,
         )
     except KeyboardInterrupt:
         pass
+
+
+def cmd_convert_hf(args) -> None:
+    from llm_tpu_torch.convert_hf import convert_hf
+
+    arch = convert_hf(
+        args.source,
+        args.destination,
+        architecture=args.model_architecture,
+        ftype=args.ftype,
+        gguf=args.gguf,
+        tokenizer_json=args.tokenizer_json,
+        progress=lambda name: print(f"  {name}", file=sys.stderr),
+    )
+    print(f"wrote {args.destination} ({arch}, {args.ftype})", file=sys.stderr)
+
+
+def cmd_quantize(args) -> None:
+    from llm_tpu_torch.ggml.types import ContainerType, GgmlType
+    from llm_tpu_torch.quantize import QuantizeError, quantize
+
+    if not args.model_architecture:
+        _err("the architecture must be known for quantization")
+    target = GgmlType[args.target.upper()]
+    if args.container_type == "ggml":
+        container = ContainerType("ggml")
+    elif args.container_type == "gguf" or (
+        args.container_type == "ggjt-v3"
+        and str(args.destination).endswith(".gguf")
+    ):
+        container = ContainerType("gguf", 3)
+    else:
+        container = ContainerType("ggjt", 3)
+
+    def progress(ev):
+        if ev.kind == "tensor_quantized":
+            print(
+                f"Quantized tensor `{ev.name}` from {ev.original_size} to "
+                f"{ev.reduced_size} bytes",
+                file=sys.stderr,
+            )
+        elif ev.kind == "tensor_skipped":
+            print(f"Skipped tensor `{ev.name}`", file=sys.stderr)
+        elif ev.kind == "finished":
+            print(
+                f"Finished quantization from {ev.original_size} to "
+                f"{ev.reduced_size} bytes "
+                f"({[] if ev.history is None else list(ev.history)})",
+                file=sys.stderr,
+            )
+
+    try:
+        quantize(
+            args.source,
+            args.destination,
+            args.model_architecture,
+            target,
+            container=container,
+            progress=progress,
+        )
+    except QuantizeError as e:
+        _err(str(e))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -891,7 +969,45 @@ def build_parser() -> argparse.ArgumentParser:
                    "SAMPLED requests (temperature/top-k/top-p/min-p; "
                    "greedy maps to top-k 1) with the output distribution "
                    "exactly the target's")
+    p.add_argument("--engine-snapshot", default=None,
+                   help="engine checkpoint/resume path: restored at "
+                   "startup if present, written on graceful shutdown, and "
+                   "written live by POST /admin/checkpoint")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser(
+        "convert-hf",
+        help="convert a HuggingFace checkpoint directory to GGML/GGUF",
+    )
+    p.add_argument("source", help="HF model directory (from_pretrained "
+                   "path; needs the transformers package)")
+    p.add_argument("destination", help="output checkpoint path")
+    p.add_argument("-a", "--model-architecture", default=None,
+                   help="override the architecture detected from config.json")
+    p.add_argument("--ftype", choices=["f32", "f16"], default="f16",
+                   help="storage type for 2-D weights (default f16)")
+    p.add_argument("--gguf", action="store_true",
+                   help="write GGUF v3 instead of classic GGJT v3")
+    p.add_argument("--tokenizer-json", default=None,
+                   help="tokenizer.json to embed BPE merges from (GGUF only)")
+    p.set_defaults(fn=cmd_convert_hf)
+
+    p = sub.add_parser("quantize", help="quantize a model to a block format")
+    p.add_argument("-a", "--model-architecture", default=None,
+                   help="model architecture")
+    p.add_argument("-v", "--tokenizer-path", default=None)
+    p.add_argument("-r", "--tokenizer-repository", default=None)
+    p.add_argument("source", help="the file to quantize")
+    p.add_argument("destination",
+                   help="the file to write the quantized model to")
+    p.add_argument("-c", "--container-type",
+                   choices=["ggml", "ggjt-v3", "gguf"], default="ggjt-v3")
+    p.add_argument("target",
+                   choices=["q4_0", "q4_1", "q5_0", "q5_1", "q8_0",
+                            # an extension: the reference's quantize.rs
+                            # takes the scalar formats only
+                            "q2_k", "q3_k", "q4_k", "q5_k", "q6_k"])
+    p.set_defaults(fn=cmd_quantize)
     return parser
 
 

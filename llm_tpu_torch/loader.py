@@ -9,7 +9,8 @@ Loading runs on the card unless the caller asks for the CPU: `device=None`
 means "cuda", and raises when there is no GPU. All seven architectures
 load (`models/params.build_params`), from the classic containers and from
 GGUF v2/v3 (`ggml/gguf.py`, with the BPE tokenizer for gpt2-style
-vocabularies); LoRA adapters are not ported yet.
+vocabularies). LoRA adapters (`lora.py`) patch a tensor's bytes on the
+host before it is packed.
 """
 
 from __future__ import annotations
@@ -17,13 +18,14 @@ from __future__ import annotations
 import re
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from llm_tpu_torch.ggml.gguf import GgufReader, is_gguf
 from llm_tpu_torch.ggml.reader import GgmlReader
 from llm_tpu_torch.ggml.types import ContainerType
+from llm_tpu_torch.lora import LoraAdapter
 from llm_tpu_torch.models.params import ModelParams, WeightSource, build_params
 from llm_tpu_torch.models.spec import (
     ArchInfo,
@@ -60,6 +62,7 @@ class ModelParameters:
     """Runtime load parameters."""
 
     context_size: int = 2048
+    lora_adapters: Optional[Sequence[str]] = None  # GGLA file paths
     rope_overrides: Optional[RoPEOverrides] = None
     n_gqa: Optional[int] = None
 
@@ -249,6 +252,8 @@ def load(
             emb.push_token(i, tok, score)
         tokenizer = Tokenizer(emb)
 
+    lora_adapters = [LoraAdapter(p) for p in (params.lora_adapters or [])]
+
     total_bytes = sum(t.calc_size() for t in reader.tensors.values())
     progress(LoadProgress("context_size", byte_size=total_bytes))
 
@@ -277,7 +282,8 @@ def load(
     def tensor_progress(name: str, current: int, total: int) -> None:
         progress(LoadProgress("tensor_loaded", current=current, total=total))
 
-    ws = WeightSource(reader, device, progress=tensor_progress)
+    ws = WeightSource(reader, device, progress=tensor_progress,
+                      lora_adapters=lora_adapters)
     model_params = build_params(ws, spec)
     progress(LoadProgress("loaded", byte_size=total_bytes))
 

@@ -35,6 +35,8 @@ from llm_tpu_torch.ops.packing import (
     QuantTensor,
     QuantTensorC,
     decode_ggml,
+    dequant,
+    dequant_c,
     fuse_quant,
     pack_decoded,
     pack_ggml,
@@ -133,6 +135,75 @@ _W_FIELDS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_qkv",
              "w_gate_up")
 
 
+def _dense_upcast_max_bytes() -> int:
+    """Size gate of the dense upcast, in packed bytes, read from the
+    reference's variables: LLM_TPU_DENSE_UPCAST "0" (default) off, "1"
+    always, anything else "auto": models whose packed weight bytes fit
+    under LLM_TPU_DENSE_UPCAST_MAX_MB (default 256)."""
+    import os
+
+    v = os.environ.get("LLM_TPU_DENSE_UPCAST", "0")
+    if v == "0":
+        return 0
+    if v == "1":
+        return 1 << 62
+    return int(os.environ.get("LLM_TPU_DENSE_UPCAST_MAX_MB", "256")) << 20
+
+
+def _packed_bytes(w) -> int:
+    if isinstance(w, QuantTensor):
+        return sum(p.numel() * p.element_size() for p in w.planes()
+                   if p is not None)
+    if isinstance(w, QuantTensorC):
+        return w.buf.numel() * w.buf.element_size()
+    return w.numel() * w.element_size()
+
+
+def _upcast_weight(w, dtype):
+    """One quantized weight (layer-stacked or not) -> dense [L?, K, R] on
+    its device; a dense weight is returned as it is."""
+    if isinstance(w, QuantTensorC):
+        if w.buf.dim() == 3:  # stacked [L, ...]
+            return torch.stack([dequant_c(w.layer(i)).to(dtype)
+                                for i in range(w.buf.shape[0])])
+        return dequant_c(w).to(dtype)
+    if isinstance(w, QuantTensor):
+        return dequant(w).to(dtype)  # [..., K, R]: stacked layers too
+    return w
+
+
+def upcast_model_weights(params: ModelParams,
+                         dtype=torch.bfloat16) -> ModelParams:
+    """Hold a quantized model's weights dense on the device (the file's
+    format unchanged: a q8_0 file in, bf16 weights resident). Fused q|k|v
+    and gate|up are unfused first: a dense product has no launch to save.
+    Every product then runs in `ops/qmatmul.qmatmul`'s dense branch, with
+    bf16 operands and f32 accumulation on the card."""
+    layers = unfuse_layer_weights(params.layers)
+    lk = {f: _upcast_weight(getattr(layers, f), dtype) for f in _W_FIELDS
+          if isinstance(getattr(layers, f), (QuantTensor, QuantTensorC))}
+    pk = {f: _upcast_weight(getattr(params, f), dtype)
+          for f in ("wte", "wpe", "lm_head")
+          if isinstance(getattr(params, f), (QuantTensor, QuantTensorC))}
+    return dataclasses.replace(params, layers=dataclasses.replace(layers, **lk),
+                               **pk)
+
+
+def maybe_upcast_dense(params: ModelParams) -> ModelParams:
+    """Apply the dense-upcast gate (`_dense_upcast_max_bytes`). As in the
+    reference, the size sum leaves out `wpe`, and the upcast goes to bf16
+    on every device, the CPU included."""
+    total = sum(
+        _packed_bytes(w)
+        for w in [getattr(params.layers, f) for f in _W_FIELDS]
+        + [params.wte, params.lm_head]
+        if w is not None
+    )
+    if total <= _dense_upcast_max_bytes():
+        return upcast_model_weights(params)
+    return params
+
+
 def coalesce_layer_weights(params: ModelParams,
                            min_k: int = 2048) -> ModelParams:
     """The same model with every quantized layer weight that the
@@ -181,16 +252,20 @@ def stack_layers(layers: list[LayerParams]) -> LayerParams:
 
 
 class WeightSource:
-    """Fetch-and-pack adapter over a GgmlReader: packs each tensor on
-    `device` straight from its raw bytes. A quantized tensor whose rows
-    are selected (a fused q|k|v) is fetched and decoded once for all of
-    its selections: the decode is kept until another tensor is asked
-    for."""
+    """Fetch-and-pack adapter over a GgmlReader (and optional LoRA
+    adapters): packs each tensor on `device` straight from its raw bytes.
+    A quantized tensor whose rows are selected (a fused q|k|v) is fetched
+    and decoded once for all of its selections: the decode is kept until
+    another tensor is asked for. A LoRA patch is applied to the raw bytes
+    on the host, before packing (`lora.LoraAdapter.patch`), as the
+    reference's `WeightSource._raw` does."""
 
-    def __init__(self, reader: GgmlReader, device, progress=None):
+    def __init__(self, reader: GgmlReader, device, progress=None,
+                 lora_adapters=None):
         self.reader = reader
         self.device = torch.device(device)
         self.progress = progress
+        self.lora_adapters = lora_adapters or []
         self._loaded = 0
         self._decoded = (None, None)  # (name, decode_ggml's result)
 
@@ -200,6 +275,10 @@ class WeightSource:
     def _raw(self, name: str) -> tuple[TensorInfo, np.ndarray]:
         info = self.reader.tensors[name]
         data = self.reader.fetch(name)
+        for lora in self.lora_adapters:
+            patched = lora.patch(name, info, data)
+            if patched is not None:
+                info, data = patched
         self._loaded += 1
         if self.progress is not None:
             self.progress(name, self._loaded, len(self.reader.tensors))
@@ -548,7 +627,9 @@ _BUILDERS = {
 
 
 def build_params(ws: WeightSource, spec: ModelSpec) -> ModelParams:
-    return _BUILDERS[spec.arch](ws, spec)
+    """The model's parameters on the source's device, with the dense-upcast
+    gate applied (off unless LLM_TPU_DENSE_UPCAST asks for it)."""
+    return maybe_upcast_dense(_BUILDERS[spec.arch](ws, spec))
 
 
 # ---------------------------------------------------------------------------

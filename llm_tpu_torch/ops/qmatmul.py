@@ -284,7 +284,34 @@ def qmatmul(x: torch.Tensor, w, layer=None) -> torch.Tensor:
         x2 = x.reshape(-1, x.shape[-1])
         y = qmatmul_cuda(x2, w) if x2.is_cuda else qmatmul_plain(x2, w)
         return y.reshape(*lead, w.r)
+    if x.is_cuda:
+        # the reference's accelerator rule for a dense weight: bf16
+        # operands, f32 accumulation and result; the CPU keeps f32
+        lead = x.shape[:-1]
+        y = _mm_f32_out(x.reshape(-1, x.shape[-1]).to(torch.bfloat16),
+                        w.to(torch.bfloat16))
+        return y.reshape(*lead, w.shape[-1])
     return x.to(torch.float32) @ w.to(torch.float32)
+
+
+# whether torch.mm takes out_dtype for these operands here: None until the
+# first dense product on the card, then True or False
+MM_OUT_DTYPE: Optional[bool] = None
+
+
+def _mm_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 a @ bf16 b with an f32 result: `torch.mm(out_dtype=...)` keeps
+    the f32 accumulator where the installed torch has it for these
+    operands; otherwise the bf16 result is cast up."""
+    global MM_OUT_DTYPE
+    if MM_OUT_DTYPE is not False:
+        try:
+            y = torch.mm(a, b, out_dtype=torch.float32)
+            MM_OUT_DTYPE = True
+            return y
+        except (TypeError, NotImplementedError, RuntimeError):
+            MM_OUT_DTYPE = False
+    return torch.mm(a, b).to(torch.float32)
 
 
 def quant_rows_lookup(w, ids: torch.Tensor) -> torch.Tensor:

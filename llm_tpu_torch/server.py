@@ -9,6 +9,17 @@ stdlib `http.server`, so it adds no dependencies.
                          non-stream -> one JSON body; "stream": true ->
                          server-sent events, one data: line per UTF-8
                          fragment, closing with data: [DONE]
+  POST /v1/chat/completions  {"messages", "chat_template", ...}: the
+                         messages rendered to a prompt (`render_chat`),
+                         the user prefix joining the stop set; answers as
+                         chat.completion / chat.completion.chunk
+  POST /v1/embeddings    {"input"}: the final token's hidden state of each
+                         input, from a dedicated session on the engine
+                         thread
+  POST /admin/checkpoint {"path"}: an engine checkpoint between steps
+                         (`engine_snapshot.write_engine`); 200, or 409
+                         with the reason. A path must lie in the
+                         directory of the server's `engine_snapshot`
   GET  /v1/models        model listing
   GET  /health           liveness + engine occupancy
   GET  /metrics          request/token counters and TTFT percentiles
@@ -36,13 +47,18 @@ four speculative engines (`speculative.py`). A greedy-only one serves
 temperature 0 with its own greedy sampler; a sampled one needs a device
 sampler on every request, so an omitted temperature means 1.0 there.
 
-Not ported yet: chat completions, embeddings, engine checkpoints and the
-admin endpoint, multi-host engines.
+With `engine_snapshot` the server restores the engine from that file at
+construction when it exists (its streams finish headless), writes it on a
+graceful shutdown, and serves /admin/checkpoint. A file the restore
+refuses is moved to `<path>.corrupt` and the server starts fresh.
+
+Not ported yet: multi-host engines.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import queue
 import threading
 import time
@@ -52,6 +68,7 @@ from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+import numpy as np
 import torch
 
 from llm_tpu_torch.ops.sampling import DeviceSampler
@@ -166,6 +183,72 @@ def device_sampler_from_params(params: dict, allow_logprobs: bool = False):
                          **penalties)
 
 
+DEFAULT_CHAT_TEMPLATE = {
+    # the vicuna-chat convention: role prefixes, the user prefix doubling
+    # as the stop sequence
+    "system": "{content}\n\n",
+    "user": "### Human: {content}\n",
+    "assistant": "### Assistant: {content}\n",
+    "generation_prefix": "### Assistant: ",
+    "stop": "### Human:",
+}
+
+
+def render_chat(messages, template=None, jinja=None) -> tuple[str, str]:
+    """[{role, content}] -> (prompt, stop sequence).
+
+    Precedence: a per-request `chat_template` dict (role-format strings),
+    then the model's own HF-convention jinja template (GGUF
+    `tokenizer.chat_template`, rendered with add_generation_prompt), then
+    the built-in vicuna-style default. Unknown roles render with the user
+    prefix. Every template failure is a ValueError, which the handler
+    answers with a 400."""
+    if template is None and jinja:
+        try:
+            import jinja2
+        except ImportError:
+            raise ValueError(
+                "this checkpoint's chat template needs jinja2, which is "
+                "not installed; pass a chat_template dict instead"
+            )
+        compiled = _JINJA_CACHE.get(jinja)
+        try:
+            if compiled is None:
+                env = jinja2.Environment()  # noqa: S701 — text templating
+                env.globals["raise_exception"] = _jinja_raise
+                compiled = env.from_string(jinja)
+                if len(_JINJA_CACHE) > 8:
+                    _JINJA_CACHE.clear()
+                _JINJA_CACHE[jinja] = compiled
+            prompt = compiled.render(
+                messages=list(messages),
+                add_generation_prompt=True,
+                bos_token="",
+                eos_token="",
+            )
+        except jinja2.TemplateError as e:
+            raise ValueError(f"chat template error: {e}") from e
+        # generation halts at the model's own EoT; no textual stop needed
+        return prompt, ""
+    t = dict(DEFAULT_CHAT_TEMPLATE)
+    if template:
+        t.update(template)
+    parts = []
+    for m in messages:
+        fmt = t.get(m.get("role", "user")) or t["user"]
+        parts.append(fmt.format(content=m.get("content", "")))
+    parts.append(t["generation_prefix"])
+    return "".join(parts), t["stop"]
+
+
+_JINJA_CACHE: dict = {}  # compiled template by source text
+
+
+def _jinja_raise(message):
+    """HF chat templates call raise_exception() for unsupported inputs."""
+    raise ValueError(message)
+
+
 class _StopScanner:
     """Holdback scanner: emit only text that cannot still become a stop
     string; report a match exactly once, with the match excised."""
@@ -219,10 +302,12 @@ class _EngineLoop(threading.Thread):
     `step_multi(N)` when nothing is pending and every slot is empty or
     decoding with a device sampler, else `step()`."""
 
-    def __init__(self, engine: Engine, multi_step: int = 0):
+    def __init__(self, engine: Engine, multi_step: int = 0,
+                 snapshot_path=None):
         super().__init__(daemon=True, name="llm-tpu-torch-engine")
         self.engine = engine
         self.multi_step = multi_step
+        self.snapshot_path = snapshot_path  # final checkpoint on shutdown
         self.inbox: "queue.Queue" = queue.Queue()
         self.tickets: dict[int, _Ticket] = {}
         self.stopping = False
@@ -270,8 +355,79 @@ class _EngineLoop(threading.Thread):
                 payload.ready.set()
             elif kind == "cancel":
                 self.engine.cancel(payload)
+            elif kind == "embed":
+                inputs, out_q = payload
+                try:
+                    out_q.put(("ok", self._embed(inputs)))
+                except Exception as e:  # noqa: BLE001
+                    out_q.put(("error", str(e)))
+            elif kind == "checkpoint":
+                path, out_q = payload
+                out_q.put(self._checkpoint(path, client=True))
             elif kind == "stop":
+                # keep draining: a checkpoint or submit racing shutdown
+                # still gets an answer
                 self.stopping = True
+
+    def _checkpoint(self, path, client: bool = False) -> tuple[str, str]:
+        """Write an engine checkpoint between steps (this is the engine
+        thread, so the engine is quiesced). A `client` path (from HTTP)
+        must lie in the configured snapshot's directory: the endpoint is
+        no arbitrary-path file write."""
+        from llm_tpu_torch.engine_snapshot import write_engine
+
+        if not self.snapshot_path:
+            return ("error", "no snapshot path configured")
+        if path and client:
+            want_dir = os.path.dirname(os.path.abspath(self.snapshot_path))
+            if os.path.dirname(os.path.abspath(path)) != want_dir:
+                return ("error", "path must live in the configured "
+                                 f"snapshot directory {want_dir}")
+        path = path or self.snapshot_path
+        try:
+            self._dispatch(self.engine._drain_retired())
+            write_engine(self.engine, path)
+            return ("ok", str(path))
+        except Exception as e:  # noqa: BLE001 — e.g. a custom sampler
+            return ("error", str(e))
+
+    def checkpoint(self, path=None, timeout: float = 600.0):
+        """From a handler thread: checkpoint without stopping the server."""
+        out_q: "queue.Queue" = queue.Queue()
+        self.inbox.put(("checkpoint", (path, out_q)))
+        try:
+            return out_q.get(timeout=timeout)
+        except queue.Empty:
+            return ("error", "engine loop did not respond (shutting down?)")
+
+    def _embed(self, inputs) -> list:
+        """The final token's hidden state of each input, through a
+        dedicated session on the engine thread (the device never sees two
+        threads' work interleaved)."""
+        from llm_tpu_torch.session import (
+            InferenceSession,
+            InferenceSessionConfig,
+            OutputRequest,
+        )
+
+        model = self.engine.model
+        out = []
+        for text in inputs:
+            session = InferenceSession(model, InferenceSessionConfig())
+            req = OutputRequest(embeddings=[])
+            session.feed_prompt(text, output_request=req)
+            emb = np.asarray(req.embeddings, np.float32).reshape(
+                -1, model.spec.n_embd)
+            out.append([float(x) for x in emb[-1]])
+        return out
+
+    def embed(self, inputs, timeout: float = 600.0) -> list:
+        out_q: "queue.Queue" = queue.Queue()
+        self.inbox.put(("embed", (inputs, out_q)))
+        status, result = out_q.get(timeout=timeout)
+        if status == "error":
+            raise RuntimeError(result)
+        return result
 
     def _dispatch(self, events) -> None:
         for rid, text, done in events:
@@ -318,6 +474,10 @@ class _EngineLoop(threading.Thread):
                 tickets, self.tickets = self.tickets, {}
                 for t in tickets.values():
                     t.events.put(("", True, "error: engine step failed", None))
+        if self.snapshot_path:
+            status, info = self._checkpoint(self.snapshot_path)
+            print(f"engine checkpoint on shutdown: {status} {info}",
+                  flush=True)
 
     def _tick(self) -> None:
         self._drain_inbox(block=not self.engine.has_work())
@@ -338,14 +498,37 @@ class _EngineLoop(threading.Thread):
 
 
 class LlmServer:
-    """Bind an Engine (dense or paged) to an HTTP address."""
+    """Bind an Engine (dense, paged or speculative) to an HTTP address."""
 
     def __init__(self, model, engine: Engine, host: str = "127.0.0.1",
                  port: int = 8080, multi_step: int = 0,
-                 default_max_tokens: int = 256):
+                 default_max_tokens: int = 256, engine_snapshot=None):
+        """`engine_snapshot`: the engine checkpoint's path. Restored here
+        when the file exists (the streams in flight resume and finish
+        headless: their clients went with the old process), written on a
+        graceful shutdown, and written live by POST /admin/checkpoint."""
         self.model = model
         self.model_id = getattr(model, "name", None) or "llm-tpu"
-        self.loop = _EngineLoop(engine, multi_step=multi_step)
+        self.engine_snapshot = engine_snapshot
+        if engine_snapshot is not None and os.path.exists(engine_snapshot):
+            from llm_tpu_torch.engine_snapshot import read_engine
+            from llm_tpu_torch.session import SnapshotError
+
+            try:
+                read_engine(engine, engine_snapshot)
+                print(f"restored engine state from {engine_snapshot} "
+                      f"({engine.active} streams in flight, "
+                      f"{len(engine.pending)} pending)", flush=True)
+            except SnapshotError as e:
+                # a refused checkpoint must not stop the server: keep the
+                # file aside and serve with the fresh engine, loudly
+                quarantine = f"{engine_snapshot}.corrupt"
+                os.replace(engine_snapshot, quarantine)
+                print(f"WARNING: engine checkpoint rejected ({e}); moved "
+                      f"to {quarantine}, serving with a fresh engine",
+                      flush=True)
+        self.loop = _EngineLoop(engine, multi_step=multi_step,
+                                snapshot_path=engine_snapshot)
         self.default_max_tokens = default_max_tokens
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
@@ -533,19 +716,69 @@ def _make_handler(server: LlmServer):
             else:
                 self._json(404, {"error": "not found"})
 
-        def do_POST(self):  # noqa: N802
-            if self.path not in ("/v1/completions", "/completions"):
-                self._json(404, {"error": "not found"})
-                return
+        def _body(self) -> Optional[dict]:
+            """The request's JSON object, or None after answering 400."""
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(n) or b"{}")
             except (ValueError, json.JSONDecodeError):
                 self._json(400, {"error": "invalid JSON body"})
-                return
+                return None
             if not isinstance(body, dict):
                 self._json(400, {"error": "body must be a JSON object"})
+                return None
+            return body
+
+        def do_POST(self):  # noqa: N802
+            if self.path == "/admin/checkpoint":
+                body = self._body()
+                if body is None:
+                    return
+                status, info = server.loop.checkpoint(body.get("path"))
+                self._json(200 if status == "ok" else 409, {
+                    "status": status,
+                    ("path" if status == "ok" else "error"): info})
                 return
+            chat = self.path in ("/v1/chat/completions", "/chat/completions")
+            embed = self.path in ("/v1/embeddings", "/embeddings")
+            if not (chat or embed) and self.path not in ("/v1/completions",
+                                                         "/completions"):
+                self._json(404, {"error": "not found"})
+                return
+            body = self._body()
+            if body is None:
+                return
+            if embed:
+                inputs = body.get("input", [])
+                if isinstance(inputs, str):
+                    inputs = [inputs]
+                try:
+                    vecs = server.loop.embed(inputs)
+                except RuntimeError as e:
+                    self._json(400, {"error": str(e)})
+                    return
+                self._json(200, {
+                    "object": "list", "model": server.model_id,
+                    "data": [{"object": "embedding", "index": i,
+                              "embedding": v} for i, v in enumerate(vecs)],
+                })
+                return
+            if chat:
+                # the messages rendered to a prompt; the user prefix joins
+                # the stop set (the cli chat's convention)
+                try:
+                    prompt, stop = render_chat(
+                        body.get("messages", ()),
+                        body.get("chat_template"),
+                        getattr(server.model, "chat_template", None),
+                    )
+                except ValueError as e:
+                    self._json(400, {"error": str(e)})
+                    return
+                stops = body.get("stop") or []
+                if isinstance(stops, str):
+                    stops = [stops]
+                body = dict(body, prompt=prompt, stop=[*stops, stop])
             try:
                 n_raw = body.get("n")
                 n_choices = 1 if n_raw is None else int(n_raw)
@@ -572,9 +805,9 @@ def _make_handler(server: LlmServer):
                     g.close()
                 self._json(400, {"error": str(e)})
                 return
-            cid = f"cmpl-{uuid.uuid4().hex[:24]}"
+            cid = f"{'chatcmpl' if chat else 'cmpl'}-{uuid.uuid4().hex[:24]}"
             if body.get("stream"):
-                self._stream(cid, gens)
+                self._stream(cid, gens, chat)
                 return
             choices = []
             for idx, gen in enumerate(gens):
@@ -584,8 +817,15 @@ def _make_handler(server: LlmServer):
                         reason, info = r, inf
                     elif text:
                         parts.append(text)
-                choice = {"index": idx, "text": "".join(parts),
-                          "finish_reason": _finish_name(reason)}
+                whole = "".join(parts)
+                if chat:
+                    choice = {"index": idx,
+                              "message": {"role": "assistant",
+                                          "content": whole.rstrip()},
+                              "finish_reason": _finish_name(reason)}
+                else:
+                    choice = {"index": idx, "text": whole,
+                              "finish_reason": _finish_name(reason)}
                 if info and info.get("logprobs"):
                     lp = info["logprobs"]
                     choice["logprobs"] = {
@@ -596,20 +836,27 @@ def _make_handler(server: LlmServer):
                 choices.append(choice)
             self._json(200, {
                 "id": cid,
-                "object": "text_completion",
+                "object": "chat.completion" if chat else "text_completion",
                 "model": server.model_id,
                 "choices": choices,
             })
 
-        def _chunk(self, cid, text, reason, index=0) -> bytes:
+        def _chunk(self, cid, chat, text, reason, index=0) -> bytes:
+            if chat:
+                choice = {"index": index,
+                          "delta": {"content": text} if reason is None else {},
+                          "finish_reason": reason}
+                obj = "chat.completion.chunk"
+            else:
+                choice = {"index": index, "text": text,
+                          "finish_reason": reason}
+                obj = "text_completion"
             return b"data: " + json.dumps({
-                "id": cid, "object": "text_completion",
-                "model": server.model_id,
-                "choices": [{"index": index, "text": text,
-                             "finish_reason": reason}],
+                "id": cid, "object": obj, "model": server.model_id,
+                "choices": [choice],
             }).encode() + b"\n\n"
 
-        def _stream(self, cid: str, gens) -> None:
+        def _stream(self, cid: str, gens, chat: bool = False) -> None:
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
@@ -623,11 +870,12 @@ def _make_handler(server: LlmServer):
                     for text, done, reason, _info in gen:
                         if done:
                             self.wfile.write(self._chunk(
-                                cid, "", _finish_name(reason), idx))
+                                cid, chat, "", _finish_name(reason), idx))
                             break
                         if not text:
                             continue
-                        self.wfile.write(self._chunk(cid, text, None, idx))
+                        self.wfile.write(
+                            self._chunk(cid, chat, text, None, idx))
                         self.wfile.flush()
                 self.wfile.write(b"data: [DONE]\n\n")
             except (BrokenPipeError, ConnectionResetError):
@@ -640,52 +888,63 @@ def _make_handler(server: LlmServer):
 def build_engine(model, max_streams=8, kv_dtype=None, n_batch=64,
                  paged=False, page_size=256, n_pages=None,
                  prefix_cache=False, draft=None, draft_k=4,
-                 draft_sampled=False) -> Engine:
+                 draft_sampled=False, engine_snapshot=None) -> Engine:
     """The dense Engine, or a PagedEngine with `paged`; with a `draft`
     model the speculative engine of the same kind (greedy, or rejection
     sampling with `draft_sampled`), proposing `draft_k` tokens a round.
-    kv_dtype defaults to bf16."""
+    kv_dtype defaults to bf16. With `engine_snapshot` the new engine is
+    restored from that checkpoint (`engine_snapshot.read_engine`; a
+    refused file raises SnapshotError)."""
     kv_dtype = kv_dtype if kv_dtype is not None else torch.bfloat16
     if prefix_cache and not paged:
         raise ValueError("--prefix-cache requires --paged")
+    kwargs = {} if n_pages is None else {"n_pages": n_pages}
     if draft is not None:
         from llm_tpu_torch import speculative as sp
 
         if paged:
             cls = (sp.PagedSampledSpeculativeEngine if draft_sampled
                    else sp.PagedSpeculativeEngine)
-            kwargs = {} if n_pages is None else {"n_pages": n_pages}
-            return cls(model, draft, k=draft_k, max_streams=max_streams,
-                       kv_dtype=kv_dtype, n_batch=n_batch,
-                       page_size=page_size, prefix_cache=prefix_cache,
-                       **kwargs)
-        cls = (sp.SampledSpeculativeEngine if draft_sampled
-               else sp.SpeculativeEngine)
-        return cls(model, draft, k=draft_k, max_streams=max_streams,
-                   kv_dtype=kv_dtype, n_batch=n_batch)
-    if paged:
+            engine = cls(model, draft, k=draft_k, max_streams=max_streams,
+                         kv_dtype=kv_dtype, n_batch=n_batch,
+                         page_size=page_size, prefix_cache=prefix_cache,
+                         **kwargs)
+        else:
+            cls = (sp.SampledSpeculativeEngine if draft_sampled
+                   else sp.SpeculativeEngine)
+            engine = cls(model, draft, k=draft_k, max_streams=max_streams,
+                         kv_dtype=kv_dtype, n_batch=n_batch)
+    elif paged:
         from llm_tpu_torch.paged import PagedEngine
 
-        kwargs = {} if n_pages is None else {"n_pages": n_pages}
-        return PagedEngine(model, max_streams=max_streams,
-                           kv_dtype=kv_dtype, page_size=page_size,
-                           n_batch=n_batch, prefix_cache=prefix_cache,
-                           **kwargs)
-    return Engine(model, max_streams=max_streams, kv_dtype=kv_dtype,
-                  n_batch=n_batch)
+        engine = PagedEngine(model, max_streams=max_streams,
+                             kv_dtype=kv_dtype, page_size=page_size,
+                             n_batch=n_batch, prefix_cache=prefix_cache,
+                             **kwargs)
+    else:
+        engine = Engine(model, max_streams=max_streams, kv_dtype=kv_dtype,
+                        n_batch=n_batch)
+    if engine_snapshot is not None:
+        from llm_tpu_torch.engine_snapshot import read_engine
+
+        read_engine(engine, engine_snapshot)
+    return engine
 
 
 def serve_forever(model, host="127.0.0.1", port=8080, max_streams=8,
                   kv_dtype=None, n_batch=64, paged=False, page_size=256,
                   n_pages=None, warmup=True, prefix_cache=False,
                   multi_step=0, draft=None, draft_k=4,
-                  draft_sampled=False) -> None:
-    """CLI entry: build the engine and serve until interrupted."""
+                  draft_sampled=False, engine_snapshot=None) -> None:
+    """CLI entry: build the engine and serve until interrupted. With
+    `engine_snapshot`, the engine is restored from that file when it
+    exists (a refused file is set aside; `LlmServer`), and written there
+    when the server stops."""
     engine = build_engine(model, max_streams, kv_dtype, n_batch, paged,
                           page_size, n_pages, prefix_cache, draft, draft_k,
                           draft_sampled)
     srv = LlmServer(model, engine, host=host, port=port,
-                    multi_step=multi_step)
+                    multi_step=multi_step, engine_snapshot=engine_snapshot)
     srv.loop.start()
     if warmup:
         print("warming up (building and loading the kernels)...", flush=True)
@@ -702,4 +961,8 @@ def serve_forever(model, host="127.0.0.1", port=8080, max_streams=8,
     try:
         srv.httpd.serve_forever()
     finally:
+        # a graceful exit (SIGINT) drains the loop, so the final engine
+        # checkpoint lands before the process ends
         srv.loop.shutdown()
+        if engine_snapshot is not None:
+            srv.loop.join(timeout=600)

@@ -103,6 +103,7 @@ class InferenceSessionConfig:
     memory_k_type: ModelKVMemoryType = ModelKVMemoryType.Float16
     memory_v_type: ModelKVMemoryType = ModelKVMemoryType.Float16
     n_batch: int = 8
+    n_threads: int = 8  # accepted for parity; torch owns the parallelism
 
 
 @dataclass

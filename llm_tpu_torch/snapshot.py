@@ -29,7 +29,6 @@ from llm_tpu_torch.session import (
 
 MAGIC = b"LTSN"
 VERSION = 2
-N_THREADS = 8  # the reference's default InferenceSessionConfig.n_threads
 
 
 def _compress(data: bytes) -> tuple[bytes, str]:
@@ -65,8 +64,7 @@ def write_session(session: InferenceSession, path: str | Path) -> None:
         "memory_k_type": snap.config.memory_k_type.value,
         "memory_v_type": snap.config.memory_v_type.value,
         "n_batch": snap.config.n_batch,
-        # the reference's thread count, which torch does not take
-        "n_threads": N_THREADS,
+        "n_threads": snap.config.n_threads,
         "k_len": len(snap.memory_k),
         "v_len": len(snap.memory_v),
         "scale_shape": list(snap.scale_shape) if snap.scale_shape else None,
@@ -102,6 +100,7 @@ def read_session(model, path: str | Path) -> InferenceSession:
         memory_k_type=ModelKVMemoryType(header["memory_k_type"]),
         memory_v_type=ModelKVMemoryType(header["memory_v_type"]),
         n_batch=header["n_batch"],
+        n_threads=header["n_threads"],
     )
     ll_len = header.get("ll_len", 0)  # 0: v1 header-JSON logits
     last_logits = (

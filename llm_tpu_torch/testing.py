@@ -212,9 +212,11 @@ def make_tiny_file(
     path: str | Path,
     element_type: GgmlType = GgmlType.F32,
     seed: int = 0,
+    n_ff: int | None = None,
     **hparam_overrides,
 ) -> Hyperparameters:
     """Write a tiny random checkpoint; 2-D tensors use `element_type`.
+    `n_ff` sets the feed-forward width (default 2 * n_embd).
 
     K-quant element types need n_embd a multiple of 256 (QK_K), e.g.
     make_tiny_file("llama", p, GgmlType.Q4_K, n_embd=256).
@@ -239,7 +241,7 @@ def make_tiny_file(
     with open(path, "wb") as f:
         w = GgmlWriter(f, ContainerType("ggjt", 3))
         w.write_header(hb.getvalue(), vocab)
-        for name, dims in _tensor_names(arch, h):
+        for name, dims in _tensor_names(arch, h, n_ff=n_ff):
             n = int(np.prod(dims))
             data = (rng.standard_normal(n, dtype=np.float32) * 0.1).astype(np.float32)
             if len(dims) == 2 and element_type != GgmlType.F32:
@@ -332,3 +334,42 @@ def make_bench_file(
                 w.write_tensor(name, GgmlType.F32, dims,
                                data.astype(np.float32).tobytes())
     return h
+
+
+def make_lora_file(
+    path: str | Path,
+    names,
+    shapes: dict,
+    r: int,
+    alpha: int,
+    seed: int = 0,
+    scale: float = 0.1,
+) -> dict:
+    """Write a random GGLA adapter (magic 'ggla' v1, hyperparameters
+    {r, alpha}, no vocabulary, 32-byte aligned f32 tensors) patching each
+    weight of `names`, whose ggml dims (K, R) `shapes` gives: A as numpy
+    [K, r] (`{name}.loraA`) and B as [R, r] (`{name}.loraB`), normal with
+    standard deviation `scale`. Returns {name: (A, B)}."""
+    import struct
+
+    rng = np.random.default_rng(seed)
+    factors = {}
+    with open(path, "wb") as f:
+        ContainerType("ggla", 1).write(f)
+        f.write(struct.pack("<ii", r, alpha))
+        for name in names:
+            K, R = shapes[name]
+            a = (rng.standard_normal((K, r), dtype=np.float32) * scale)
+            b = (rng.standard_normal((R, r), dtype=np.float32) * scale)
+            factors[name] = (a, b)
+            for suffix, arr in ((".loraA", a), (".loraB", b)):
+                dims = tuple(reversed(arr.shape))  # numpy [R, K] -> (K, R)
+                nb = (name + suffix).encode()
+                f.write(struct.pack("<iiI", len(dims), len(nb),
+                                    int(GgmlType.F32)))
+                for d in dims:
+                    f.write(struct.pack("<i", d))
+                f.write(nb)
+                f.write(b"\x00" * ((-f.tell()) % 32))
+                f.write(np.ascontiguousarray(arr).tobytes())
+    return factors

@@ -175,7 +175,7 @@ def test_bad_requests(servers):
             _post(ts, body)
         assert e.value.code == 400
     with pytest.raises(urllib.error.HTTPError) as e:
-        _post(ts, GREEDY, path="/v1/chat/completions")  # not ported yet
+        _post(ts, GREEDY, path="/v1/no-such-route")  # chat: server_routes
     assert e.value.code == 404
 
 
