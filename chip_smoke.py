@@ -35,6 +35,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             a kv head, page 24, all four pools, ALiBi, n_past 0, mid-page
             and full), and repeated launches, and a launch after one with
             another grid, must give bit-equal results.
+            The shard shapes: K1 over each projection of a model=2 rank
+            of LLaMA-7B (q|k|v R 6144, wo K 2048, gate|up R 11008, down
+            K 5504, head R 16000) at M = 1 and 64, K2 and K4 (int8) over
+            16 local heads, each against its plain version and timed.
 3. e2e:     a full-width random LLaMA-7B Q4_0 checkpoint (seed 0, ~3.9 GB,
             written under build/smoke/, removed by the gguf phase) is loaded
             on the card, and `InferenceSession.infer` answers three greedy
@@ -43,6 +47,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             (prompt chunks of 512 rows on qmatmul's wide path, decode steps
             on its swapped path). The first prefill and decode logits are
             then held against the port's plain path on the same card.
+   pack:    the e2e file's pack (`models/pack_cache.py`, what `llm-tpu-torch
+            pack` writes) next to it under build/smoke/, then a warm load
+            with the transcode forbidden: every plane bit-equal to the cold
+            load's; cold load, write and warm load s and the pack's bytes;
+            the pack removed. The same on MPT-7B Q4_K inside `archs`.
+   parallel: a gloo world of 2 ranks on the one card
+            (`parallel/launch.spawn`, the kernels already built), each
+            loading the e2e file whole: tensor parallelism over a (1, 2)
+            mesh, the prompt and 16 forced tokens held against the
+            single-card forward (relative L2 2^-8 and top-1; layer by
+            layer where they diverge), one decode forward launching
+            exactly 129 K1 and 32 K2, its ms a token beside the single
+            card's, the audit's bytes a token (exact), host-staged
+            collective ms and K1 at the rank's shapes; the dense bf16 and
+            paged int8 engines under the mesh on 4 serve prompts (16 new
+            each; the prompts cut to their first 64 tokens, one prefill
+            chunk), launches held to their forwards, texts equal on both
+            ranks; a multi-step run (blocks of 4, eager under the mesh,
+            counted); the pipeline (2 stages of 16 layers, 2 microbatches of
+            2 streams) and the ring prefill of the 1100-token prompt held
+            against the single-card forward, launches exact. Then a world
+            of one on nccl over a 2-layer full-width model, held against
+            its unsharded forward. The ranks share one card and gloo
+            stages every collective through the host: not a multi-GPU
+            speed.
    device_sampling: the same model (no second load) through
             `InferenceSession.infer_device`, whose T=1 decode step runs as
             a captured CUDA graph replayed once a token: one captured step
@@ -4050,6 +4079,9 @@ def arch_model(entry, dev, timer) -> dict:
                             device=dev)
         torch.cuda.synchronize()
         out["load_s"] = time.monotonic() - t0
+        if arch == "mpt":  # the pack cache on the K-quant model
+            out["pack"] = pack_case(name, path, arch, model, out["load_s"],
+                                    ctx, dev)
     finally:
         path.unlink(missing_ok=True)
     spec = model.spec
@@ -5213,9 +5245,617 @@ def attn_by_case(recs, label) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3c: the pack cache (models/pack_cache.py)
+
+
+def leaves_equal(name, a, b) -> int:
+    """Every tensor leaf of two parameter trees bit-equal (same dtype and
+    shape); returns the number of leaves compared."""
+    from dataclasses import fields
+
+    from llm_tpu_torch.ops.packing import QuantTensor, QuantTensorC
+
+    def leaves(obj, out):
+        if isinstance(obj, torch.Tensor):
+            out.append(obj)
+        elif isinstance(obj, QuantTensor):
+            for p in obj.planes():
+                leaves(p, out)
+        elif isinstance(obj, QuantTensorC):
+            out.append(obj.buf)
+        elif obj is not None and hasattr(obj, "__dataclass_fields__"):
+            for f in fields(obj):
+                leaves(getattr(obj, f.name), out)
+        return out
+
+    la, lb = leaves(a, []), leaves(b, [])
+    if len(la) != len(lb) or not la:
+        fail(f"{name}: {len(la)} leaves against {len(lb)}")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+                y.view(torch.int16) if y.dtype == torch.bfloat16 else y):
+            fail(f"{name}: leaf {i} of the warm load differs from the cold "
+                 "load's")
+    return len(la)
+
+
+def pack_case(name, path, arch, model, cold_s, ctx, dev) -> dict:
+    """`llm-tpu-torch pack`'s work on a loaded model: write the pack next
+    to `path`, load the file again (the transcode forbidden, so the load
+    must come from the pack), hold every plane bit-equal to the cold
+    load's, and remove the pack."""
+    import shutil
+
+    from llm_tpu_torch import loader
+    from llm_tpu_torch.models.pack_cache import (
+        cache_key,
+        pack_path,
+        save_packed_params,
+    )
+
+    pp = pack_path(path)
+    shutil.rmtree(pp, ignore_errors=True)
+    t_start = time.monotonic()
+    build = loader.build_params
+
+    def forbidden(ws, spec):
+        fail(f"{name}: the warm load transcoded despite the pack")
+
+    try:
+        t0 = time.monotonic()
+        save_packed_params(model.params, pp, cache_key(path))
+        write_s = time.monotonic() - t0
+        n_bytes = sum(f.stat().st_size for f in pp.iterdir())
+        loader.build_params = forbidden
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        warm = loader.load(path, arch,
+                           params=loader.ModelParameters(context_size=ctx),
+                           device=dev)
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
+    finally:
+        loader.build_params = build
+        shutil.rmtree(pp, ignore_errors=True)
+    leaves = leaves_equal(name, model.params, warm.params)
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cold_load_s": cold_s, "write_s": write_s, "pack_bytes": n_bytes,
+            "warm_load_s": warm_s, "leaves_bit_equal": leaves,
+            "seconds": time.monotonic() - t_start}
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: parallelism (parallel/), worlds of 2 ranks on the one card
+
+
+PAR_WORLD = 2
+PAR_PROMPT, PAR_DECODE = 64, 16  # the teacher-forced TP run
+PAR_ENGINE_PROMPTS, PAR_ENGINE_NEW = 4, 16
+PAR_ENGINE_CUT = 64  # tokens of each serve prompt the engines take (one chunk)
+PAR_MULTI_NEW = 8  # tokens a stream of the multi-step run, in 2 blocks
+PAR_PIPE_STREAMS, PAR_PIPE_MICRO, PAR_PIPE_T = 4, 2, 16
+PAR_TIMEOUT = 300  # s a world may run before it is killed
+# the engines under a mesh: TP (1, 2) dense bf16 and paged int8, and the
+# dense engine over (data, model) = (2, 1)
+PAR_ENGINES = ("dense", "paged", "dense_dp")
+NCCL_LAYERS = 2
+
+
+def rank_timer_ms(fn, iters: int = 10) -> float:
+    """Median wall ms of fn() with the card synchronized around each run
+    (a collective staged through the host is timed with its copies)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def teacher_forced(model, params, cache, ids, tokens, trace=None,
+                   inputs=None):
+    """The prompt's last logits and the logits of len(tokens) decode steps
+    fed `tokens` (forced, not sampled), as [1 + n, V]; with `trace` each
+    layer's output is recorded (`layer_trace`), with `inputs` each layer
+    runs on the recorded input of another run."""
+    from llm_tpu_torch.models.forward import forward_step, window_bucket
+
+    spec = model.spec
+    ctx = (layer_trace(trace, inputs) if trace is not None
+           else contextlib.nullcontext([]))
+    with ctx as seen:
+        rows = [forward_step(spec, params, torch.tensor(ids), 0, cache,
+                             window_bucket(0, spec.n_ctx))[0][-1]]
+        for i, t in enumerate(tokens):
+            n = len(ids) + i
+            rows.append(forward_step(spec, params, torch.tensor([t]), n,
+                                     cache, window_bucket(n, spec.n_ctx))
+                        [0][-1])
+    return torch.stack(rows).float(), seen
+
+
+def held_forced(name, model, run_ref, run_got) -> dict:
+    """`run_got`'s logits against `run_ref`'s (each a function of (trace,
+    inputs) -> logits): free running (only the tokens forced) within
+    E2E_REL_L2 with top-1 equal; where they diverge, layer by layer with
+    each layer on the reference's input for it (the random 7B is chaotic,
+    ROADMAP C), every layer and the logits within E2E_REL_L2."""
+    ref_h = []
+    ref, ref_in = run_ref(ref_h, None)
+    got, _ = run_got(None, None)
+    free = float((got - ref).norm() / ref.norm())
+    out = {"rows": int(ref.shape[0]), "free_rel_l2": free,
+           "free_top1_agree": float((got.argmax(-1) == ref.argmax(-1))
+                                    .float().mean())}
+    if free <= E2E_REL_L2:
+        out["held"] = "free"
+        out.update(top1_held(name, got, ref))
+        return out
+    got_h = []
+    forced, _ = run_got(got_h, ref_in)
+    layer = [float((g - r).norm() / r.norm()) for g, r in zip(got_h, ref_h)]
+    out.update(held="layer_forced", layer_rel_l2_max=max(layer),
+               **compare_logits(name, forced, ref),
+               **top1_held(name, forced, ref))
+    if max(layer) > E2E_REL_L2:
+        fail(f"{name}: a layer differs: rel L2 {max(layer):.3g}")
+    return out
+
+
+def par_engine_texts(model, mesh, prompts, kind, dev) -> dict:
+    """One engine over `mesh` on the prompts, greedy, PAR_ENGINE_NEW new
+    tokens each; its launches counted (counters zeroed just before, read
+    just after) and held exactly to the forwards it ran."""
+    from llm_tpu_torch import paged as paged_mod
+    from llm_tpu_torch import serve as serve_mod
+    from llm_tpu_torch.samplers import GreedySampler
+
+    if kind == "paged":
+        engine = paged_mod.PagedEngine(
+            model, max_streams=len(prompts), page_size=SERVE_PAGE,
+            kv_dtype="int8", n_batch=64, mesh=mesh)
+        module, fn, attention = paged_mod, "paged_forward_batched", \
+            "paged_attention"
+    else:
+        engine = serve_mod.Engine(model, max_streams=len(prompts),
+                                  kv_dtype=torch.bfloat16, n_batch=64,
+                                  mesh=mesh)
+        module, fn, attention = serve_mod, "forward_batched", \
+            "dense_attention"
+    reqs = [serve_mod.GenerationRequest(prompt=p, max_tokens=PAR_ENGINE_NEW,
+                                        sampler=GreedySampler())
+            for p in prompts]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.monotonic()
+    with counted_forwards(module, fn) as counts:
+        got = engine.generate_all(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    check_engine_launches(f"{kind} engine under a mesh", launches,
+                          dict(counts), attention, model.spec)
+    slots = engine.cache.k.shape[1] if kind == "dense" else None
+    del engine
+    torch.cuda.empty_cache()
+    return {"texts": [got[i] for i in sorted(got)], "launches": launches,
+            "forwards": dict(counts), "wall_s": wall, "cache_slots": slots}
+
+
+def parallel_rank(rank, world, path, device) -> dict:
+    """One rank of the gloo world of 2 on the one card: TP over
+    ("data", "model") = (1, 2), the GPipe pipeline over 2 stages and the
+    ring prefill over 2 ranks, each held against the single-card forward
+    of the same weights (which every rank loads whole from the file)."""
+    from llm_tpu_torch import loader
+    from llm_tpu_torch.models import forward as fwd
+    from llm_tpu_torch.parallel import collectives_audit as audit
+    from llm_tpu_torch.parallel import pipeline as pp
+    from llm_tpu_torch.parallel import ring
+    from llm_tpu_torch.parallel import sharding as sh
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": rank}
+    t0 = time.monotonic()
+    model = loader.load(path, "llama",
+                        params=loader.ModelParameters(context_size=CTX),
+                        device=dev)
+    spec = model.spec
+    out["load_s"] = time.monotonic() - t0
+    mesh = sh.make_mesh(sh.MeshConfig(data=1, model=world), device=dev)
+    t0 = time.monotonic()
+    params = sh.shard_params(model.params, mesh, spec)
+    torch.cuda.synchronize()
+    out["shard_s"] = time.monotonic() - t0
+    tp = params.tp
+    out["layout"] = {"attn": tp.attn, "wo_split": tp.wo_split,
+                     "ffn": tp.ffn, "vocab": tp.vocab,
+                     "n_head": tp.n_head, "n_head_kv": tp.n_head_kv,
+                     "wqkv_r": params.layers.w_qkv.r,
+                     "wo_k": params.layers.wo.k,
+                     "w_gate_up_r": params.layers.w_gate_up.r,
+                     "w_down_k": params.layers.w_down.k,
+                     "lm_head_r": params.lm_head.r}
+    if not (tp.attn and tp.wo_split and tp.ffn and tp.vocab):
+        fail(f"rank {rank}: LLaMA-7B did not shard fully: {out['layout']}")
+
+    # (a) TP, teacher forced: the prompt, then PAR_DECODE forced tokens
+    ids = e2e_prompts()[1][:PAR_PROMPT]
+    tokens = np.random.default_rng(7).integers(1, V, PAR_DECODE).tolist()
+
+    def single(trace, inputs):
+        cache = fwd.init_cache(spec, torch.bfloat16, dev)
+        return teacher_forced(model, model.params, cache, ids, tokens,
+                              trace, inputs)
+
+    def sharded(trace, inputs):
+        cache = sh.shard_cache(fwd.init_cache(spec, torch.bfloat16, dev),
+                               mesh)
+        return teacher_forced(model, params, cache, ids, tokens, trace,
+                              inputs)
+
+    out["tp_logits"] = held_forced(f"rank {rank} tp", model, single, sharded)
+
+    # one decode forward: launches, ms a token, the audit's bytes
+    cache = sh.shard_cache(fwd.init_cache(spec, torch.bfloat16, dev), mesh)
+    fwd.forward_step(spec, params, torch.tensor(ids), 0, cache)
+
+    def step():
+        return fwd.forward_step(spec, params, torch.tensor([tokens[0]]),
+                                len(ids), cache, 512)
+
+    torch.cuda.synchronize()
+    zero_launches()
+    step()
+    torch.cuda.synchronize()
+    one = read_launches()
+    if one["qmatmul"] != 4 * N_LAYER + 1 or one["dense_attention"] != \
+            N_LAYER or one["paged_attention"]:
+        fail(f"rank {rank}: one TP decode forward launched {one}")
+    out["decode_launches"] = one
+    out["tp_ms_per_token"] = rank_timer_ms(step)
+    single_cache = fwd.init_cache(spec, torch.bfloat16, dev)
+    fwd.forward_step(spec, model.params, torch.tensor(ids), 0, single_cache)
+    out["single_ms_per_token"] = rank_timer_ms(
+        lambda: fwd.forward_step(spec, model.params,
+                                 torch.tensor([tokens[0]]), len(ids),
+                                 single_cache, 512))
+    del single_cache
+    res = audit.audit_step(step, mesh)
+    out["audit"] = {"bytes_by_axis": res.bytes_by_axis, "ops": len(res.ops),
+                    "table": res.table()}
+    want = {"model": 2 * N_LAYER * E * 4 + V * 4}
+    if res.bytes_by_axis != want:
+        fail(f"rank {rank}: audit {res.bytes_by_axis}, expected {want}")
+    x_red = torch.randn((1, E), device=dev)
+    x_gat = torch.randn((1, V // world), device=dev)
+    out["collective_ms"] = {
+        "all_reduce_1x4096_f32": rank_timer_ms(
+            lambda: sh.all_reduce(x_red, mesh, "model"), 50),
+        "all_gather_1x16000_f32": rank_timer_ms(
+            lambda: sh.all_gather(x_gat, mesh, "model"), 50)}
+    timer = Timer(dev)
+    k1 = {}
+    layer0 = params.layers.layer(0)
+    for name, w in (("qkv", layer0.w_qkv), ("wo", layer0.wo),
+                    ("gate_up", layer0.w_gate_up), ("down", layer0.w_down),
+                    ("lm_head", params.lm_head)):
+        x = torch.randn((1, w.k), device=dev)
+        k1[name] = timer.ms(lambda: fwd.qmatmul(x, w))
+    del timer
+    k1["per_token"] = N_LAYER * (k1["qkv"] + k1["wo"] + k1["gate_up"]
+                                 + k1["down"]) + k1["lm_head"]
+    out["k1_ms"] = k1
+    del cache
+    torch.cuda.empty_cache()
+
+    # (b) the dense bf16 and the paged int8 engine under the mesh
+    # each collective is staged through the host, so a rank's eager
+    # forward costs ~3x a single card's: the prompts are cut to one chunk
+    prompts = [p[:PAR_ENGINE_CUT] for p in serve_prompts(PAR_ENGINE_PROMPTS)]
+    out["engines"] = {kind: par_engine_texts(model, mesh, prompts, kind, dev)
+                      for kind in ("dense", "paged")}
+    # the dense engine over ("data", "model") = (2, 1): a rank's cache
+    # holds its one slot of the two and computes that stream
+    dmesh = sh.make_mesh(sh.MeshConfig(data=world, model=1), device=dev)
+    dp = par_engine_texts(model, dmesh, prompts[:world], "dense", dev)
+    if dp["cache_slots"] != 1:
+        fail(f"rank {rank}: the data=2 engine's cache holds "
+             f"{dp['cache_slots']} slots")
+    out["engines"]["dense_dp"] = dp
+    # multi-step blocks under the mesh: each block's graph runs eagerly,
+    # counted once a block in forward.EAGER_UNDER_MESH
+    from llm_tpu_torch.ops.sampling import DeviceSampler
+    from llm_tpu_torch.serve import Engine, GenerationRequest
+
+    eng = Engine(model, max_streams=2, kv_dtype=torch.bfloat16, n_batch=64,
+                 mesh=mesh)
+    before = fwd.EAGER_UNDER_MESH
+    multi = eng.generate_all(
+        [GenerationRequest(prompt=p, max_tokens=PAR_MULTI_NEW,
+                           device_sampler=DeviceSampler.greedy())
+         for p in prompts[:2]], n_steps=PAR_MULTI_NEW // 2)
+    eager = fwd.EAGER_UNDER_MESH - before
+    if eager != eng.multi_blocks or not eager:
+        fail(f"rank {rank}: {eager} eager blocks for {eng.multi_blocks}")
+    out["multi_step"] = {"texts": [multi[i] for i in sorted(multi)],
+                         "blocks": eng.multi_blocks,
+                         "eager_under_mesh": eager}
+    del eng
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the pipeline: 2 stages of 16 layers, 2 microbatches of 2 streams
+    pmesh = pp.make_pipeline_mesh(pipe=world, device=dev)
+    stage = pp.shard_params_pipeline(model.params, pmesh)
+    rng = np.random.default_rng(17)
+    B, T = PAR_PIPE_STREAMS, PAR_PIPE_T
+    pids = torch.as_tensor(rng.integers(1, V, (B, T)))
+    nxt = torch.as_tensor(rng.integers(1, V, (B, 1)))
+    ref_cache = fwd.init_cache_batched(spec, B, torch.bfloat16, dev)
+    ref_pre = fwd.forward_batched(spec, model.params, pids, [0] * B,
+                                  ref_cache, 512)[0]
+    ref_dec = fwd.forward_batched(spec, model.params, nxt, [T] * B,
+                                  ref_cache, 512)[0]
+    cache = pp.shard_cache_pipeline(
+        fwd.init_cache_batched(spec, B, torch.bfloat16, dev), pmesh)
+    zero_launches()
+    got_pre = pp.pipeline_forward_batched(spec, stage, pids, [0] * B, cache,
+                                          pmesh, PAR_PIPE_MICRO, 512)[0]
+    got_dec = pp.pipeline_forward_batched(spec, stage, nxt, [T] * B, cache,
+                                          pmesh, PAR_PIPE_MICRO, 512)[0]
+    torch.cuda.synchronize()
+    plaunch = read_launches()
+    # a stage runs its 16 layers' 4 projections for each microbatch of
+    # each forward, the last stage also the head; K2 on the decode step
+    per_stage = 4 * N_LAYER // world * PAR_PIPE_MICRO * 2
+    last = pmesh.coords["pipe"] == world - 1
+    want_k1 = per_stage + (2 if last else 0)
+    if plaunch["qmatmul"] != want_k1 or plaunch["dense_attention"] != \
+            N_LAYER // world * PAR_PIPE_MICRO:
+        fail(f"rank {rank}: pipeline launches {plaunch}, expected qmatmul "
+             f"{want_k1}")
+    out["pipeline"] = {
+        "prefill": compare_logits(f"rank {rank} pipeline prefill",
+                                  got_pre, ref_pre),
+        "decode": compare_logits(f"rank {rank} pipeline decode", got_dec,
+                                 ref_dec),
+        "launches": plaunch}
+    out["pipeline"]["prefill"].update(top1_held("pipeline prefill",
+                                                got_pre, ref_pre))
+    out["pipeline"]["decode"].update(top1_held("pipeline decode", got_dec,
+                                               ref_dec))
+    del stage, cache, ref_cache
+    torch.cuda.empty_cache()
+
+    # (d) the ring prefill of the 1100-token prompt over 2 ranks
+    smesh = ring.make_seq_mesh(world, device=dev)
+    rids = torch.tensor([e2e_prompts()[2]])
+    Tn = rids.shape[1]
+    ref_cache = fwd.init_cache_batched(spec, 1, torch.bfloat16, dev)
+    ref_last = fwd.forward_batched(spec, model.params, rids, [0], ref_cache)[
+        0][:, -1]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.monotonic()
+    last, rcache = ring.ring_prefill(spec, model.params, rids, smesh,
+                                     kv_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    rlaunch = read_launches()
+    if rlaunch["qmatmul"] != 4 * N_LAYER + (1 if smesh.coords["seq"]
+                                            == world - 1 else 0):
+        fail(f"rank {rank}: ring launches {rlaunch}")
+    out["ring"] = {
+        "wall_s": time.monotonic() - t0, "launches": rlaunch,
+        "last_logits": {**compare_logits(f"rank {rank} ring", last,
+                                         ref_last),
+                        **top1_held("ring", last, ref_last)},
+        "k_rel_l2": float((rcache.k[:, :, :, :Tn].float()
+                           - ref_cache.k[:, :, :, :Tn].float()).norm()
+                          / ref_cache.k[:, :, :, :Tn].float().norm()),
+        "v_rel_l2": float((rcache.v[:, :, :, :Tn].float()
+                           - ref_cache.v[:, :, :, :Tn].float()).norm()
+                          / ref_cache.v[:, :, :, :Tn].float().norm())}
+    for key in ("k_rel_l2", "v_rel_l2"):
+        if out["ring"][key] > E2E_REL_L2:
+            fail(f"rank {rank}: ring cache {key} {out['ring'][key]:.3g}")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def nccl_rank(rank, world, path, device) -> dict:
+    """A world of one on nccl: TP over a (1, 1) mesh of the 2-layer
+    full-width model, held against its unsharded forward; its collectives
+    run on NCCL."""
+    from llm_tpu_torch import loader
+    from llm_tpu_torch.models import forward as fwd
+    from llm_tpu_torch.parallel import collectives_audit as audit
+    from llm_tpu_torch.parallel import sharding as sh
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    model = loader.load(path, "llama",
+                        params=loader.ModelParameters(context_size=CTX),
+                        device=dev)
+    spec = model.spec
+    mesh = sh.make_mesh(sh.MeshConfig(1, 1), device=dev)
+    params = sh.shard_params(model.params, mesh, spec)
+    ids = e2e_prompts()[0]
+    tokens = [int(t) for t in np.random.default_rng(5).integers(1, V, 2)]
+
+    def run(p):
+        cache = fwd.init_cache(spec, torch.bfloat16, dev)
+        return teacher_forced(model, p, cache, ids, tokens)[0]
+
+    ref = run(model.params)
+    res = audit.audit_step(lambda: run(params), mesh)
+    zero_launches()
+    got = run(params)
+    launches = read_launches()
+    forwards = 1 + len(tokens)
+    if launches["qmatmul"] != (4 * NCCL_LAYERS + 1) * forwards or \
+            launches["dense_attention"] != NCCL_LAYERS * len(tokens):
+        fail(f"nccl: launches {launches}")
+    ops = {}
+    for o in res.ops:
+        ops[o.op] = ops.get(o.op, 0) + 1
+    if ops != {"all-reduce": 2 * NCCL_LAYERS * forwards,
+               "all-gather": forwards}:
+        fail(f"nccl: collectives {ops}")
+    return {"backend": mesh.backend, "logits": compare_logits("nccl", got,
+                                                             ref),
+            "collectives": ops, "bytes_by_axis": res.bytes_by_axis,
+            "launches": launches}
+
+
+def parallel_phase(dev) -> dict:
+    """A gloo world of 2 ranks on the one card (`parallel_rank`) over the
+    e2e LLaMA-7B Q4_0 file at full width and depth, then a world of one
+    on nccl over a 2-layer full-width model (`nccl_rank`). The kernels
+    are built (main), so the ranks only load them. The two ranks share one
+    card's bandwidth and its collectives are staged through the host: its
+    times are not a multi-GPU speed."""
+    from llm_tpu_torch.ggml.types import GgmlType
+    from llm_tpu_torch.parallel import launch
+    from llm_tpu_torch.testing import make_bench_file
+
+    out = {}
+    store = ROOT / "build" / "smoke" / "parallel"
+    import shutil
+
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    t0 = time.monotonic()
+    ranks = launch.spawn(parallel_rank, PAR_WORLD, "gloo", store / "gloo",
+                         timeout=PAR_TIMEOUT,
+                         args=(str(bench_path()), str(dev)))
+    out["gloo_world_s"] = time.monotonic() - t0
+    for kind in PAR_ENGINES:
+        toks = [r["engines"][kind]["texts"] for r in ranks]
+        if any(t != toks[0] for t in toks[1:]):
+            fail(f"parallel: the {kind} engine's texts differ by rank")
+    if ranks[0]["multi_step"]["texts"] != ranks[1]["multi_step"]["texts"]:
+        fail("parallel: the multi-step texts differ by rank")
+    out["ranks"] = ranks
+    small = store / "llama7b-2layer.bin"
+    try:
+        make_bench_file("llama", small, GgmlType.Q4_0, seed=0, n_ff=FF,
+                        n_vocab=V, n_embd=E, n_head=H, n_layer=NCCL_LAYERS,
+                        n_mult=256)
+        t0 = time.monotonic()
+        out["nccl"] = launch.spawn(nccl_rank, 1, "nccl", store / "nccl",
+                                   timeout=PAR_TIMEOUT,
+                                   args=(str(small), str(dev)))[0]
+        out["nccl_world_s"] = time.monotonic() - t0
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    if out["nccl"]["backend"] != "nccl":
+        fail(f"nccl world ran on {out['nccl']['backend']}")
+    summary = {
+        "note": "2 ranks share one card's bandwidth; gloo stages every "
+                "collective through the host: not a multi-GPU speed",
+        "tp_ms_per_token": [r["tp_ms_per_token"] for r in ranks],
+        "single_ms_per_token": [r["single_ms_per_token"] for r in ranks],
+        "collective_ms": [r["collective_ms"] for r in ranks],
+        "k1_ms_per_token": [r["k1_ms"]["per_token"] for r in ranks],
+        "audit_bytes_by_axis": [r["audit"]["bytes_by_axis"] for r in ranks],
+        "tp_held": [r["tp_logits"]["held"] for r in ranks],
+        "tp_free_rel_l2": [r["tp_logits"]["free_rel_l2"] for r in ranks],
+        "pipeline_rel_l2": [[r["pipeline"][p]["rel_l2"] for p in
+                             ("prefill", "decode")] for r in ranks],
+        "ring_rel_l2": [r["ring"]["last_logits"]["rel_l2"] for r in ranks],
+        "engines_wall_s": [{k: r["engines"][k]["wall_s"]
+                            for k in PAR_ENGINES} for r in ranks],
+        "eager_under_mesh": [r["multi_step"]["eager_under_mesh"]
+                             for r in ranks],
+        "load_s": [r["load_s"] for r in ranks],
+        "gloo_world_s": out["gloo_world_s"],
+        "nccl_world_s": out["nccl_world_s"],
+        "nccl_rel_l2": out["nccl"]["logits"]["rel_l2"],
+    }
+    out["summary"] = summary
+    emit({"parallel_summary": summary})
+    out["launches"] = parallel_launches(ranks)
+    return out
+
+
+def parallel_launches(ranks) -> dict:
+    """The kernels' launches over the phase's counted runs, summed over
+    the ranks: the engines, the pipeline and the ring (each zeroed just
+    before and read just after its run), and one TP decode forward."""
+    total = dict.fromkeys(("qmatmul", "dense_attention", "paged_attention"),
+                          0)
+    for r in ranks:
+        for ls in ([r["engines"][k]["launches"] for k in PAR_ENGINES]
+                   + [r["pipeline"]["launches"], r["ring"]["launches"],
+                      r["decode_launches"]]):
+            for k in total:
+                total[k] += ls[k]
+    return total
+
+
+# the kernels at a model=2 rank's shapes of LLaMA-7B: K1 over each
+# projection's shard at M=1 (decode) and 64 (an engine's prefill chunk), K2
+# and K4 over 16 local heads
+SHARD_SHAPES = [("qkv", E, 3 * E // 2), ("wo", E // 2, E),
+                ("gate_up", E, FF), ("down", FF // 2, E),
+                ("lm_head", E, V // 2)]
+SHARD_DENSE_CASE = ("tp2_16h", "bf16", 512, (512,), H // 2, 1, False, True)
+SHARD_PAGED_CASE = ("tp2_16h", "int8", SERVE_PAGE, 4, ("all", 300), H // 2,
+                    1, False)
+
+
+def shard_kernel_phase(dev, timer) -> dict:
+    from llm_tpu_torch.ggml.types import GgmlType
+
+    rng = np.random.default_rng(19)
+    k1 = []
+    for name, K, R in SHARD_SHAPES:
+        w = random_weight(GgmlType.Q4_0, K, R, rng, dev)
+        for M in (1, 64):
+            k1.append(check_qmatmul(f"tp2_{name}", w, M, rng, dev, timer,
+                                    timed=True))
+        del w
+    name, kv, W, n_past, hkv, rep, alibi, timed = SHARD_DENSE_CASE
+    k2 = check_attention(name, kv, W, list(n_past), hkv, rep, alibi, rng,
+                         dev, timer, timed)
+    k4 = check_paged(SHARD_PAGED_CASE, rng, dev, timer)
+    torch.cuda.empty_cache()
+    bad = [r for r in k1 + [k2, k4] if not r["ok"]]
+    if bad:
+        fail(f"shard shapes: kernels out of tolerance: {bad[:2]}")
+    per = {"qkv": N_LAYER, "wo": N_LAYER, "gate_up": N_LAYER,
+           "down": N_LAYER, "lm_head": 1}
+
+    def token(key, M):
+        return sum(r[key] * per[r["case"][4:]] for r in k1 if r["M"] == M)
+
+    out = {"qmatmul": k1, "dense_attention": k2, "paged_attention": k4,
+           "per_token": {f"M{M}": {k: token(k, M) for k in (
+               "ms", "plain_ms", "library_ms", "bound_ms")}
+               for M in (1, 64)}}
+    emit({"shard_kernels": {"k1_per_token": out["per_token"],
+                            **{n: {k: out[n][k] for k in (
+                                "ms", "bound_ms", "plain_ms", "library_ms",
+                                "max_abs_err")}
+                               for n in ("dense_attention",
+                                         "paged_attention")}}})
+    return out
+
+
 def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
                    cinf, ab, dsamp, multi, archs,
-                   session_paths, spec, slice_paths) -> list[dict]:
+                   session_paths, spec, slice_paths, shard) -> list[dict]:
     """One entry per kernel: times summed over the launches of one decode
     step at 7B (qmatmul: the 4 projections x 32 layers + lm_head at M=1;
     dense_attention: 32 layers at W=512, bf16 cache, full window;
@@ -5241,7 +5881,9 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
     7B server's chat, embeddings and checkpoint traffic, and the dense
     engine's round trip) and the adapters phase (GPT-2 117M quantized,
     LoRA-patched and upcast: counted launches plus each graph's launches
-    times its replays)."""
+    times its replays), and the parallel phase (`parallel`: both ranks'
+    engines, pipeline, ring and one TP decode forward), with K1, K2 and K4
+    at a model=2 rank's shapes in `shard_by_case`."""
     per_token = {"qkv": N_LAYER, "wo": N_LAYER, "gate_up": N_LAYER,
                  "down": N_LAYER, "lm_head": 1}
     dec = [r for r in qrecs if r["M"] == 1 and r["case"] in per_token]
@@ -5368,6 +6010,19 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
                  for r in m["qmatmul"]["cases"]] if e["name"] == "qmatmul"
                 else [archs["kernel_cases"][e["name"]]["max_abs_err"]])
         e["max_abs_err"] = max([e["max_abs_err"], *errs])
+    # the kernels at a model=2 rank's shapes (16 local heads; K1 a token's
+    # launches over the shards at M=1 and 64)
+    entries[1]["shard_by_case"] = shard["per_token"]
+    for e in entries[2:4]:
+        r = shard[e["name"]]
+        e["shard_by_case"] = {r["case"]: {k: r[k] for k in (
+            "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+            "max_abs_err")}}
+    for e in entries[1:4]:
+        errs = ([r["max_abs_err"] for r in shard["qmatmul"]]
+                if e["name"] == "qmatmul"
+                else [shard[e["name"]]["max_abs_err"]])
+        e["max_abs_err"] = max([e["max_abs_err"], *errs])
     # qmatmul's launches by consumer path, in each path's own run
     entries[1]["launches_by_consumer_path"] = {
         name: {"swapped": ls["qmatmul_swapped"], "wide": ls["qmatmul_wide"]}
@@ -5444,6 +6099,9 @@ def main() -> None:
     lap("attention")
     checks = probe_checks(dev) + probe_checks_7b(dev)
     lap("probe_checks")
+    shard = shard_kernel_phase(dev, timer)
+    results["shard_kernels"] = shard
+    lap("shard_kernels")
     cases = qrecs + k3eq + k3recs + ab + arecs + precs + mrecs + checks
     results["kernel_cases"] = cases
     emit({"kernel_cases": cases})
@@ -5455,6 +6113,15 @@ def main() -> None:
     results["e2e"] = e2e
     emit({"e2e": e2e})
     lap("e2e")
+
+    pack_llama = pack_case("llama7b_q4_0", bench_path(), "llama", model,
+                           e2e["load_s"], CTX, dev)
+    emit({"pack_llama7b_q4_0": pack_llama})
+    lap("pack")
+
+    par = parallel_phase(dev)
+    results["parallel"] = par
+    lap("parallel")
 
     dsamp = device_sampling_phase(model, dev, e2e)
     results["device_sampling"] = dsamp
@@ -5521,6 +6188,9 @@ def main() -> None:
     results["archs"] = archs
     emit({"archs": archs})
     lap("archs")
+    results["pack"] = {"llama7b_q4_0": pack_llama,
+                       "mpt7b_q4_k": archs["models"]["mpt7b_q4_k"]["pack"]}
+    emit({"pack_summary": results["pack"]})
 
     adapters = adapters_phase(dev)
     results["adapters"] = adapters
@@ -5534,7 +6204,8 @@ def main() -> None:
     kernels = kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
                              cinf, ab, dsamp, multi, archs, session_paths,
                              spec, {"routes": routes["launches"],
-                                    "adapters": adapters["launches"]})
+                                    "adapters": adapters["launches"],
+                                    "parallel": par["launches"]}, shard)
     kernels += probe_entries(probes, checks, dev, timer)
     del timer
     lap("kernel_entries")

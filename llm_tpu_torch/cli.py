@@ -818,6 +818,34 @@ def cmd_quantize(args) -> None:
         _err(str(e))
 
 
+def cmd_pack(args) -> None:
+    """Build the packed planes once and cache them on disk; later loads of
+    the same file skip the transcode (models/pack_cache.py)."""
+    import time as _time
+
+    from llm_tpu_torch.models.pack_cache import (
+        cache_key, pack_path, save_packed_params,
+    )
+
+    if args.lora_paths:
+        # the key does not name the adapters, so a later plain load would
+        # read the patched planes as the file's own
+        raise SystemExit("pack: --lora-paths is not packed; LoRA loads "
+                         "bypass the pack cache")
+    t0 = _time.monotonic()
+    model = load_model(args)
+    pp = pack_path(args.model_path)
+    save_packed_params(
+        model.params, pp,
+        cache_key(args.model_path, n_gqa=getattr(args, "n_gqa", None)),
+    )
+    print(
+        f"packed {args.model_path} -> {pp} "
+        f"in {_time.monotonic() - t0:.1f}s",
+        file=sys.stderr,
+    )
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="llm-tpu-torch",
@@ -878,6 +906,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: cuda)")
     p.set_defaults(fn=cmd_verify)
+
+    p = sub.add_parser(
+        "pack",
+        help="write a pre-packed plane cache next to the checkpoint so "
+        "later loads skip the block transcode",
+    )
+    add_model_args(p)
+    add_load_args(p)
+    p.set_defaults(fn=cmd_pack)
 
     p = sub.add_parser("prompt-tokens", help="print the token ids of a prompt")
     add_model_args(p)

@@ -15,6 +15,7 @@ host before it is packed.
 
 from __future__ import annotations
 
+import os
 import re
 from dataclasses import dataclass
 from pathlib import Path
@@ -282,9 +283,25 @@ def load(
     def tensor_progress(name: str, current: int, total: int) -> None:
         progress(LoadProgress("tensor_loaded", current=current, total=total))
 
-    ws = WeightSource(reader, device, progress=tensor_progress,
-                      lora_adapters=lora_adapters)
-    model_params = build_params(ws, spec)
+    # the pre-packed plane cache (cli `pack`): a valid cache next to the
+    # file skips the transcode; LoRA loads bypass it (patched planes), and
+    # LLM_TPU_PACK_CACHE=0 turns it off (e.g. to time the cold path)
+    model_params = None
+    if not lora_adapters and os.environ.get("LLM_TPU_PACK_CACHE") != "0":
+        from llm_tpu_torch.models.pack_cache import (
+            cache_key,
+            load_packed_params,
+            pack_path,
+        )
+
+        pp = pack_path(path)
+        if pp.exists():
+            model_params = load_packed_params(
+                pp, cache_key(path, n_gqa=params.n_gqa), device)
+    if model_params is None:
+        ws = WeightSource(reader, device, progress=tensor_progress,
+                          lora_adapters=lora_adapters)
+        model_params = build_params(ws, spec)
     progress(LoadProgress("loaded", byte_size=total_bytes))
 
     model = Model(

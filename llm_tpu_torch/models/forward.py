@@ -24,6 +24,16 @@ The counterpart of `llm_tpu/models/forward.py`:
   step is a captured CUDA graph, replayed once a token.
 - `forward_replay` runs one forward of static shape (the speculative
   verify and tail evaluations) as a captured CUDA graph on the card.
+- Under tensor parallelism (`parallel/sharding.shard_params`) each rank's
+  params carry a `tp` handle: the forward runs with the rank's ShardSpec
+  (`local_spec`) over its heads, FFN columns and vocabulary rows, sums the
+  partial products of wo and the FFN's down projection over the `model`
+  axis before their biases, and gathers the vocabulary shards of the
+  logits. Such a forward never runs as a CUDA graph (`_graph_ok`).
+  Where the batched cache holds only the rank's `data` block of the
+  streams (`shard_cache(batched=True)`, the engines' dense caches), the
+  batched forward runs those rows and gathers every stream's logits over
+  `data`.
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ import numpy as np
 import torch
 
 from llm_tpu_torch.models.params import LayerParams, ModelParams
-from llm_tpu_torch.models.spec import ModelSpec
+from llm_tpu_torch.models.spec import ModelSpec, ShardSpec
 from llm_tpu_torch.ops import dense_attention, paged_attention
 from llm_tpu_torch.ops import qmatmul as qmatmul_mod
 from llm_tpu_torch.ops.dense_attention import online_cache_pass_batched
@@ -127,6 +137,21 @@ def _norm(spec: ModelSpec, x, w, b):
     return layer_norm(x, w, b)
 
 
+def local_spec(spec: ModelSpec, params) -> ModelSpec:
+    """The spec a forward over `params` runs with: `spec` itself, or for
+    tensor-parallel params (which carry a `tp` handle) the rank's
+    ShardSpec."""
+    tp = getattr(params, "tp", None)
+    if tp is None or isinstance(spec, ShardSpec):
+        return spec
+    return tp.view(spec)
+
+
+def _tp(spec):
+    """The tensor-parallel handle of a ShardSpec, else None."""
+    return spec.tp if isinstance(spec, ShardSpec) else None
+
+
 # Online-softmax streaming over the cached keys kicks in when the
 # materialized [T, H, S+T] f32 score tensor would exceed this many bytes.
 # Tests monkeypatch it to force the path.
@@ -173,6 +198,9 @@ def _ffn(spec: ModelSpec, layer: LayerParams, x: torch.Tensor) -> torch.Tensor:
             h = h + layer.b_up
         h = gelu(h)
     h = qmatmul(h, layer.w_down)
+    tp = _tp(spec)
+    if tp is not None and tp.ffn:
+        h = tp.reduce(h)  # the partial sums of the rank's FFN columns
     if layer.b_down is not None:
         h = h + layer.b_down
     return h
@@ -185,6 +213,11 @@ def _slopes(spec: ModelSpec, device) -> Optional[torch.Tensor]:
     the result."""
     if spec.alibi_bias_max <= 0.0:
         return None
+    if isinstance(spec, ShardSpec):
+        # the model's slopes, sliced to the rank's kv heads (a view)
+        full = _slopes_on(spec.n_head_global, spec.n_head_kv_global,
+                          spec.alibi_bias_max, torch.device(device))
+        return full[spec.kv_start:spec.kv_start + spec.n_head_kv]
     return _slopes_on(spec.n_head, spec.n_head_kv, spec.alibi_bias_max,
                       torch.device(device))
 
@@ -205,7 +238,8 @@ def _attention_batched(
     k_cache,  # ([B, H_kv, S, D] codes, [B, H_kv, S] scale | None)
     v_cache,
     online_pass=None,  # callable qf -> (m, l, acc): cached-KV attention
-    #                    done elsewhere (the dense or paged kernel)
+    #                    done elsewhere (the dense or paged kernel); one
+    #                    with `wants_kv` set is called (qf, kf, vf)
     qmax: Optional[float] = None,  # None: raw kv; else the in-flight kv
     #    round-trips through codes of this range (127 int8, 7 int4 pools)
 ):
@@ -247,7 +281,9 @@ def _attention_batched(
     else:
         use_online, block = _use_online(B * T, H, S)
     if use_online:
-        if online_pass is not None:
+        if getattr(online_pass, "wants_kv", False):
+            m, l, acc = online_pass(qf, kf, vf)
+        elif online_pass is not None:
             m, l, acc = online_pass(qf)
         else:
             m, l, acc = online_cache_pass_batched(
@@ -288,7 +324,12 @@ def _attention_batched(
         out = out + torch.einsum("bthru,buhd->bthrd", pn, vf)
         out = out.reshape(B * T, H * D)
 
+    tp = _tp(spec)
+    if tp is not None and tp.attn and not tp.wo_split:
+        out = tp.gather(out)  # every head, for the whole wo
     out = qmatmul(out, layer.wo)
+    if tp is not None and tp.attn and tp.wo_split:
+        out = tp.reduce(out)  # the partial sums of the rank's heads
     if layer.bo is not None:
         out = out + layer.bo
     return out.reshape(B, T, E), k_out, v_out
@@ -437,6 +478,9 @@ def head_batched(spec: ModelSpec, params: ModelParams, h):
     logits = qmatmul(h.reshape(B * T, E), head)
     if params.lm_head_b is not None:
         logits = logits + params.lm_head_b
+    tp = _tp(local_spec(spec, params))
+    if tp is not None and tp.vocab:
+        logits = tp.gather(logits)  # the vocabulary shards, in rank order
     return (logits.reshape(B, T, -1).to(torch.float32),
             h.to(torch.float32))
 
@@ -458,6 +502,7 @@ def forward_batched(
     graph's form). `window` bounds cache reads and must cover max(n_past);
     `write_mask` (default all True) keeps the cache rows of masked streams
     as they are."""
+    spec = local_spec(spec, params)
     dev = cache.k.device
     ids = torch.as_tensor(ids, device=dev)
     B, T = ids.shape
@@ -466,6 +511,15 @@ def forward_batched(
     else:
         npast = torch.tensor([int(p) for p in n_past], dtype=torch.int32,
                              device=dev)
+    tp = _tp(spec)
+    split = tp is not None and cache.k.shape[1] != B
+    if split:
+        # the cache holds this rank's `data` block of the B streams
+        # (shard_cache(batched=True)): run those rows, gather the rest
+        rows = tp.data_rows(B, cache.k.shape[1])
+        ids, npast = ids[rows], npast[rows]
+        if write_mask is not None:
+            write_mask = write_mask[rows]
     positions = npast[:, None] + torch.arange(T, dtype=torch.int32,
                                               device=dev)[None, :]
     h = embed_batched(spec, params, ids, positions)
@@ -475,6 +529,10 @@ def forward_batched(
                                            npast, cache, W)
     write_cache_batched(cache, k_news, v_news, npast, write_mask)
     logits, h = head_batched(spec, params, h)
+    if split:  # every stream's rows on every rank, in one gather
+        V = logits.shape[-1]
+        both = tp.gather_rows(torch.cat([logits, h], dim=-1))
+        logits, h = both[..., :V], both[..., V:]
     return logits, h, cache
 
 
@@ -732,6 +790,22 @@ def _graph_for(spec, params, cache: KVCache, window: int, sampler,
         bias_vector(sampler, spec.n_vocab, dev), params))
 
 
+# graphs asked for on the card that ran eagerly because the weights are
+# tensor-parallel: a captured step would hold the collectives of a world
+EAGER_UNDER_MESH = 0
+
+
+def _graph_ok(graph: bool, params, dev) -> bool:
+    """`graph`, but False for tensor-parallel weights: such a step runs
+    eagerly, and where it would have been captured (on the card) that is
+    counted in EAGER_UNDER_MESH."""
+    global EAGER_UNDER_MESH
+    if graph and getattr(params, "tp", None) is not None:
+        EAGER_UNDER_MESH += torch.device(dev).type == "cuda"
+        return False
+    return graph
+
+
 def _on_card(graph: bool, dev) -> bool:
     """Whether a loop runs its step as a captured graph: asked for, on a
     CUDA device (the CPU always runs it eagerly)."""
@@ -778,7 +852,7 @@ def forward_replay(spec, params, ids, n_past, cache: KVCache, window: int,
     B, T = ids.shape
     W = min(window, cache.k.shape[3])
     _check_window(W, n_past)
-    if not _on_card(graph, dev):
+    if not _on_card(_graph_ok(graph, params, dev), dev):
         return forward_batched(spec, params, ids, n_past, cache, W,
                                write_mask)[0]
     masked = write_mask is not None
@@ -844,7 +918,7 @@ def decode_loop(spec, params, last_logits, n_past, cache: KVCache,
     has_mu = (return_state and isinstance(penalty_state, dict)
               and "mu" in penalty_state)
     u = _block_uniforms(sampler, uniforms, key, (n_steps, spec.n_vocab), dev)
-    on_card = _on_card(graph, dev)
+    on_card = _on_card(_graph_ok(graph, params, dev), dev)
     if on_card:
         g = _graph_for(spec, params, cache, W, sampler, penalty_state, has_mu,
                        n_steps)
@@ -1024,7 +1098,7 @@ def decode_loop_batched(spec, params, last_logits, n_past, cache: KVCache,
     _check_window(window, n_past, extra=n_steps)
     sampler = sampler or DeviceSampler.greedy()
     dev = cache.k.device
-    B, S = cache.k.shape[1], cache.k.shape[3]
+    B, S = last_logits.shape[0], cache.k.shape[3]
     W = S if window is None else min(window, S)
     has_mu = (return_state and isinstance(penalty_state, dict)
               and "mu" in penalty_state)
@@ -1032,7 +1106,7 @@ def decode_loop_batched(spec, params, last_logits, n_past, cache: KVCache,
                         dev)
     mask = (torch.ones(B, dtype=torch.bool) if write_mask is None
             else torch.as_tensor(write_mask, dtype=torch.bool))
-    on_card = _on_card(graph, dev)
+    on_card = _on_card(_graph_ok(graph, params, dev), dev)
 
     def extra(st):
         st["mask"] = torch.zeros(B, dtype=torch.bool, device=dev)

@@ -63,6 +63,31 @@ class ModelSpec:
         return 1.0 / (self.n_embd / self.n_head) ** 0.5
 
 
+@dataclass(frozen=True)
+class ShardSpec(ModelSpec):
+    """One rank's view of a tensor-parallel model (parallel/sharding.py).
+
+    `n_head` and `n_head_kv` are the rank's own heads, used only to shape
+    its tensors; every other field is the model's. `head_dim`, the
+    attention scale 1/sqrt(n_embd/n_head) and the ALiBi slopes come from
+    the model's head counts (`n_head_global`, `n_head_kv_global`); the
+    slopes are sliced to the rank's kv heads from `kv_start` on. `tp`
+    carries the rank's collectives and which layer groups are sharded."""
+
+    n_head_global: int = 0
+    n_head_kv_global: int = 0
+    kv_start: int = 0
+    tp: object = field(default=None, compare=False, hash=False, repr=False)
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_embd // self.n_head_global
+
+    @property
+    def kq_scale(self) -> float:
+        return 1.0 / (self.n_embd / self.n_head_global) ** 0.5
+
+
 # ---------------------------------------------------------------------------
 # hyperparameters (on-disk codec)
 

@@ -38,6 +38,7 @@ import torch
 from llm_tpu_torch.models.forward import (
     NEG_INF,
     _block_uniforms,
+    _graph_ok,
     _layer_batched,
     _on_card,
     _run_block,
@@ -48,6 +49,7 @@ from llm_tpu_torch.models.forward import (
     embed_batched,
     head_batched,
     load_batched,
+    local_spec,
     unpack_decode_out,
 )
 from llm_tpu_torch.models.spec import ModelSpec
@@ -374,6 +376,7 @@ def paged_forward_batched(spec: ModelSpec, params, ids, n_past, tables,
     buffered decode step. The pool pass masks at the block's base
     positions base_past [B], and the block's rows at [base_past, n_past)
     fold in from the block buffer (`_fold_block_rows`)."""
+    spec = local_spec(spec, params)
     dev = cache.k.device
     ids = torch.as_tensor(ids, device=dev)
     n_past = torch.as_tensor(n_past, device=dev).to(torch.int32)
@@ -479,6 +482,7 @@ def paged_decode_loop(spec, params, last_logits, n_past, tables,
     the table width, the sampler's structure, the values' and penalty
     state's shapes, mu, logprobs_n, capacity), its tables, base positions
     and the other inputs loaded into its buffers before the replays."""
+    spec = local_spec(spec, params)
     dev = cache.k.device
     n_past = torch.as_tensor(n_past).to(torch.int32)
     tables = torch.as_tensor(tables).to(torch.int32)
@@ -488,7 +492,7 @@ def paged_decode_loop(spec, params, last_logits, n_past, tables,
               and "mu" in penalty_state)
     u = _block_uniforms(sampler, uniforms, key, (n_steps, B, spec.n_vocab),
                         dev)
-    on_card = _on_card(graph, dev)
+    on_card = _on_card(_graph_ok(graph, params, dev), dev)
 
     def extra(st):
         st["tables"] = torch.zeros((B, P), dtype=torch.int32, device=dev)
@@ -564,12 +568,13 @@ class PagedEngine(Engine):
         kv_dtype=torch.bfloat16,
         n_batch: int = 64,
         prefix_cache: bool = False,
+        mesh=None,
     ):
         self.page_size = page_size
         self._n_pages_requested = n_pages
         self.prefix_cache = PrefixCache() if prefix_cache else None
         self.decode_dispatches = 0  # batched T=1 forwards run by step()
-        super().__init__(model, max_streams, kv_dtype, n_batch)
+        super().__init__(model, max_streams, kv_dtype, n_batch, mesh=mesh)
 
     def _init_device_state(self, kv_dtype) -> None:
         self.pages_per_stream = -(-self.spec.n_ctx // self.page_size)
@@ -577,8 +582,11 @@ class PagedEngine(Engine):
         if n_pages is None:
             # default: every stream can reach full context (+1 trash page)
             n_pages = 1 + self.max_streams * self.pages_per_stream
-        self.pool = init_paged_cache(self.spec, n_pages, self.page_size,
-                                     kv_dtype, self.device)
+        # under a mesh, a pool of the rank's own kv heads: each layer's
+        # pages are contiguous, as K4 needs
+        self.pool = init_paged_cache(local_spec(self.spec, self.params),
+                                     n_pages, self.page_size, kv_dtype,
+                                     self.device)
         self.allocator = PageAllocator(n_pages)
         self.tables = np.full(
             (self.max_streams, self.pages_per_stream),

@@ -18,6 +18,21 @@ The counterpart of `llm_tpu/serve.py` for host-sampled serving:
   reference does, and counts each fallback (`multi_fallbacks`).
 
 `PagedEngine` (paged.py) keeps this host contract over a shared page pool.
+
+With a `mesh` (parallel/sharding.make_mesh) an engine runs on one rank of
+a tensor-parallel world: its weights are the rank's slices
+(`shard_params`), its cache or pool holds the rank's kv heads, and every
+rank runs the same scheduler on the same requests. The logits are
+gathered whole on every rank (the vocabulary shards over `model`, the
+streams' rows over `data`; bit for bit the same bytes everywhere), so
+each rank's seeded samplers pick the same tokens and every rank returns
+the same texts. The `data` axis splits the dense cache's slots: each
+`model` row holds and computes its block of the streams
+(`shard_cache(batched=True)`'s rule), and a slot's prompt chunk runs on
+its block's row, which broadcasts the logits. PagedEngine's pool is
+whole along `data`, as the JAX package's is. Steps that capture CUDA
+graphs on a single card run eagerly under a mesh
+(`forward.EAGER_UNDER_MESH`).
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ from llm_tpu_torch.models.forward import (
     decode_loop_batched,
     forward_batched,
     init_cache_batched,
+    local_spec,
     unpack_decode_out,
     window_bucket,
 )
@@ -110,22 +126,37 @@ def _chunk_bucket(n: int, n_batch: int) -> int:
 
 @torch.no_grad()
 def _prefill_slot(spec, params, ids, n_past: int, slot: int, cache: KVCache,
-                  window=None):
+                  window=None, n_slots: Optional[int] = None):
     """Run a prompt chunk for one slot of the batched head-major
     [L, B, H_kv, S, D] cache: a B=1 batched forward over a view of the
     slot, which the forward's cache write updates in place (the slot's
     layers are contiguous, so a T=1 chunk reads them through the
-    dense-attention kernel). Returns the chunk's logits [T, V]."""
-    quantized = cache.k_scale is not None
-    sl = slice(slot, slot + 1)
-    slot_cache = KVCache(
-        cache.k[:, sl], cache.v[:, sl],
-        cache.k_scale[:, sl] if quantized else None,
-        cache.v_scale[:, sl] if quantized else None,
-    )
-    logits, _, _ = forward_batched(spec, params, ids[None], [n_past],
-                                   slot_cache, window)
-    return logits[0]
+    dense-attention kernel). Returns the chunk's logits [T, V].
+
+    Under a mesh whose cache holds the rank's `data` block of the
+    `n_slots` slots, the ranks of the slot's block run the chunk and
+    broadcast its logits over `data`."""
+    tp = getattr(params, "tp", None)
+    owner = None
+    if tp is not None and n_slots is not None and cache.k.shape[1] != n_slots:
+        owner, slot = divmod(slot, cache.k.shape[1])
+    if owner is None or owner == tp.mesh.coords["data"]:
+        quantized = cache.k_scale is not None
+        sl = slice(slot, slot + 1)
+        slot_cache = KVCache(
+            cache.k[:, sl], cache.v[:, sl],
+            cache.k_scale[:, sl] if quantized else None,
+            cache.v_scale[:, sl] if quantized else None,
+        )
+        logits, _, _ = forward_batched(spec, params, ids[None], [n_past],
+                                       slot_cache, window)
+        logits = logits[0].contiguous()
+    else:
+        logits = torch.empty((ids.shape[0], spec.n_vocab),
+                             dtype=torch.float32, device=cache.k.device)
+    if owner is not None:
+        tp.broadcast_rows(logits, owner)
+    return logits
 
 
 @torch.no_grad()
@@ -151,13 +182,19 @@ class Engine:
         max_streams: int = 8,
         kv_dtype=torch.bfloat16,
         n_batch: int = 64,  # prefill chunk
+        mesh=None,
     ):
         self.model = model
         self.spec = model.spec
         self.device = model.device
         self.max_streams = max_streams
         self.n_batch = n_batch
+        self.mesh = mesh
         self.params = model.params
+        if mesh is not None:
+            from llm_tpu_torch.parallel.sharding import shard_params
+
+            self.params = shard_params(model.params, mesh, model.spec)
         self._init_device_state(kv_dtype)
 
         self.slots: list[Optional[_Stream]] = [None] * max_streams
@@ -174,9 +211,19 @@ class Engine:
                                 "context_full": 0}
         self._loop_gen: Optional[torch.Generator] = None
 
+    def _local_slots(self) -> int:
+        """The slots a rank's dense cache holds: its `data` block under a
+        mesh (`sharding.local_streams`), else every slot."""
+        if self.mesh is None:
+            return self.max_streams
+        from llm_tpu_torch.parallel.sharding import local_streams
+
+        return local_streams(self.mesh, self.max_streams)
+
     def _init_device_state(self, kv_dtype) -> None:
         """Allocate the KV store (dense slots here; PagedEngine overrides)."""
-        self.cache = init_cache_batched(self.spec, self.max_streams, kv_dtype,
+        self.cache = init_cache_batched(local_spec(self.spec, self.params),
+                                        self._local_slots(), kv_dtype,
                                         self.device)
 
     # -- submission ---------------------------------------------------------
@@ -395,6 +442,7 @@ class Engine:
         logits = _prefill_slot(
             spec, self.params, torch.tensor(ids, device=self.device), pos,
             slot, self.cache, window_bucket(pos, spec.n_ctx),
+            self.max_streams,
         )
         stream.prefill_pos = pos + len(chunk)
         stream.n_past = stream.prefill_pos

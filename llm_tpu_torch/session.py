@@ -35,6 +35,7 @@ from typing import Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from llm_tpu_torch import trace
 from llm_tpu_torch.models.forward import (
     KVCache,
     forward_step,
@@ -225,6 +226,8 @@ class InferenceSession:
         (padding there would run the cache write past its end)."""
         spec = self.model.spec
         n = len(batch)
+        _span = trace.span(f"evaluate[{n}]", level=2)
+        _span.__enter__()
         bucket = 1 if n == 1 else self.config.n_batch
         if n > bucket:
             bucket = n
@@ -249,6 +252,7 @@ class InferenceSession:
             self.last_logits = logits[-1]
         else:
             self.last_logits = logits[n - 1].cpu().numpy()
+        _span.__exit__(None, None, None)
         self.n_past += n
         if output_request is not None:
             if want_all:

@@ -26,8 +26,10 @@ run as captured CUDA graphs (`forward.forward_replay`), as do the draft's
 loops; the CPU runs everything eagerly. The paged engines' verify (a T>1
 pass over the page pool) and tail evaluation run eagerly.
 
-Not ported yet: the engines' `mesh` (tensor parallelism) and snapshots of
-speculative engines.
+Under a `mesh` the engines shard the draft exactly as the target
+(`parallel/sharding.shard_params`), its dense cache holds the rank's
+`data` block of the slots, and their graphs run eagerly. Not
+ported yet: snapshots of speculative engines.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 
 from llm_tpu_torch.models.forward import (
     _block_uniforms,
+    _graph_ok,
     _on_card,
     _run_block,
     batched_graph,
@@ -52,6 +55,7 @@ from llm_tpu_torch.models.forward import (
     init_cache,
     init_cache_batched,
     load_batched,
+    local_spec,
     window_bucket,
 )
 from llm_tpu_torch.ops.sampling import DeviceSampler, batched_sampler
@@ -415,10 +419,15 @@ class SpeculativeEngine(Engine):
         # the small draft keeps a DENSE cache; an int4 target pool pairs
         # it with int8 (int4 is a paged-pool-only format)
         d_kv = kw.get("kv_dtype", torch.bfloat16)
-        self.d_cache = init_cache_batched(
-            draft.spec, self.max_streams, "int8" if d_kv == "int4" else d_kv,
-            self.device)
         self.d_params = draft.params
+        if self.mesh is not None:
+            # the draft shards exactly like the target
+            from llm_tpu_torch.parallel.sharding import shard_params
+
+            self.d_params = shard_params(draft.params, self.mesh, draft.spec)
+        self.d_cache = init_cache_batched(
+            local_spec(draft.spec, self.d_params), self._local_slots(),
+            "int8" if d_kv == "int4" else d_kv, self.device)
         self.accepted = 0
         self.drafted = 0
 
@@ -446,7 +455,8 @@ class SpeculativeEngine(Engine):
         ids[: len(chunk)] = chunk
         _prefill_slot(spec_d, self.d_params,
                       torch.from_numpy(ids).to(self.device), pos, slot,
-                      self.d_cache, window_bucket(pos, spec_d.n_ctx))
+                      self.d_cache, window_bucket(pos, spec_d.n_ctx),
+                      self.max_streams)
         return pos + len(chunk)
 
     def _prefill_chunk(self, stream, slot):
@@ -589,11 +599,11 @@ def _draft_propose_batched(spec, params, last_logits, n_past, cache, k: int,
     captured once per static key (`cache.graphs`) is replayed once a step,
     as `decode_loop_batched`'s."""
     dev = cache.k.device
-    B, S = cache.k.shape[1], cache.k.shape[3]
+    B, S = last_logits.shape[0], cache.k.shape[3]
     W = min(window, S)
     u = _block_uniforms(sampler, uniforms, None, (k, B, spec.n_vocab), dev)
     mask = torch.as_tensor(write_mask, dtype=torch.bool)
-    on_card = _on_card(True, dev)
+    on_card = _on_card(_graph_ok(True, params, dev), dev)
 
     def extra(st):
         st["mask"] = torch.zeros(B, dtype=torch.bool, device=dev)

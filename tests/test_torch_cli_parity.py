@@ -4,8 +4,8 @@ argument groups, with the same defaults and actions. The planned
 differences are listed by name, and any other gap fails:
 
 - `--device` (the port's own: the torch device, default the card);
-- the subcommand `pack` (the pack cache is not ported yet);
-- serve's multi-host flags (`parallel/` is not ported yet).
+- serve's multi-host flags (the multi-controller half of `parallel/` is
+  not ported yet).
 
 A session saved with `-t 4` writes the same header bytes in both packages
 (the reference records the thread count in the snapshot header)."""
@@ -24,7 +24,7 @@ from llm_tpu_torch.cli import build_parser, main as t_main
 from test_torch_archs import one_torch_thread  # noqa: F401 (autouse)
 
 PORT_ONLY = {"--device"}
-REFERENCE_ONLY_COMMANDS = {"pack"}
+REFERENCE_ONLY_COMMANDS: set = set()
 REFERENCE_ONLY = {
     "serve": {"--multihost", "--coordinator", "--num-processes",
               "--process-id", "--model-parallel"},
