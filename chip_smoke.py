@@ -38,7 +38,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             The shard shapes: K1 over each projection of a model=2 rank
             of LLaMA-7B (q|k|v R 6144, wo K 2048, gate|up R 11008, down
             K 5504, head R 16000) at M = 1 and 64, K2 and K4 (int8) over
-            16 local heads, each against its plain version and timed.
+            16 local heads, each against its plain version and timed. The
+            multi-host row's shapes: K1 over the 7B projections at M = 128
+            (a row's [2, 64] prefill chunk), K2 (bf16) and K4 (int8) at
+            the row's 2 streams.
 3. e2e:     a full-width random LLaMA-7B Q4_0 checkpoint (seed 0, ~3.9 GB,
             written under build/smoke/, removed by the gguf phase) is loaded
             on the card, and `InferenceSession.infer` answers three greedy
@@ -72,6 +75,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             its unsharded forward. The ranks share one card and gloo
             stages every collective through the host: not a multi-GPU
             speed.
+   multihost: a gloo world of 2 ranks on the one card over the same
+            file, (data, model) = (2, 1), a host one rank
+            (`parallel/multihost.py`): each row's 2 serve prompts (cut to
+            64 tokens, 16 new, greedy) through MultiHostEngine (dense
+            bf16) and MultiHostPagedEngine (int8, page 256) host-stepped,
+            launches held to their forwards (129 K1 and 32 K2 or K4 a
+            decode forward), a rank's decode step timed with its control
+            all-gathers; the paged engine's blocks of 16 (greedy device
+            sampler) as CUDA graphs, none eager; an LlmServer on each row
+            (two completions at temperature 0, a live /admin/checkpoint
+            refused, the consensus stop); the coordinated per-rank
+            checkpoint (`.host0`, `.host1`) of a paged engine with a
+            stream in flight, restored in the same world with the
+            uninterrupted run's tokens, a swapped file refused; each row's
+            tokens held against single-card engines in the same rank
+            (equal, or teacher-forced logits within 2^-8). Then `serve
+            --multihost` of a world of one on nccl through the cli (the
+            2-layer full-width model): one completion, SIGINT, exit 0.
+            The ranks share one card: not a multi-card speed.
    device_sampling: the same model (no second load) through
             `InferenceSession.infer_device`, whose T=1 decode step runs as
             a captured CUDA graph replayed once a token: one captured step
@@ -197,7 +219,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    archs:   the six other architectures, each written with
             `make_bench_file` at its published width (seed 0, under
             build/smoke/, removed after loading) and loaded on the card:
-            MPT-7B Q4_K whole (32 layers, vocab 50,432, ALiBi, tied head,
+            8 of MPT-7B Q4_K's 32 layers (vocab 50,432, ALiBi, tied head,
             context 8192), GPT-2 117M Q8_0 (context 2048, capped at its
             1024 positions), StableLM-3B Q5_1 (GPT-NeoX, 32 layers), and 4
             layers of GPT-J-6B Q4_0, BLOOM-7B1 Q4_0 and Falcon-7B Q4_0.
@@ -3655,11 +3677,13 @@ def speculative_phase(model, dev, e2e, timer) -> dict:
 # bench.py's geometry where it has one (its staged configs #1 GPT-2, #3
 # StableLM, #4 MPT; MPT with its published vocab, 50,432, where bench.py
 # has 32,000). StableLM rotates a quarter of each head (its published
-# rotary_pct; bench.py rotates all of it). MPT-7B and the 117M GPT-2 and
-# StableLM-3B are whole; GPT-J, BLOOM and Falcon keep 4 of their layers.
+# rotary_pct; bench.py rotates all of it). The 117M GPT-2 and StableLM-3B
+# are whole; MPT-7B keeps 8 of its layers (its Q4_K load and engines took
+# 111 s at 32, which the script's time limit cannot spare), GPT-J, BLOOM
+# and Falcon keep 4.
 ARCH_MODELS = [
     ("mpt7b_q4_k", "mpt", "Q4_K",
-     dict(n_vocab=50432, n_embd=4096, n_head=32, n_layer=32,
+     dict(n_vocab=50432, n_embd=4096, n_head=32, n_layer=8,
           alibi_bias_max=8.0), 16384, 8192, (64, 1100), 32, 32),
     ("gpt2_117m_q8_0", "gpt2", "Q8_0",
      dict(n_vocab=50304, n_embd=768, n_head=12, n_layer=12, n_ctx=1024),
@@ -5853,9 +5877,544 @@ def shard_kernel_phase(dev, timer) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# multihost: multi-controller serving (parallel/multihost.py) on the card
+
+MH_WORLD = 2  # ranks, (data, model) = (2, 1): a host is one rank
+MH_STREAMS = 2  # a row's slots (global 4)
+MH_PROMPT, MH_NEW, MH_BLOCK = 64, 16, 16
+MH_TIMED_STEPS = 8
+MH_IDLE_GATHERS = 100
+MH_TIMEOUT = 240  # s the world may run before it is killed
+MH_CKPT_PAGES = 3  # the checkpointed engine's pool: trash + a page a row
+MH_CLI_TIMEOUT = 120
+# the kernels at a multi-host row's shapes: K1 over the 7B projections at
+# M = 128 (the row's [2, 64] prefill chunk), K2 (bf16 cache) and K4 (int8
+# pool) at the row's 2 streams
+MH_DENSE_CASE = ("mh_b2", "bf16", 512, (MH_PROMPT + MH_NEW,) * 2, H, 1,
+                 False, True)
+MH_PAGED_CASE = ("mh_b2", "int8", SERVE_PAGE, MH_STREAMS,
+                 ("all", MH_PROMPT + MH_NEW), H, 1, False)
+
+
+def mh_kernel_phase(dev, timer) -> dict:
+    from llm_tpu_torch.ggml.types import GgmlType
+
+    rng = np.random.default_rng(23)
+    M = MH_STREAMS * MH_PROMPT
+    k1 = []
+    for name, K, R in SHAPES_7B:
+        w = random_weight(GgmlType.Q4_0, K, R, rng, dev)
+        k1.append(check_qmatmul(name, w, M, rng, dev, timer, timed=True))
+        del w
+    name, kv, W, n_past, hkv, rep, alibi, timed = MH_DENSE_CASE
+    k2 = check_attention(name, kv, W, list(n_past), hkv, rep, alibi, rng,
+                         dev, timer, timed)
+    k4 = check_paged(MH_PAGED_CASE, rng, dev, timer)
+    torch.cuda.empty_cache()
+    bad = [r for r in k1 + [k2, k4] if not r["ok"]]
+    if bad:
+        fail(f"multihost shapes: kernels out of tolerance: {bad[:2]}")
+    per = {"qkv": N_LAYER, "wo": N_LAYER, "gate_up": N_LAYER,
+           "down": N_LAYER, "lm_head": 1}
+    out = {"qmatmul": k1, "dense_attention": k2, "paged_attention": k4,
+           "per_chunk": {f"M{M}": {k: sum(r[k] * per[r["case"]] for r in k1)
+                                   for k in ("ms", "plain_ms", "library_ms",
+                                             "bound_ms")}}}
+    emit({"multihost_kernels": {
+        "k1_per_129_launches": out["per_chunk"],
+        **{n: {k: out[n][k] for k in ("ms", "bound_ms", "plain_ms",
+                                      "library_ms", "max_abs_err")}
+           for n in ("dense_attention", "paged_attention")}}})
+    return out
+
+
+class ForcedSampler:
+    """A host sampler that answers with given tokens and records the
+    logits it was asked to sample from: an engine's own path,
+    teacher-forced."""
+
+    def __init__(self, tokens):
+        self.tokens = [int(t) for t in tokens]
+        self.rows = []
+
+    def sample(self, logits, prev, rng) -> int:
+        self.rows.append(np.array(logits, np.float32))
+        return self.tokens[min(len(self.rows), len(self.tokens)) - 1]
+
+
+class RecordingGreedy:
+    """Greedy, recording the logits of each pick."""
+
+    def __init__(self):
+        self.rows = []
+
+    def sample(self, logits, prev, rng) -> int:
+        self.rows.append(np.array(logits, np.float32))
+        return int(np.argmax(logits))
+
+
+def mh_generated(engine, ids) -> list:
+    return [list(engine.finished[r].tokens[-engine.finished[r].generated:])
+            for r in ids]
+
+
+def mh_counted(engine, module, fn, attention, reqs, name, spec) -> dict:
+    """One engine run in the world, host-stepped, with the launch counters
+    zeroed just before and read just after, held exactly to its
+    forwards."""
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.monotonic()
+    with counted_forwards(module, fn) as counts:
+        ids = [engine.submit(r) for r in reqs]
+        while engine.has_work_global():
+            engine.step()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_engine_launches(name, launches, dict(counts), attention, spec)
+    return {"ids": ids, "tokens": mh_generated(engine, ids),
+            "texts": ["".join(engine.finished[r].text) for r in ids],
+            "launches": launches, "forwards": dict(counts),
+            "wall_s": time.monotonic() - t0}
+
+
+def mh_step_ms(engine, reqs) -> dict:
+    """Host ms of a decode step of the row's 2 streams, over
+    MH_TIMED_STEPS steps in lockstep (after the step that prefills the
+    prompts), with the control all-gathers' count and ms."""
+    control = engine.control
+    for r in reqs:
+        engine.submit(r)
+    engine.step()
+    control.gathers, control.gather_s = 0, 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MH_TIMED_STEPS):
+        engine.step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    gathers, gather_s = control.gathers, control.gather_s
+    while engine.has_work_global():
+        engine.step()
+    return {"ms_per_step": dt * 1e3 / MH_TIMED_STEPS,
+            "control_gathers_per_step": gathers / MH_TIMED_STEPS,
+            "control_gather_ms": gather_s * 1e3 / max(gathers, 1),
+            "control_ms_per_step": gather_s * 1e3 / MH_TIMED_STEPS}
+
+
+def mh_parted(name, got: list, want: list, rows: list) -> list:
+    """Streams whose tokens part from `want`'s; a part is allowed only at
+    a near-tie of the recorded logits `rows` of `want`'s run."""
+    parted = []
+    for s, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        i = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        parted.append((s, i))
+        if rows is not None and i < len(rows[s]):
+            row = torch.from_numpy(rows[s][i])
+            top1_held(f"{name} stream {s} at token {i}",
+                      row.new_zeros(row.shape).index_fill_(
+                          0, torch.tensor([int(g[i])]), 1.0)[None],
+                      row[None])
+    return parted
+
+
+def mh_forced(name, make_mh, make_single, prompts, want) -> dict:
+    """Teacher forcing through the engines' own paths: both answer with
+    `want`'s tokens; their logits rows are held within E2E_REL_L2 with
+    top-1 equal (but at a near-tie)."""
+    from llm_tpu_torch.serve import GenerationRequest
+
+    runs = []
+    for make, collective in ((make_mh, True), (make_single, False)):
+        engine = make()
+        forced = [ForcedSampler(w) for w in want]
+        for p, f, w in zip(prompts, forced, want):
+            engine.submit(GenerationRequest(prompt=p, max_tokens=len(w),
+                                            sampler=f))
+        while (engine.has_work_global() if collective
+               else engine.has_work()):
+            engine.step()
+        runs.append([f.rows for f in forced])
+        del engine
+    n = [min(len(a), len(b)) for a, b in zip(*runs)]
+    got, ref = (torch.from_numpy(np.stack(
+        [rows[i] for rows, k in zip(run, n) for i in range(k)]))
+        for run in runs)
+    return {**compare_logits(f"{name} forced", got, ref),
+            **top1_held(f"{name} forced", got, ref)}
+
+
+def multihost_rank(rank, world, path, device, store) -> dict:
+    """One rank of the gloo world of 2 on the one card, (data, model) =
+    (2, 1): the dense and paged multi-host engines on this row's 2
+    prompts (host-stepped, launches exact), the paged engine's blocks of
+    16 (CUDA graphs), each held against a single-card engine on the same
+    prompts in this rank; an LlmServer on this row; the coordinated
+    per-rank checkpoint of a paged engine with a stream in flight."""
+    import os
+
+    import torch.distributed as dist
+
+    from llm_tpu_torch import loader
+    from llm_tpu_torch import paged as paged_mod
+    from llm_tpu_torch import serve as serve_mod
+    from llm_tpu_torch.engine_snapshot import read_engine, write_engine
+    from llm_tpu_torch.models import forward as fwd
+    from llm_tpu_torch.ops.sampling import DeviceSampler
+    from llm_tpu_torch.parallel import multihost as mh
+    from llm_tpu_torch.parallel import sharding as sh
+    from llm_tpu_torch.server import LlmServer, rank_snapshot_path
+    from llm_tpu_torch.session import SnapshotError
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mh.CONTROL_TIMEOUT_S = float(MH_TIMEOUT)
+    t0 = time.monotonic()
+    model = loader.load(path, "llama",
+                        params=loader.ModelParameters(context_size=CTX),
+                        device=dev)
+    spec = model.spec
+    out = {"rank": rank, "load_s": time.monotonic() - t0}
+    mesh = sh.make_mesh(sh.MeshConfig(data=world, model=1), device=dev)
+    host = mesh.coords["data"]
+    prompts = [p[:MH_PROMPT] for p in serve_prompts(MH_STREAMS * world)][
+        MH_STREAMS * host: MH_STREAMS * (host + 1)]
+    G = MH_STREAMS * world
+    eager0 = fwd.EAGER_UNDER_MESH
+
+    from llm_tpu_torch.samplers import GreedySampler
+
+    def reqs(n=MH_NEW, samplers=None):
+        return [serve_mod.GenerationRequest(
+            prompt=p, max_tokens=n,
+            sampler=samplers[i] if samplers else GreedySampler())
+            for i, p in enumerate(prompts)]
+
+    def dense():
+        return mh.MultiHostEngine(model, mesh, global_streams=G,
+                                  kv_dtype=torch.bfloat16, n_batch=MH_PROMPT)
+
+    def paged(n_pages=None):
+        return mh.MultiHostPagedEngine(
+            model, mesh, global_streams=G, kv_dtype="int8",
+            n_batch=MH_PROMPT, page_size=SERVE_PAGE, n_pages=n_pages)
+
+    # (a) the dense bf16 engine, host-stepped; then its steps timed
+    rec = [RecordingGreedy() for _ in prompts]
+    e = dense()
+    out["dense"] = mh_counted(e, mh, "forward_batched", "dense_attention",
+                              reqs(samplers=rec), "multihost dense", spec)
+    dense_rows = [r.rows for r in rec]
+    out["dense"]["cache_k"] = list(e.cache.k.shape)
+    out["dense_step"] = mh_step_ms(e, reqs())
+    del e
+    # (b) the paged int8 engine, host-stepped; its steps timed
+    rec = [RecordingGreedy() for _ in prompts]
+    p = paged()
+    out["paged"] = mh_counted(p, paged_mod, "paged_forward_batched",
+                              "paged_attention", reqs(samplers=rec),
+                              "multihost paged", spec)
+    paged_rows = [r.rows for r in rec]
+    out["paged_step"] = mh_step_ms(p, reqs())
+    # (c) its blocks of 16 with a greedy device sampler: CUDA graphs
+    dreqs = [serve_mod.GenerationRequest(
+        prompt=q, max_tokens=MH_NEW, device_sampler=DeviceSampler.greedy())
+        for q in prompts]
+    ids = [p.submit(r) for r in dreqs]
+    while p.has_work_global():
+        p.step_multi(MH_BLOCK)
+    block = mh_generated(p, ids)
+    # timed: a second run over the captured graph, its second block
+    ids = [p.submit(serve_mod.GenerationRequest(
+        prompt=q, max_tokens=3 * MH_BLOCK,
+        device_sampler=DeviceSampler.greedy())) for q in prompts]
+    p.step_multi(MH_BLOCK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p.step_multi(MH_BLOCK)
+    torch.cuda.synchronize()
+    block_ms = (time.perf_counter() - t0) * 1e3 / MH_BLOCK
+    while p.has_work_global():
+        p.step_multi(MH_BLOCK)
+    graphs = [{"launches_per_replay": g.launches, "replays": g.replays,
+               "capture_s": g.capture_s} for g in p.pool.graphs.values()]
+    want = {"qmatmul": 4 * N_LAYER + 1, "dense_attention": 0,
+            "paged_attention": N_LAYER}
+    if not graphs or any(g["launches_per_replay"] != want for g in graphs):
+        fail(f"rank {rank}: multihost block graphs {graphs}")
+    out["block"] = {"tokens": block, "ms_per_step": block_ms,
+                    "graphs": graphs, "blocks": p.multi_blocks,
+                    "eager_under_mesh": fwd.EAGER_UNDER_MESH - eager0,
+                    "fallbacks": p.multi_fallbacks}
+    if out["block"]["eager_under_mesh"] or p.multi_blocks < 3:
+        fail(f"rank {rank}: multihost blocks {out['block']}")
+    out["block"]["parted"] = mh_parted(f"rank {rank} block", block,
+                                       out["paged"]["tokens"], paged_rows)
+
+    # (d) LlmServer on this row: 2 completions at temperature 0 (the
+    # server's chain: top-k 1 with the default repetition penalty), equal
+    # to the engine's host-stepped run of that chain; a live checkpoint
+    # refused; the consensus stop
+    from llm_tpu_torch.server import sampler_from_params
+
+    ids = [p.submit(r) for r in reqs(samplers=[
+        sampler_from_params({"temperature": 0}, n_vocab=spec.n_vocab)
+        for _ in prompts])]
+    while p.has_work_global():
+        p.step()
+    served = ["".join(p.finished[r].text) for r in ids]
+    srv = LlmServer(model, p, host="127.0.0.1", port=0)
+    srv.start()
+    host_, port_ = srv.address
+    base = f"http://{host_}:{port_}"
+    http = []
+    for q in prompts:
+        status, body, sec = http_json(base + "/v1/completions", {
+            "prompt": q, "max_tokens": MH_NEW, "temperature": 0})
+        http.append(body["choices"][0]["text"] if status == 200 else None)
+    status, body, _ = http_json(base + "/admin/checkpoint", {})
+    out["server"] = {"loop": type(srv.loop).__name__,
+                     "texts_equal": http == served,
+                     "live_checkpoint": [status, body]}
+    if not out["server"]["texts_equal"] or status != 409:
+        fail(f"rank {rank}: multihost server {out['server']}: {http} "
+             f"against {served}")
+    dist.barrier()
+    if rank == 0:
+        srv.loop.shutdown()
+        time.sleep(0.5)
+        out["server"]["alive_after_own_stop"] = srv.loop.is_alive()
+    else:
+        time.sleep(1.0)
+        srv.loop.shutdown()
+    srv.loop.join(timeout=60)
+    out["server"]["loop_alive"] = srv.loop.is_alive()
+    srv.httpd.shutdown()
+    srv.httpd.server_close()
+    if out["server"]["loop_alive"] or not out["server"].get(
+            "alive_after_own_stop", True):
+        fail(f"rank {rank}: multihost consensus stop {out['server']}")
+    del srv, p
+    torch.cuda.empty_cache()
+
+    # (e) the coordinated per-rank checkpoint: one stream a row in flight
+    ck = paged(MH_CKPT_PAGES)
+    rid = ck.submit(reqs()[0])
+    for _ in range(4):  # the prompt's chunk, then decodes
+        ck.step()
+    snap = rank_snapshot_path(ck, store / "engine.snap")
+    t0 = time.monotonic()
+    write_engine(ck, snap)
+    write_s = time.monotonic() - t0
+    fresh = paged(MH_CKPT_PAGES)
+    t0 = time.monotonic()
+    read_engine(fresh, snap)
+    read_s = time.monotonic() - t0
+    in_flight = fresh.active
+    while ck.has_work_global():
+        ck.step()
+    while fresh.has_work_global():
+        fresh.step()
+    dist.barrier()
+    other = Path(f"{store / 'engine.snap'}.host{1 - rank}")
+    refused = None
+    try:
+        read_engine(paged(MH_CKPT_PAGES), other)
+    except SnapshotError as e:
+        refused = str(e)
+    out["checkpoint"] = {
+        "file": Path(snap).name, "bytes": os.path.getsize(snap),
+        "write_s": write_s, "read_s": read_s, "in_flight": in_flight,
+        "steps": fresh._steps,
+        "tokens_equal": rid in fresh.finished and
+        fresh.finished[rid].tokens == ck.finished[rid].tokens,
+        "swapped_refused": refused}
+    if not (out["checkpoint"]["tokens_equal"] and in_flight == 1
+            and refused and refused.startswith("process layout mismatch")):
+        fail(f"rank {rank}: multihost checkpoint {out['checkpoint']}")
+    del ck, fresh
+    torch.cuda.empty_cache()
+
+    # (f) the single-card engines on this row's prompts, in this rank
+    single = {}
+    for kind, make in (
+            ("dense", lambda: serve_mod.Engine(
+                model, max_streams=MH_STREAMS, kv_dtype=torch.bfloat16,
+                n_batch=MH_PROMPT)),
+            ("paged", lambda: paged_mod.PagedEngine(
+                model, max_streams=MH_STREAMS, page_size=SERVE_PAGE,
+                kv_dtype="int8", n_batch=MH_PROMPT))):
+        e = make()
+        single[kind] = mh_generated(e, list(e.generate_all(reqs())))
+        del e
+    parted = {kind: mh_parted(f"rank {rank} {kind}",
+                              out[kind]["tokens"], single[kind], None)
+              for kind in ("dense", "paged")}
+    out["single_parted"] = parted
+    # where a row parts from the single card, the whole world holds the
+    # teacher-forced logits (a collective decision)
+    agreed = mh.ControlGroups.for_mesh(mesh).allgather(
+        [int(bool(parted["dense"])), int(bool(parted["paged"]))], "forced")
+    forced = {}
+    for j, (kind, make_mh, make_single) in enumerate((
+            ("dense", dense, lambda: serve_mod.Engine(
+                model, max_streams=MH_STREAMS, kv_dtype=torch.bfloat16,
+                n_batch=MH_PROMPT)),
+            ("paged", paged, lambda: paged_mod.PagedEngine(
+                model, max_streams=MH_STREAMS, page_size=SERVE_PAGE,
+                kv_dtype="int8", n_batch=MH_PROMPT)))):
+        if agreed[:, j].any():
+            forced[kind] = mh_forced(f"rank {rank} {kind}", make_mh,
+                                     make_single, prompts, single[kind])
+    out["forced"] = forced
+    out["held"] = {k: ("forced" if k in forced else "tokens")
+                   for k in ("dense", "paged")}
+    # the control all-gather alone, the ranks in step: a step's gathers
+    # above also wait out the skew between the ranks' forwards
+    control = mh.ControlGroups.for_mesh(mesh)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(MH_IDLE_GATHERS):
+        control.allgather([0, 0], "idle")
+    out["control_gather_idle_ms"] = ((time.perf_counter() - t0) * 1e3
+                                     / MH_IDLE_GATHERS)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    for k in ("dense", "paged"):
+        out[k].pop("ids")
+    return out
+
+
+def mh_cli_nccl(store) -> dict:
+    """`serve --multihost` of a world of one on nccl through the cli, on
+    the 2-layer full-width model: one completion, then SIGINT; the
+    process must exit 0 within MH_CLI_TIMEOUT."""
+    import queue
+    import signal
+    import socket
+    import threading
+
+    from llm_tpu_torch.ggml.types import GgmlType
+    from llm_tpu_torch.testing import make_bench_file
+
+    small = store / "llama7b-2layer.bin"
+    make_bench_file("llama", small, GgmlType.Q4_0, seed=0, n_ff=FF,
+                    n_vocab=V, n_embd=E, n_head=H, n_layer=NCCL_LAYERS,
+                    n_mult=256)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = s.getsockname()[1]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "llm_tpu_torch", "serve", "-m", str(small),
+         "-a", "llama", "--num-ctx-tokens", str(CTX), "--multihost",
+         "--coordinator", f"127.0.0.1:{coord}", "--num-processes", "1",
+         "--process-id", "0", "--port", "0", "--max-streams", "2"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines: "queue.Queue" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    seen = []
+    try:
+        while not seen or "serving" not in seen[-1]:
+            seen.append(lines.get(timeout=MH_CLI_TIMEOUT))
+        line = seen[-1].strip()
+        if "rank 0 of 1 on nccl" not in line:
+            fail(f"multihost cli: {line}")
+        url = line.split(" on ")[1].split()[0]
+        ready_s = time.monotonic() - t0
+        status, body, sec = http_json(url + "/v1/completions", {
+            "prompt": e2e_prompts()[0], "max_tokens": 4,
+            "temperature": 0})
+        if status != 200 or not body["choices"][0]["text"]:
+            fail(f"multihost cli completion: {status} {body}")
+        proc.send_signal(signal.SIGINT)
+        t1 = time.monotonic()
+        rc = proc.wait(timeout=MH_CLI_TIMEOUT)
+        exit_s = time.monotonic() - t1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        small.unlink(missing_ok=True)
+    while not lines.empty():
+        seen.append(lines.get())
+    if rc != 0:
+        fail(f"multihost cli exited {rc}: {''.join(seen[-20:])}")
+    return {"serving_line": line, "ready_s": ready_s, "completion_s": sec,
+            "exit_s": exit_s, "rc": rc}
+
+
+def multihost_phase(dev) -> dict:
+    """A gloo world of 2 ranks on the one card (`multihost_rank`) over the
+    e2e LLaMA-7B Q4_0 file at full width and depth, (data, model) =
+    (2, 1), then a world of one on nccl through the cli (`mh_cli_nccl`).
+    The two ranks share one card: its times are not a multi-card speed."""
+    import shutil
+
+    from llm_tpu_torch.parallel import launch
+
+    store = ROOT / "build" / "smoke" / "multihost"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    out = {}
+    try:
+        t0 = time.monotonic()
+        ranks = launch.spawn(multihost_rank, MH_WORLD, "gloo", store / "gloo",
+                             timeout=MH_TIMEOUT,
+                             args=(str(bench_path()), str(dev), store))
+        out["gloo_world_s"] = time.monotonic() - t0
+        out["ranks"] = ranks
+        t0 = time.monotonic()
+        out["nccl_cli"] = mh_cli_nccl(store)
+        out["nccl_cli_s"] = time.monotonic() - t0
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    launches = dict.fromkeys(("qmatmul", "dense_attention",
+                              "paged_attention"), 0)
+    for r in ranks:
+        for kind in ("dense", "paged"):
+            for k in launches:
+                launches[k] += r[kind]["launches"][k]
+        for g in r["block"]["graphs"]:
+            for k in launches:
+                launches[k] += g["launches_per_replay"][k] * g["replays"]
+    out["launches"] = launches
+    summary = {
+        "note": "2 ranks share one card; a host is one rank; not a "
+                "multi-card speed",
+        "dense_step_ms": [r["dense_step"]["ms_per_step"] for r in ranks],
+        "paged_step_ms": [r["paged_step"]["ms_per_step"] for r in ranks],
+        "block_step_ms": [r["block"]["ms_per_step"] for r in ranks],
+        "control_gather_ms": [r["paged_step"]["control_gather_ms"]
+                              for r in ranks],
+        "control_ms_per_step": [r["paged_step"]["control_ms_per_step"]
+                                for r in ranks],
+        "control_gather_idle_ms": [r["control_gather_idle_ms"]
+                                   for r in ranks],
+        "held": [r["held"] for r in ranks],
+        "block_parted": [r["block"]["parted"] for r in ranks],
+        "checkpoint": [{k: r["checkpoint"][k] for k in (
+            "file", "bytes", "write_s", "read_s")} for r in ranks],
+        "load_s": [r["load_s"] for r in ranks],
+        "gloo_world_s": out["gloo_world_s"],
+        "nccl_cli": out["nccl_cli"],
+        "launches": launches,
+    }
+    out["summary"] = summary
+    emit({"multihost_summary": summary})
+    return out
+
+
 def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
                    cinf, ab, dsamp, multi, archs,
-                   session_paths, spec, slice_paths, shard) -> list[dict]:
+                   session_paths, spec, slice_paths, shard,
+                   mhk) -> list[dict]:
     """One entry per kernel: times summed over the launches of one decode
     step at 7B (qmatmul: the 4 projections x 32 layers + lm_head at M=1;
     dense_attention: 32 layers at W=512, bf16 cache, full window;
@@ -5883,7 +6442,10 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
     LoRA-patched and upcast: counted launches plus each graph's launches
     times its replays), and the parallel phase (`parallel`: both ranks'
     engines, pipeline, ring and one TP decode forward), with K1, K2 and K4
-    at a model=2 rank's shapes in `shard_by_case`."""
+    at a model=2 rank's shapes in `shard_by_case`, and the multihost phase
+    (`multihost`: both ranks' host-stepped engine runs plus each block
+    graph's launches times its replays), with K1 at M=128 and K2 and K4 at
+    a row's 2 streams in `multihost_by_case`."""
     per_token = {"qkv": N_LAYER, "wo": N_LAYER, "gate_up": N_LAYER,
                  "down": N_LAYER, "lm_head": 1}
     dec = [r for r in qrecs if r["M"] == 1 and r["case"] in per_token]
@@ -6012,17 +6574,20 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
         e["max_abs_err"] = max([e["max_abs_err"], *errs])
     # the kernels at a model=2 rank's shapes (16 local heads; K1 a token's
     # launches over the shards at M=1 and 64)
-    entries[1]["shard_by_case"] = shard["per_token"]
-    for e in entries[2:4]:
-        r = shard[e["name"]]
-        e["shard_by_case"] = {r["case"]: {k: r[k] for k in (
-            "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
-            "max_abs_err")}}
-    for e in entries[1:4]:
-        errs = ([r["max_abs_err"] for r in shard["qmatmul"]]
-                if e["name"] == "qmatmul"
-                else [shard[e["name"]]["max_abs_err"]])
-        e["max_abs_err"] = max([e["max_abs_err"], *errs])
+    # and at a multi-host row's shapes (K1 a [2, 64] prefill chunk's 129
+    # launches at M=128; K2 and K4 at the row's 2 streams)
+    for key, rec in (("shard_by_case", shard), ("multihost_by_case", mhk)):
+        entries[1][key] = rec["per_token" if rec is shard else "per_chunk"]
+        for e in entries[2:4]:
+            r = rec[e["name"]]
+            e[key] = {r["case"]: {k: r[k] for k in (
+                "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+                "max_abs_err")}}
+        for e in entries[1:4]:
+            errs = ([r["max_abs_err"] for r in rec["qmatmul"]]
+                    if e["name"] == "qmatmul"
+                    else [rec[e["name"]]["max_abs_err"]])
+            e["max_abs_err"] = max([e["max_abs_err"], *errs])
     # qmatmul's launches by consumer path, in each path's own run
     entries[1]["launches_by_consumer_path"] = {
         name: {"swapped": ls["qmatmul_swapped"], "wide": ls["qmatmul_wide"]}
@@ -6102,6 +6667,9 @@ def main() -> None:
     shard = shard_kernel_phase(dev, timer)
     results["shard_kernels"] = shard
     lap("shard_kernels")
+    mhk = mh_kernel_phase(dev, timer)
+    results["multihost_kernels"] = mhk
+    lap("multihost_kernels")
     cases = qrecs + k3eq + k3recs + ab + arecs + precs + mrecs + checks
     results["kernel_cases"] = cases
     emit({"kernel_cases": cases})
@@ -6122,6 +6690,10 @@ def main() -> None:
     par = parallel_phase(dev)
     results["parallel"] = par
     lap("parallel")
+
+    mhp = multihost_phase(dev)
+    results["multihost"] = mhp
+    lap("multihost")
 
     dsamp = device_sampling_phase(model, dev, e2e)
     results["device_sampling"] = dsamp
@@ -6205,7 +6777,9 @@ def main() -> None:
                              cinf, ab, dsamp, multi, archs, session_paths,
                              spec, {"routes": routes["launches"],
                                     "adapters": adapters["launches"],
-                                    "parallel": par["launches"]}, shard)
+                                    "parallel": par["launches"],
+                                    "multihost": mhp["launches"]}, shard,
+                             mhk)
     kernels += probe_entries(probes, checks, dev, timer)
     del timer
     lap("kernel_entries")

@@ -717,18 +717,38 @@ def cmd_gguf_convert(args) -> None:
 
 
 def cmd_serve(args) -> None:
-    """HTTP serving over the continuous-batching engine (dense or paged)."""
-    import torch
-
-    from llm_tpu_torch.server import serve_forever
-
-    # pure-argument validation BEFORE the multi-GB model load
+    """HTTP serving over the continuous-batching engine (dense or paged;
+    with --multihost one rank of a world, `parallel/multihost.py`)."""
+    # pure-argument validation BEFORE the world and the multi-GB load
     if args.kv_int4 and not args.paged:
         raise SystemExit("--kv-int4 requires --paged (pool-only format)")
     if args.kv_int4 and args.kv_int8:
         raise SystemExit("--kv-int4 and --kv-int8 conflict; pick one")
-    if args.prefix_cache and not args.paged:
-        raise SystemExit("--prefix-cache requires --paged")
+    if args.prefix_cache and (args.multihost or not args.paged):
+        raise SystemExit("--prefix-cache requires --paged (single-host)")
+    if args.multihost and args.draft_model:
+        raise SystemExit("--draft-model with --multihost: not yet")
+    if args.multihost:
+        # join the world before the model loads: under nccl this picks
+        # the rank's card
+        from llm_tpu_torch.parallel.multihost import initialize
+
+        initialize(args.coordinator, args.num_processes, args.process_id,
+                   device=args.device)
+    try:
+        _serve(args)
+    finally:
+        if args.multihost:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
+def _serve(args) -> None:
+    import torch
+
+    from llm_tpu_torch.server import serve_forever
 
     model = load_model(args)
     draft = load_draft(args) if args.draft_model else None
@@ -751,6 +771,8 @@ def cmd_serve(args) -> None:
             draft_k=args.draft_k,
             draft_sampled=args.draft_sampled,
             engine_snapshot=args.engine_snapshot,
+            multihost=args.multihost,
+            model_parallel=args.model_parallel,
         )
     except KeyboardInterrupt:
         pass
@@ -997,8 +1019,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="speculative decoding: small same-vocabulary draft "
                    "checkpoint, loaded on the same device and context "
                    "(greedy requests only; dense KV, or paged with --paged "
-                   "incl. --prefix-cache/--kv-int8). With --multihost: not "
-                   "in this port yet")
+                   "incl. --prefix-cache/--kv-int8; not with --multihost)")
     p.add_argument("--draft-k", type=int, default=4,
                    help="draft proposals per speculative round")
     p.add_argument("--draft-sampled", action="store_true",
@@ -1006,10 +1027,24 @@ def build_parser() -> argparse.ArgumentParser:
                    "SAMPLED requests (temperature/top-k/top-p/min-p; "
                    "greedy maps to top-k 1) with the output distribution "
                    "exactly the target's")
+    p.add_argument("--multihost", action="store_true",
+                   help="serve across processes over the world's mesh, one "
+                   "process a card (run one `serve` a rank; each row's "
+                   "leader binds --port; --max-streams counts the world's "
+                   "slots)")
+    p.add_argument("--coordinator", default=None,
+                   help="rank 0's store address host:port (tcp://); "
+                   "default: torch's MASTER_ADDR/MASTER_PORT")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--model-parallel", type=int, default=None,
+                   help="TP width (default: the ranks on this node, so TP "
+                   "collectives stay on the node's links)")
     p.add_argument("--engine-snapshot", default=None,
                    help="engine checkpoint/resume path: restored at "
                    "startup if present, written on graceful shutdown, and "
-                   "written live by POST /admin/checkpoint")
+                   "written live by POST /admin/checkpoint (multi-host: "
+                   "one .host<N> file a rank, no live checkpoint)")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser(

@@ -26,8 +26,22 @@ file that carries one is refused with a SnapshotError that names the key,
 rather than restored with other random draws.
 
 Callbacks (`GenerationRequest.on_token`) are process-local and are not
-serialized; `read_engine(..., on_token=...)` re-attaches one. Multi-host
-engines (per-host files) are not in the port.
+serialized; `read_engine(..., on_token=...)` re-attaches one.
+
+Multi-host engines (MultiHostEngine / MultiHostPagedEngine) checkpoint
+one file a rank: every rank calls `write_engine` with its own path (the
+server adds `.host<N>`), with no collective. A rank's file holds its
+tensors as they are, which are already its block: its `data` block of
+the slots (dense) or its whole row-local pool (paged), over its own kv
+heads, with its streams, tables and allocator. The JAX package assembles
+a host's block from the addressable shards of a global array and builds
+the global array back on restore (`_local_block`, `_make_global`); the
+port has no global arrays, so neither has a counterpart here. The header's
+`multihost` record holds the JAX package's `process_index`,
+`process_count`, `row0`, `global_streams` and `steps`, and the rank's
+mesh coordinates `data_index` and `model_index` with the `model` width
+`model_parallel`. A restore runs on the same layout: a file of another
+layout is refused, naming both.
 """
 
 from __future__ import annotations
@@ -263,12 +277,44 @@ def _load_stream(d: dict, arrays: dict, on_token):
 # engines
 
 
-def _kv_tensors(engine) -> dict:
-    """The engine's KV tensors by file name (the restore copies into them)."""
+def _is_mh(engine) -> bool:
+    from llm_tpu_torch.parallel.multihost import MultiHostEngine
+
+    return isinstance(engine, MultiHostEngine)
+
+
+def _is_mh_paged(engine) -> bool:
+    from llm_tpu_torch.parallel.multihost import MultiHostPagedEngine
+
+    return isinstance(engine, MultiHostPagedEngine)
+
+
+def _is_paged(engine) -> bool:
     from llm_tpu_torch.paged import PagedEngine
 
+    return isinstance(engine, PagedEngine) or _is_mh_paged(engine)
+
+
+def _mh_layout(engine) -> dict:
+    """A multi-host rank's place: the layout a restore must match."""
+    import torch.distributed as dist
+
+    mesh = engine.mesh
+    return {
+        "process_index": dist.get_rank(),
+        "process_count": dist.get_world_size(),
+        "row0": engine._row0,
+        "global_streams": engine.global_streams,
+        "data_index": mesh.coords["data"],
+        "model_index": mesh.coords["model"],
+        "model_parallel": mesh.shape["model"],
+    }
+
+
+def _kv_tensors(engine) -> dict:
+    """The engine's KV tensors by file name (the restore copies into them)."""
     out = {}
-    if isinstance(engine, PagedEngine):
+    if _is_paged(engine):
         pool = engine.pool
         out["pool.k"], out["pool.v"] = pool.k, pool.v
         if pool.quantized:
@@ -313,6 +359,10 @@ def _engine_kind(engine) -> str:
 
     if type(engine).__name__ in _SPEC_ENGINES:
         return type(engine).__name__
+    if _is_mh_paged(engine):
+        return "MultiHostPagedEngine"
+    if _is_mh(engine):
+        return "MultiHostEngine"
     if isinstance(engine, PagedEngine):
         return "PagedEngine"
     return "Engine"
@@ -329,7 +379,8 @@ def _loop_gen_state(engine) -> Optional[dict]:
 def write_engine(engine, path: str | Path) -> None:
     """Checkpoint a quiesced engine: call between step()s, on the thread
     that steps it. The file is written beside `path` and renamed over it,
-    so a failed write leaves an earlier checkpoint as it was."""
+    so a failed write leaves an earlier checkpoint as it was. A
+    multi-host rank writes its own file (no collective)."""
     from llm_tpu_torch.paged import PagedEngine
     from llm_tpu_torch.serve import Engine
 
@@ -366,7 +417,9 @@ def write_engine(engine, path: str | Path) -> None:
             "accepted": engine.accepted,
             "drafted": engine.drafted,
         }
-    if isinstance(engine, PagedEngine):
+    if _is_mh(engine):
+        header["multihost"] = dict(_mh_layout(engine), steps=engine._steps)
+    if _is_paged(engine):
         pc = engine.prefix_cache
         header["paged"] = {
             "page_size": engine.page_size,
@@ -448,8 +501,21 @@ def read_engine(
     Every malformed file is a SnapshotError, and a refused restore leaves
     the engine as it was: everything is read and checked before the
     engine is touched."""
+    prepare_engine(engine, path, on_token)()
+
+
+def prepare_engine(
+    engine,
+    path: str | Path,
+    on_token: Optional[Callable[[int, str], None]] = None,
+) -> Callable[[], None]:
+    """The first half of `read_engine`: read and check the file against
+    the engine without touching it, and return the commit that restores
+    it. A SnapshotError here leaves the engine as constructed. The ranks
+    of a multi-host world prepare their own files, agree, and then all
+    commit or none does (`server.LlmServer`)."""
     try:
-        return _read_engine_impl(engine, path, on_token)
+        return _prepare_engine(engine, path, on_token)
     except SnapshotError:
         raise
     except (KeyError, IndexError, TypeError, ValueError) as e:
@@ -459,9 +525,7 @@ def read_engine(
         ) from e
 
 
-def _read_engine_impl(engine, path, on_token) -> None:
-    from llm_tpu_torch.paged import PagedEngine
-
+def _prepare_engine(engine, path, on_token) -> Callable[[], None]:
     try:
         with open(path, "rb") as f:
             if f.read(4) != MAGIC:
@@ -496,11 +560,18 @@ def _read_engine_impl(engine, path, on_token) -> None:
             "to restore it with other random draws"
         )
     want_cls = header["engine"]
-    is_paged = isinstance(engine, PagedEngine)
+    is_paged = _is_paged(engine)
     if _engine_kind(engine) != want_cls:
         raise SnapshotError(
             f"checkpoint is for {want_cls}, got {type(engine).__name__}"
         )
+    if _is_mh(engine):
+        got = _mh_layout(engine)
+        want = {k: header["multihost"].get(k) for k in got}
+        if got != want:
+            raise SnapshotError(
+                f"process layout mismatch: checkpoint {want}, engine {got}"
+            )
     if _spec_fingerprint(engine.spec) != header["spec"]:
         raise SnapshotError(
             f"model geometry mismatch: checkpoint {header['spec']}, "
@@ -636,31 +707,37 @@ def _read_engine_impl(engine, path, on_token) -> None:
 
     # ---- phase 2: commit. KV goes into the engine's own tensors, so the
     # CUDA graphs captured over them stay valid.
-    for name, src in kv_new.items():
-        targets[name].copy_(src)
-    if "_loop_gen" in new:
-        gen = torch.Generator(device=engine.device)
-        gen.set_state(new.pop("_loop_gen"))
-        engine._loop_gen = gen
-    else:
-        engine._loop_gen = None  # a fresh chain from seed 0, as constructed
-    for attr, val in new.items():
-        setattr(engine, attr, val)
-    if is_paged:
-        engine.allocator.free = list(header["paged"]["free"])
-        if prefix_state is not None:
-            pc = engine.prefix_cache
-            pc.by_key = prefix_state["by_key"]
-            pc.key_of = {pid: k for k, pid in pc.by_key.items()}
-            pc.refs = prefix_state["refs"]
-            pc.lru = prefix_state["lru"]
-            pc.logits_by_key = prefix_state["logits"]
-        elif engine.prefix_cache is not None:
-            # the checkpoint has no prefix state: leave nothing stale
-            engine.prefix_cache = type(engine.prefix_cache)()
+    def commit() -> None:
+        for name, src in kv_new.items():
+            targets[name].copy_(src)
+        if "_loop_gen" in new:
+            gen = torch.Generator(device=engine.device)
+            gen.set_state(new.pop("_loop_gen"))
+            engine._loop_gen = gen
+        else:
+            # a fresh chain from seed 0, as constructed
+            engine._loop_gen = None
+        for attr, val in new.items():
+            setattr(engine, attr, val)
+        if _is_mh(engine):
+            engine._steps = int(header["multihost"]["steps"])
+        if is_paged:
+            engine.allocator.free = list(header["paged"]["free"])
+            if prefix_state is not None:
+                pc = engine.prefix_cache
+                pc.by_key = prefix_state["by_key"]
+                pc.key_of = {pid: k for k, pid in pc.by_key.items()}
+                pc.refs = prefix_state["refs"]
+                pc.lru = prefix_state["lru"]
+                pc.logits_by_key = prefix_state["logits"]
+            elif engine.prefix_cache is not None:
+                # the checkpoint has no prefix state: leave nothing stale
+                engine.prefix_cache = type(engine.prefix_cache)()
 
-    engine.slots = slots
-    engine.pending = pending
-    engine.finished = {}
-    engine._retired_events = []
-    engine._next_id = header["next_id"]
+        engine.slots = slots
+        engine.pending = pending
+        engine.finished = {}
+        engine._retired_events = []
+        engine._next_id = header["next_id"]
+
+    return commit

@@ -1,8 +1,9 @@
 """Parallelism on torch.distributed: tensor and data parallelism
 (`sharding`), GPipe pipelines (`pipeline`), ring-attention prefill
-(`ring`), the collective audit (`collectives_audit`) and a launcher of
-worlds on one host (`launch`). The counterpart of `llm_tpu/parallel/`'s
-single-controller half."""
+(`ring`), the collective audit (`collectives_audit`), a launcher of
+worlds on one host (`launch`) and multi-controller serving across hosts
+(`multihost`, a submodule, as in the JAX package). The counterpart of
+`llm_tpu/parallel/`."""
 
 from llm_tpu_torch.parallel.sharding import (
     MeshConfig,

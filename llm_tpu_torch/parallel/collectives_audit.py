@@ -12,6 +12,11 @@ of the mesh (ranks index `mesh.devices.flat`), as the reference's does.
 Payload bytes follow the reference's HLO accounting: an all-reduce and a
 broadcast count their tensor, an all-gather its gathered result, a
 send-receive the tensor sent.
+
+Control traffic (`multihost.ControlGroups`: the hosts' integers and the
+row's pickled requests, on gloo groups of their own) is recorded apart,
+on the axis "control", so that a step's tensor bytes by mesh axis stay
+what the device moved.
 """
 
 from __future__ import annotations
@@ -91,6 +96,21 @@ def note(op: str, mesh, ranks: "list[int]", nbytes: int, what: str) -> None:
         return
     _RECORD.append(CollectiveOp(op, classify_groups([ranks], mesh), nbytes,
                                 [list(ranks)], what))
+
+
+def recording() -> bool:
+    """Whether audit_step is running (a helper may skip the work of
+    sizing a payload otherwise)."""
+    return _RECORD is not None
+
+
+def note_control(op: str, ranks: "list[int]", nbytes: int,
+                 what: str) -> None:
+    """Record one control collective, on the axis "control" (a no-op
+    unless audit_step is running)."""
+    if _RECORD is None:
+        return
+    _RECORD.append(CollectiveOp(op, "control", nbytes, [list(ranks)], what))
 
 
 def audit_step(fn: Callable[[], object], mesh) -> AuditResult:

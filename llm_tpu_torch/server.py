@@ -52,7 +52,18 @@ construction when it exists (its streams finish headless), writes it on a
 graceful shutdown, and serves /admin/checkpoint. A file the restore
 refuses is moved to `<path>.corrupt` and the server starts fresh.
 
-Not ported yet: multi-host engines.
+With a multi-host engine (`parallel/multihost.py`; `serve_forever`'s
+`multihost`) each process runs one rank of a world. The leader of each
+`model` row (a host) binds its own HTTP endpoint and serves its own
+streams; the other ranks of the row bind none and run the leader's
+requests. `_MultiHostEngineLoop` keeps every rank's engine calls in
+lockstep: each tick the leader broadcasts its inbox's operations to its
+row, then the world all-gathers [has_work, stop] and every rank takes the
+same branch (step, idle, or exit once every row has asked to stop and no
+work is left). Each rank's checkpoint is its own file, `<path>.host<N>`
+(N its rank) when the world has more than one rank; at construction the
+world restores every rank's file or, when one is refused or missing,
+sets them all aside and starts fresh.
 """
 
 from __future__ import annotations
@@ -140,16 +151,21 @@ def sampler_from_params(params: dict, n_vocab: int = 0):
     return build_sampler_chain(args, n_vocab=n_vocab, bias=bias)
 
 
-def device_sampler_from_params(params: dict, allow_logprobs: bool = False):
+def device_sampler_from_params(params: dict, allow_logprobs: bool = False,
+                               allow_bias: bool = True):
     """A DeviceSampler for a request the device can sample (greedy or
     temperature, with top-k, top-p, min-p, tail-free, typical or mirostat,
     windowed repetition / frequency / presence penalties and logit bias),
     so a multi-step server decodes it in blocks. None when the request
     needs the host chain: an explicit sampler DSL, no temperature (the
-    full default chain), logprobs unless `allow_logprobs`."""
+    full default chain), logprobs unless `allow_logprobs`, a logit bias
+    unless `allow_bias` (a multi-host block would need the hosts to agree
+    on the biased tokens)."""
     if params.get("sampler") is not None:
         return None
     if params.get("logprobs") is not None and not allow_logprobs:
+        return None
+    if params.get("logit_bias") and not allow_bias:
         return None
     temp = params.get("temperature")
     if temp is None:
@@ -463,17 +479,23 @@ class _EngineLoop(threading.Thread):
             "ttft_ms_p95": pick(0.95),
         }
 
+    def _should_exit(self) -> bool:
+        return self.stopping
+
+    def _fail_tickets(self, reason: str) -> None:
+        tickets, self.tickets = self.tickets, {}
+        for t in tickets.values():
+            t.events.put(("", True, reason, None))
+
     def run(self) -> None:
-        while not self.stopping:
+        while not self._should_exit():
             try:
                 self._tick()
             except Exception:  # noqa: BLE001 — an engine failure must not
                 # strand waiting handlers on a dead thread: fail their
                 # requests and keep serving
                 traceback.print_exc()
-                tickets, self.tickets = self.tickets, {}
-                for t in tickets.values():
-                    t.events.put(("", True, "error: engine step failed", None))
+                self._fail_tickets("error: engine step failed")
         if self.snapshot_path:
             status, info = self._checkpoint(self.snapshot_path)
             print(f"engine checkpoint on shutdown: {status} {info}",
@@ -497,8 +519,216 @@ class _EngineLoop(threading.Thread):
             self._dispatch(self.engine.step())
 
 
+class _MultiHostEngineLoop(_EngineLoop):
+    """A rank's loop over a MultiHostEngine: serving across hosts, each
+    row's leader with its own HTTP endpoint and streams.
+
+    Every engine operation of a MultiHostEngine is collective, so every
+    rank must make the same calls in the same order. Each tick:
+    1. the row's leader drains its inbox and broadcasts the row's
+       operations (submit with its request, cancel, stop) over the row's
+       control group; every rank of the row applies them in order, so
+       request ids and slots are equal across the row (a request without
+       a seed gets one from the leader first, so the row's samplers draw
+       alike). Embeddings and checkpoint requests are the leader's own;
+    2. the world all-gathers [has_work, stop] (its blocking also matches
+       the hosts' rates), and every rank takes the same branch: step,
+       idle 0.05 s, or exit once every row has asked to stop and no work
+       is left. A host whose own streams are done keeps stepping until
+       the world's work drains, so no host leaves a peer mid-collective.
+
+    `multi_step` is ignored: per-host choices between step and
+    step_multi could differ, which would misalign the collectives. An
+    exception in a tick ends the loop (the world is out of step; its
+    peers fail within their control timeout) and fails the open
+    requests."""
+
+    def __init__(self, engine, multi_step: int = 0, snapshot_path=None):
+        super().__init__(engine, multi_step, snapshot_path)
+        self.control = engine.control
+        self._exit_agreed = False
+        self.failed: Optional[str] = None
+
+    def _should_exit(self) -> bool:
+        return self._exit_agreed or self.failed is not None
+
+    def submit(self, ticket: _Ticket) -> int:
+        if self.failed is None:
+            self.inbox.put(("submit", ticket))
+            while not ticket.ready.wait(0.5):
+                if self.failed is not None:
+                    break
+            if ticket.ready.is_set():
+                return ticket.request_id
+        ticket.request_id = -1
+        ticket.events.put(("", True, f"error: {self.failed}", None))
+        return -1
+
+    def _checkpoint(self, path, client: bool = False) -> tuple[str, str]:
+        if client:
+            # a live checkpoint asked of ONE host would write a torn set:
+            # the other hosts' files would come from other steps. Only the
+            # coordinated shutdown checkpoint (every host exits after the
+            # consensus at the same step) is consistent.
+            return (
+                "error",
+                "live /admin/checkpoint is not supported on multi-host "
+                "serving; stop all hosts gracefully for a consistent "
+                "per-host checkpoint set",
+            )
+        return super()._checkpoint(path, client=client)
+
+    def _row_ops(self) -> list:
+        """The row's operations of this tick, in inbox order: the
+        leader's (submit carries its ticket), and the leader's sent to
+        the other ranks (submit carries the request)."""
+        ops = []
+        if self.control.leader:
+            shared = len(self.control.row_ranks) > 1
+            while True:
+                try:
+                    kind, payload = self.inbox.get_nowait()
+                except queue.Empty:
+                    break
+                if kind == "submit":
+                    req = payload.request
+                    if shared and req.seed is None:
+                        req.seed = int(np.random.SeedSequence().entropy
+                                       % (1 << 63))
+                    ops.append(("submit", payload))
+                elif kind in ("cancel", "stop"):
+                    ops.append((kind, payload))
+                elif kind == "embed":
+                    inputs, out_q = payload
+                    try:
+                        out_q.put(("ok", self._embed(inputs)))
+                    except Exception as e:  # noqa: BLE001
+                        out_q.put(("error", str(e)))
+                elif kind == "checkpoint":
+                    path, out_q = payload
+                    out_q.put(self._checkpoint(path, client=True))
+            wire = [(k, p.request if k == "submit" else p) for k, p in ops]
+            if shared:
+                self.control.broadcast_row(wire)
+            return ops
+        return self.control.broadcast_row(None)
+
+    def _apply(self, ops: list) -> None:
+        for kind, payload in ops:
+            if kind == "stop":
+                self.stopping = True
+            elif kind == "cancel":
+                self.engine.cancel(payload)
+            elif not isinstance(payload, _Ticket):  # a follower's submit
+                if not self.stopping:
+                    self.engine.submit(payload)
+            elif self.stopping:
+                payload.request_id = -1
+                payload.events.put(("", True, "error: server stopping",
+                                    None))
+                payload.ready.set()
+            else:
+                try:
+                    payload.request_id = self.engine.submit(payload.request)
+                    self.tickets[payload.request_id] = payload
+                except Exception as e:  # noqa: BLE001 — fail THIS request
+                    payload.request_id = -1
+                    payload.events.put(("", True, f"error: {e}", None))
+                payload.ready.set()
+
+    def run(self) -> None:
+        try:
+            while not self._should_exit():
+                self._tick()
+        except Exception as e:  # noqa: BLE001 — the world is out of step
+            traceback.print_exc()
+            self.failed = f"multi-host engine loop failed: {e}"
+            self._fail_tickets(f"error: {self.failed}")
+            while True:  # submits that raced the failure
+                try:
+                    kind, payload = self.inbox.get_nowait()
+                except queue.Empty:
+                    break
+                if kind == "submit":
+                    payload.request_id = -1
+                    payload.events.put(("", True, f"error: {self.failed}",
+                                        None))
+                    payload.ready.set()
+            return
+        if self.snapshot_path:
+            status, info = self._checkpoint(self.snapshot_path)
+            print(f"engine checkpoint on shutdown: {status} {info}",
+                  flush=True)
+
+    def _tick(self) -> None:
+        self._apply(self._row_ops())
+        self._dispatch(self.engine._drain_retired())
+        g = self.control.allgather(
+            [1 if self.engine.has_work() else 0, 1 if self.stopping else 0],
+            "loop")
+        work = int(g[:, 0].sum()) > 0
+        if bool(g[:, 1].all()) and not work:
+            self._exit_agreed = True
+            return
+        if not work:
+            time.sleep(0.05)
+            return
+        self._dispatch(self.engine.step())
+
+
+def rank_snapshot_path(engine, path):
+    """The checkpoint file of this rank: `path`, or for a multi-host
+    engine in a world of more than one rank `<path>.host<N>` (N its
+    rank), one file a rank."""
+    if hasattr(engine, "has_work_global"):
+        import torch.distributed as dist
+
+        if dist.get_world_size() > 1:
+            return f"{path}.host{dist.get_rank()}"
+    return path
+
+
+def _restore(engine, path: str, multihost: bool) -> None:
+    """Restore `engine` from the checkpoint at `path` when it exists. A
+    file the restore refuses is moved to `<path>.corrupt` and the engine
+    stays fresh: a refused checkpoint must not stop the server. The ranks
+    of a multi-host world agree first: every rank restores, or (a file
+    refused, or present on some ranks only) every rank sets its file
+    aside and starts fresh, so the ranks of a row hold the same slots and
+    the world one step counter."""
+    from llm_tpu_torch.engine_snapshot import prepare_engine
+    from llm_tpu_torch.session import SnapshotError
+
+    exists = os.path.exists(path)
+    commit, reason = None, None
+    if exists:
+        try:
+            commit = prepare_engine(engine, path)
+        except SnapshotError as e:
+            reason = str(e)
+    if multihost:
+        absent, _, refused = engine.control.any_world(
+            [not exists, commit is not None, reason is not None], "restore")
+        if commit is not None and (refused or absent):
+            commit = None
+            reason = ("another rank's checkpoint was refused" if refused
+                      else "another rank has no checkpoint")
+    if commit is not None:
+        commit()
+        print(f"restored engine state from {path} ({engine.active} "
+              f"streams in flight, {len(engine.pending)} pending)",
+              flush=True)
+    elif exists:
+        quarantine = f"{path}.corrupt"
+        os.replace(path, quarantine)
+        print(f"WARNING: engine checkpoint rejected ({reason}); moved to "
+              f"{quarantine}, serving with a fresh engine", flush=True)
+
+
 class LlmServer:
-    """Bind an Engine (dense, paged or speculative) to an HTTP address."""
+    """Bind an Engine (dense, paged, speculative or multi-host) to an HTTP
+    address. A multi-host engine gets the collective per-rank loop, and
+    only the leader of its row binds the address."""
 
     def __init__(self, model, engine: Engine, host: str = "127.0.0.1",
                  port: int = 8080, multi_step: int = 0,
@@ -506,48 +736,47 @@ class LlmServer:
         """`engine_snapshot`: the engine checkpoint's path. Restored here
         when the file exists (the streams in flight resume and finish
         headless: their clients went with the old process), written on a
-        graceful shutdown, and written live by POST /admin/checkpoint."""
+        graceful shutdown, and written live by POST /admin/checkpoint.
+        A multi-host engine in a world of more than one rank gets a
+        `.host<N>` suffix (N its rank): one file a rank."""
         self.model = model
         self.model_id = getattr(model, "name", None) or "llm-tpu"
+        multihost = hasattr(engine, "has_work_global")
+        if engine_snapshot is not None:
+            engine_snapshot = rank_snapshot_path(engine, engine_snapshot)
         self.engine_snapshot = engine_snapshot
-        if engine_snapshot is not None and os.path.exists(engine_snapshot):
-            from llm_tpu_torch.engine_snapshot import read_engine
-            from llm_tpu_torch.session import SnapshotError
-
-            try:
-                read_engine(engine, engine_snapshot)
-                print(f"restored engine state from {engine_snapshot} "
-                      f"({engine.active} streams in flight, "
-                      f"{len(engine.pending)} pending)", flush=True)
-            except SnapshotError as e:
-                # a refused checkpoint must not stop the server: keep the
-                # file aside and serve with the fresh engine, loudly
-                quarantine = f"{engine_snapshot}.corrupt"
-                os.replace(engine_snapshot, quarantine)
-                print(f"WARNING: engine checkpoint rejected ({e}); moved "
-                      f"to {quarantine}, serving with a fresh engine",
-                      flush=True)
-        self.loop = _EngineLoop(engine, multi_step=multi_step,
-                                snapshot_path=engine_snapshot)
+        if engine_snapshot is not None:
+            _restore(engine, engine_snapshot, multihost)
+        loop_cls = _MultiHostEngineLoop if multihost else _EngineLoop
+        self.loop = loop_cls(engine, multi_step=multi_step,
+                             snapshot_path=engine_snapshot)
         self.default_max_tokens = default_max_tokens
-        self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
-        self.httpd.daemon_threads = True
+        self.httpd = None  # a row's other ranks bind no address
+        if not multihost or engine.control.leader:
+            self.httpd = ThreadingHTTPServer((host, port),
+                                             _make_handler(self))
+            self.httpd.daemon_threads = True
 
     @property
-    def address(self) -> tuple[str, int]:
+    def address(self) -> Optional[tuple[str, int]]:
+        if self.httpd is None:
+            return None
         return self.httpd.server_address[:2]
 
     def start(self) -> None:
         self.loop.start()
-        threading.Thread(
-            target=self.httpd.serve_forever, daemon=True,
-            name="llm-tpu-torch-http",
-        ).start()
+        if self.httpd is not None:
+            threading.Thread(
+                target=self.httpd.serve_forever, daemon=True,
+                name="llm-tpu-torch-http",
+            ).start()
 
     def shutdown(self) -> None:
-        """Stop serving HTTP and the engine loop; waits for both."""
-        self.httpd.shutdown()
-        self.httpd.server_close()
+        """Stop serving HTTP and the engine loop; waits for both (a
+        multi-host loop exits once every row has asked to stop)."""
+        if self.httpd is not None:
+            self.httpd.shutdown()
+            self.httpd.server_close()
         self.loop.shutdown()
         self.loop.join(timeout=60)
 
@@ -606,7 +835,9 @@ class LlmServer:
             # speculative engine takes the device sampler every round
             device_sampler=(
                 device_sampler_from_params(
-                    body, allow_logprobs=engine.supports_device_logprobs)
+                    body, allow_logprobs=engine.supports_device_logprobs,
+                    allow_bias=getattr(engine, "supports_device_bias",
+                                       True))
                 if self.loop.multi_step > 1 or needs_device else None
             ),
             logprobs=(int(body["logprobs"])
@@ -888,18 +1119,41 @@ def _make_handler(server: LlmServer):
 def build_engine(model, max_streams=8, kv_dtype=None, n_batch=64,
                  paged=False, page_size=256, n_pages=None,
                  prefix_cache=False, draft=None, draft_k=4,
-                 draft_sampled=False, engine_snapshot=None) -> Engine:
+                 draft_sampled=False, engine_snapshot=None,
+                 multihost=False, model_parallel=None) -> Engine:
     """The dense Engine, or a PagedEngine with `paged`; with a `draft`
     model the speculative engine of the same kind (greedy, or rejection
     sampling with `draft_sampled`), proposing `draft_k` tokens a round.
-    kv_dtype defaults to bf16. With `engine_snapshot` the new engine is
-    restored from that checkpoint (`engine_snapshot.read_engine`; a
-    refused file raises SnapshotError)."""
+    With `multihost` (an initialized world, `multihost.initialize`) the
+    rank's MultiHostEngine or MultiHostPagedEngine over
+    `multihost_mesh(model_parallel)`, `max_streams` counting the world's
+    slots. kv_dtype defaults to bf16. With `engine_snapshot` the new
+    engine is restored from that checkpoint (`engine_snapshot.read_engine`;
+    a refused file raises SnapshotError)."""
     kv_dtype = kv_dtype if kv_dtype is not None else torch.bfloat16
-    if prefix_cache and not paged:
-        raise ValueError("--prefix-cache requires --paged")
+    if prefix_cache and (multihost or not paged):
+        raise ValueError("--prefix-cache requires --paged (single-host)")
     kwargs = {} if n_pages is None else {"n_pages": n_pages}
-    if draft is not None:
+    if multihost:
+        # one server (and port) a row over the world's mesh; max_streams
+        # counts the world's slots, split evenly over the rows
+        from llm_tpu_torch.parallel.multihost import (
+            MultiHostEngine,
+            MultiHostPagedEngine,
+            multihost_mesh,
+        )
+
+        if draft is not None:
+            raise ValueError("--draft-model with --multihost: not yet")
+        mesh = multihost_mesh(model_parallel, device=model.device)
+        if paged:
+            engine = MultiHostPagedEngine(
+                model, mesh, global_streams=max_streams, kv_dtype=kv_dtype,
+                n_batch=n_batch, page_size=page_size, **kwargs)
+        else:
+            engine = MultiHostEngine(model, mesh, global_streams=max_streams,
+                                     kv_dtype=kv_dtype, n_batch=n_batch)
+    elif draft is not None:
         from llm_tpu_torch import speculative as sp
 
         if paged:
@@ -935,17 +1189,32 @@ def serve_forever(model, host="127.0.0.1", port=8080, max_streams=8,
                   kv_dtype=None, n_batch=64, paged=False, page_size=256,
                   n_pages=None, warmup=True, prefix_cache=False,
                   multi_step=0, draft=None, draft_k=4,
-                  draft_sampled=False, engine_snapshot=None) -> None:
+                  draft_sampled=False, engine_snapshot=None,
+                  multihost=False, model_parallel=None) -> None:
     """CLI entry: build the engine and serve until interrupted. With
     `engine_snapshot`, the engine is restored from that file when it
     exists (a refused file is set aside; `LlmServer`), and written there
-    when the server stops."""
+    when the server stops. With `multihost` every rank of the world runs
+    this: a row's leader serves HTTP, the row's other ranks run its
+    requests, and the world exits once every leader has been stopped."""
     engine = build_engine(model, max_streams, kv_dtype, n_batch, paged,
                           page_size, n_pages, prefix_cache, draft, draft_k,
-                          draft_sampled)
+                          draft_sampled, multihost=multihost,
+                          model_parallel=model_parallel)
     srv = LlmServer(model, engine, host=host, port=port,
                     multi_step=multi_step, engine_snapshot=engine_snapshot)
     srv.loop.start()
+    if srv.httpd is None:
+        # a row's follower: no address; the leader's stop ends its loop
+        print(f"llm-tpu-torch rank {engine.mesh.rank} follows its row's "
+              f"leader (rank {engine.control.row_ranks[0]})", flush=True)
+        while srv.loop.is_alive():
+            try:
+                srv.loop.join()
+            except KeyboardInterrupt:
+                pass  # the row stops when its leader does
+        _raise_if_failed(srv.loop)
+        return
     if warmup:
         print("warming up (building and loading the kernels)...", flush=True)
         t0 = time.monotonic()
@@ -956,13 +1225,33 @@ def serve_forever(model, host="127.0.0.1", port=8080, max_streams=8,
           f"({'paged' if paged else 'dense'} KV, {max_streams} streams, "
           f"{model.device}"
           + (f", blocks of {multi_step}" if multi_step > 1 else "")
-          + (f", draft k={draft_k}" if draft is not None else "") + ")",
+          + (f", draft k={draft_k}" if draft is not None else "")
+          + (f", rank {engine.mesh.rank} of {engine.mesh.devices.size} "
+             f"on {engine.mesh.backend}" if multihost else "") + ")",
           flush=True)
+    if multihost:
+        # a failed world loop ends the HTTP server too
+        threading.Thread(target=_stop_http_with_loop, args=(srv,),
+                         daemon=True).start()
     try:
         srv.httpd.serve_forever()
     finally:
         # a graceful exit (SIGINT) drains the loop, so the final engine
-        # checkpoint lands before the process ends
+        # checkpoint lands before the process ends; a multi-host loop
+        # exits once every row has asked to stop
         srv.loop.shutdown()
-        if engine_snapshot is not None:
+        if engine_snapshot is not None or multihost:
             srv.loop.join(timeout=600)
+    if multihost:
+        _raise_if_failed(srv.loop)
+
+
+def _stop_http_with_loop(srv: LlmServer) -> None:
+    srv.loop.join()
+    if srv.loop.failed is not None:
+        srv.httpd.shutdown()
+
+
+def _raise_if_failed(loop) -> None:
+    if getattr(loop, "failed", None) is not None:
+        raise RuntimeError(loop.failed)

@@ -1,11 +1,13 @@
 """The port's command line against the JAX package's `build_parser()`:
 every subcommand the two share takes the same options, in the same
 argument groups, with the same defaults and actions. The planned
-differences are listed by name, and any other gap fails:
+difference is listed by name, and any other gap fails:
 
-- `--device` (the port's own: the torch device, default the card);
-- serve's multi-host flags (the multi-controller half of `parallel/` is
-  not ported yet).
+- `--device` (the port's own: the torch device, default the card).
+
+Serve's multi-host flags (`--multihost`, `--coordinator`,
+`--num-processes`, `--process-id`, `--model-parallel`) are the
+reference's.
 
 A session saved with `-t 4` writes the same header bytes in both packages
 (the reference records the thread count in the snapshot header)."""
@@ -25,10 +27,7 @@ from test_torch_archs import one_torch_thread  # noqa: F401 (autouse)
 
 PORT_ONLY = {"--device"}
 REFERENCE_ONLY_COMMANDS: set = set()
-REFERENCE_ONLY = {
-    "serve": {"--multihost", "--coordinator", "--num-processes",
-              "--process-id", "--model-parallel"},
-}
+REFERENCE_ONLY: dict = {}
 
 
 def _commands(parser) -> dict:
