@@ -17,8 +17,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             every kernel; SASS instructions a weight of the dequant and of
             the q4_0 kernels' main loop).
 2. kernels: each kernel's wrapper runs on the card at the LLaMA-7B shapes
-            of the main paths (qmatmul at M = 1, 8, 16, 64 and 512; dense
-            attention at B = 1 and 8; paged attention at B = 4-64) and is
+            of the main paths (qmatmul at M = 1, 8, 16, 64, 128 and 512,
+            M > 32 on the wgmma path; dense attention at B = 1 and 8; paged
+            attention at B = 4-64, GQA rep 8 on the tensor-core branch) and is
             held against its plain PyTorch version on the same inputs;
             times of kernel, plain version, one PyTorch library call, and
             the card's bound. qmatmul is also held for all 10 formats (both
@@ -34,7 +35,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             shapes off the 7B ones (D 64 / 80 / 256, 4 / 8 / 71 query heads
             a kv head, page 24, all four pools, ALiBi, n_past 0, mid-page
             and full), and repeated launches, and a launch after one with
-            another grid, must give bit-equal results.
+            another grid, must give bit-equal results on both branches.
+            Each attention case records whether it took the tensor-core
+            branch (`LAUNCHES_GQA_MMA`), which must match its plan; the
+            compiler's report must show HGMMA and no HMMA in the wide
+            qmatmul kernels and HMMA, without spills, in the GQA branch.
             The shard shapes: K1 over each projection of a model=2 rank
             of LLaMA-7B (q|k|v R 6144, wo K 2048, gate|up R 11008, down
             K 5504, head R 16000) at M = 1 and 64, K2 and K4 (int8) over
@@ -429,8 +434,10 @@ def check_qmatmul(name, w, M, rng, dev, timer, timed: bool) -> dict:
 
     x = torch.from_numpy(rng.standard_normal((M, w.k)).astype(np.float32)
                          ).to(dev)
+    p = qm.plan(w, M, num_sms())
     rec = {"case": name, "fmt": w.fmt_name, "scale_packed": w.scale_packed,
            "layout": type(w).__name__, "M": M, "K": w.k, "R": w.r,
+           "path": p.path, "bm": p.bm, "splits": p.splits,
            **qmatmul_held(qm.qmatmul(x, w), x, w)}
     if timed:
         w_bf16 = dequant_any(w).bfloat16()
@@ -465,8 +472,8 @@ def qmatmul_phase(dev, timer) -> list[dict]:
     for name, K, R in SHAPES_7B:
         w = random_weight(GgmlType.Q4_0, K, R, rng, dev)
         # infer's decode and prefill; the serving decode (8 and 16 streams)
-        # and its prefill chunks
-        for M in (1, 8, 16, 64, N_BATCH):
+        # and its prefill chunks; a multi-host row's [2, 64] chunk (128)
+        for M in (1, 8, 16, 64, 128, N_BATCH):
             recs.append(check_qmatmul(name, w, M, rng, dev, timer, True))
         del w
     return recs
@@ -597,6 +604,20 @@ def num_sms() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
+def gqa_counted(fn):
+    """fn()'s result (synchronized) and the launches of the tensor-core
+    branch it made (LAUNCHES_GQA_MMA read before and after: 0 or 1)."""
+    from llm_tpu_torch.ops import paged_attention as pa
+
+    before = pa.LAUNCHES_GQA_MMA
+    out = fn()
+    torch.cuda.synchronize()
+    n = pa.LAUNCHES_GQA_MMA - before
+    if n not in (0, 1):
+        fail(f"attention: {n} launches of the GQA branch in one call")
+    return out, n
+
+
 def check_attention(name, kv, W, n_past, hkv, rep, alibi, rng, dev, timer,
                     timed, d=D) -> dict:
     """The dense pass over a [2, B, hkv, 2048, d] cache, one stream per
@@ -604,6 +625,7 @@ def check_attention(name, kv, W, n_past, hkv, rep, alibi, rng, dev, timer,
     from types import SimpleNamespace
 
     from llm_tpu_torch.ops import dense_attention as da
+    from llm_tpu_torch.ops import paged_attention as pa
     from llm_tpu_torch.ops.layers import alibi_slopes
 
     L, B, S = 2, len(n_past), CTX
@@ -627,11 +649,12 @@ def check_attention(name, kv, W, n_past, hkv, rep, alibi, rng, dev, timer,
     spec = SimpleNamespace(kq_scale=1.0 / math.sqrt(d))
     layer = 1
     args = (spec, ck, cv, ks, vs, npast, W, layer, qf, slopes)
-    got = da.dense_attention_pass(*args)
-    torch.cuda.synchronize()
+    got, mma = gqa_counted(lambda: da.dense_attention_pass(*args))
     ok, errs = attn_held(got, da.dense_attention_plain(*args), npast)
+    plan = pa.launch_plan(B, hkv, rep, d, S, W, ck.dtype, num_sms())
     rec = {"case": name, "kv": kv, "W": W, "B": B, "n_past": list(n_past),
-           "Hkv": hkv, "rep": rep, "alibi": alibi, "ok": bool(ok),
+           "Hkv": hkv, "rep": rep, "alibi": alibi, "mma": plan.mma,
+           "gqa_mma_launches": mma, "ok": bool(ok) and mma == int(plan.mma),
            "max_abs_err": max(errs), "errs_m_l_acc": errs}
     if timed:
         rec["ms"] = timer.ms(lambda: da.dense_attention_pass(*args))
@@ -721,9 +744,11 @@ PAGED_CASES = [
     ("serve64", "int8", 256, 64, ("at", 200), H, 1, False),
     ("serve64", "int4", 256, 64, ("at", 200), H, 1, False),
     ("f32", "f32", 16, 4, ("upto", 520), H, 1, False),
-    # 64 query heads over 8 kv heads (LLaMA-70B's grouping), and rep 4
-    ("gqa_alibi", "bf16", 128, 16, ("upto", 1100), 8, 8, True),
-    ("gqa_alibi", "bf16", 128, 16, ("upto", 1100), 8, 4, True),
+    # 64 query heads over 8 kv heads (LLaMA-70B's grouping), and rep 4;
+    # int8 and int4 at both: the two sides of the tensor-core branch's
+    # threshold (paged_attention.MMA_MIN_REP)
+    *(("gqa_alibi", kv, 128, 16, ("upto", 1100), 8, rep, True)
+      for kv in ("bf16", "int8", "int4") for rep in (8, 4)),
 ]
 PAGED_LAYER = 5
 
@@ -794,16 +819,17 @@ def check_paged(case, rng, dev, timer) -> dict:
         kv, page, B, n_past_spec, hkv, rep, alibi, rng, dev)
     spec = SimpleNamespace(kq_scale=1.0 / math.sqrt(D))
     args = (spec, pk, pv, ks, vs, tables, npast, slopes, wp, PAGED_LAYER, qf)
-    got = pa.paged_attention_pass(*args)
-    torch.cuda.synchronize()
+    got, mma = gqa_counted(lambda: pa.paged_attention_pass(*args))
     ref = pa.paged_attention_plain(*args)
     ok, errs = attn_held(got, ref, npast)
+    plan = pa.launch_plan(B, hkv, rep, D, page, wp * page, pk.dtype,
+                          num_sms())
     rec = {"case": name, "kv": kv, "page": page, "B": B, "Hkv": hkv,
            "rep": rep, "alibi": alibi, "window_pages": wp,
            "n_past_max": int(npast.max()), "n_past_sum": int(npast.sum()),
-           "ok": bool(ok), "max_abs_err": max(errs), "errs_m_l_acc": errs}
-    plan = pa.launch_plan(B, hkv, rep, D, page, wp * page, pk.dtype,
-                          num_sms())
+           "mma": plan.mma, "gqa_mma_launches": mma,
+           "ok": bool(ok) and mma == int(plan.mma),
+           "max_abs_err": max(errs), "errs_m_l_acc": errs}
     rec["plan"] = dict(plan._asdict(), smem=plan.smem.total)
     rec["ms"] = timer.ms(lambda: pa.paged_attention_pass(*args))
     rec["plain_ms"] = timer.ms(lambda: pa.paged_attention_plain(*args))
@@ -868,15 +894,15 @@ def matrix_case(kv, d, rep, alibi, n_past, rng, dev) -> dict:
         kv, page, np.asarray(n_past), hkv, rep, alibi, rng, dev, d, 2)
     spec = SimpleNamespace(kq_scale=1.0 / math.sqrt(d))
     args = (spec, pk, pv, ks, vs, tables, npast, slopes, wp, 1, qf)
-    got = pa.paged_attention_pass(*args)
-    torch.cuda.synchronize()
+    got, mma = gqa_counted(lambda: pa.paged_attention_pass(*args))
     ok, errs = attn_held(got, pa.paged_attention_plain(*args), npast)
     plan = pa.launch_plan(len(n_past), hkv, rep, d, page, wp * page,
                           pk.dtype, num_sms())
     return {"case": "matrix", "kv": kv, "D": d, "rep": rep, "Hkv": hkv,
             "alibi": alibi, "page": page, "B": len(n_past),
             "tile": plan.tile, "tps": plan.tps, "pipe": plan.pipe,
-            "vec": plan.vec, "ok": bool(ok),
+            "mma": plan.mma, "vec": plan.vec, "gqa_mma_launches": mma,
+            "ok": bool(ok) and mma == int(plan.mma),
             "max_abs_err": max(errs), "errs_m_l_acc": errs}
 
 
@@ -885,6 +911,7 @@ def dense_matrix_case(kv, d, rep, rng, dev) -> dict:
     from types import SimpleNamespace
 
     from llm_tpu_torch.ops import dense_attention as da
+    from llm_tpu_torch.ops import paged_attention as pa
     from llm_tpu_torch.ops.layers import alibi_slopes
 
     S, hkv, n_past = 100, 2, [0, 37, 100]
@@ -905,11 +932,14 @@ def dense_matrix_case(kv, d, rep, rng, dev) -> dict:
     slopes = alibi_slopes(hkv * rep, 8.0, dev).reshape(hkv, rep)
     spec = SimpleNamespace(kq_scale=1.0 / math.sqrt(d))
     args = (spec, ck, cv, ks, vs, npast, S, 1, qf, slopes)
-    got = da.dense_attention_pass(*args)
-    torch.cuda.synchronize()
+    got, mma = gqa_counted(lambda: da.dense_attention_pass(*args))
     ok, errs = attn_held(got, da.dense_attention_plain(*args), npast)
+    plan = pa.launch_plan(len(n_past), hkv, rep, d, S, S, ck.dtype,
+                          num_sms())
     return {"case": "matrix_dense", "kv": kv, "D": d, "rep": rep,
-            "alibi": True, "W": S, "ok": bool(ok), "max_abs_err": max(errs),
+            "alibi": True, "W": S, "mma": plan.mma,
+            "gqa_mma_launches": mma, "ok": bool(ok) and mma == int(plan.mma),
+            "max_abs_err": max(errs),
             "errs_m_l_acc": errs}
 
 
@@ -933,7 +963,8 @@ def attention_matrix(dev) -> list[dict]:
 def check_repeat(dev) -> dict:
     """Two launches on the same inputs, and a launch after one with
     another grid, give bit-equal m, l and acc: the chunks merge in a fixed
-    order, and every ticket is back at 0 after a launch."""
+    order, and every ticket is back at 0 after a launch; on both branches
+    (rep 1, and the tensor-core branch at GQA rep 8 and rep 71)."""
     from types import SimpleNamespace
 
     from llm_tpu_torch.ops import dense_attention as da
@@ -962,9 +993,23 @@ def check_repeat(dev) -> dict:
         return lambda: da.dense_attention_pass(spec, ck, cv, None, None,
                                                npast, W, 1, qf)
 
+    # the tensor-core branch: GQA rep 8 paged, Falcon-7B's rep 71 dense
+    gqa = paged(paged_inputs("bf16", 128, 16, ("upto", 1100), 8, 8, True,
+                             rng, dev, layers))
+    fk = torch.randn((2, 1, 1, CTX, 64), generator=g, device=dev).bfloat16()
+    fv = torch.randn((2, 1, 1, CTX, 64), generator=g, device=dev).bfloat16()
+    fq = torch.randn((1, 1, 1, 71, 64), generator=g, device=dev)
+    fspec = SimpleNamespace(kq_scale=0.125)
+
+    def falcon(W):
+        return lambda: da.dense_attention_pass(fspec, fk, fv, None, None,
+                                               npast, W, 1, fq)
+
     out = {"case": "repeat", "ok": True}
     for name, fn, other in (("paged", a, b), ("dense", dense(512),
-                                               dense(2048))):
+                                               dense(2048)),
+                            ("paged_gqa", gqa, b),
+                            ("dense_gqa", falcon(512), falcon(2048))):
         first, second = fn(), fn()
         other()
         third = fn()
@@ -3800,10 +3845,14 @@ def arch_infer(name, model, prompts, n_new) -> dict:
     counters zeroed just before and read just after: per forward the
     model's `step_launches`, prompt chunks of 512 rows on qmatmul's wide
     path and decode steps on its swapped path."""
+    from llm_tpu_torch.ops import paged_attention as pa
+
     greedy_prompt_run(model, prompts[0][:4], 2)  # loads the libraries
     zero_launches()
+    pa.LAUNCHES_GQA_MMA = 0
     runs = [greedy_prompt_run(model, p, n_new) for p in prompts]
     launches = read_launches()
+    gqa = pa.LAUNCHES_GQA_MMA
     one = step_launches(model.spec)
     steps = sum(math.ceil(len(p) / N_BATCH) + n_new for p in prompts)
     decode = sum(n_new + (len(p) % N_BATCH == 1) for p in prompts)
@@ -3814,7 +3863,16 @@ def arch_infer(name, model, prompts, n_new) -> dict:
             "paged_attention": 0}
     if launches != want:
         fail(f"{name} infer: kernel launches {launches}, expected {want}")
-    return {"runs": runs, "launches": launches}
+    # the dense cache's launches go through the tensor-core branch exactly
+    # where the kv head's query heads do not fit registers (Falcon-7B)
+    spec = model.spec
+    mma = pa.launch_plan(1, spec.n_head_kv, spec.n_head // spec.n_head_kv,
+                         spec.head_dim, 512, 512, torch.bfloat16,
+                         num_sms()).mma
+    if gqa != (launches["dense_attention"] if mma else 0):
+        fail(f"{name} infer: {gqa} launches of the GQA tensor-core branch, "
+             f"expected {launches['dense_attention'] if mma else 0}")
+    return {"runs": runs, "launches": launches, "gqa_mma_launches": gqa}
 
 
 def greedy_tokens_held(name, model, prompt, got, want) -> Optional[dict]:
@@ -5240,7 +5298,7 @@ def step_by_m(recs, ab, layout: str) -> dict:
     per = {"qkv": N_LAYER, "wo": N_LAYER, "gate_up": N_LAYER,
            "down": N_LAYER, "lm_head": 1}
     out = {}
-    for M in AB_MS:
+    for M in sorted({r["M"] for r in recs if r["case"] in per}):
         rs = [r for r in recs if r["M"] == M and r["case"] in per]
         cases = {r["case"] for r in rs}
         abr = [r for r in ab if r["M"] == M and r["layout"] == layout
@@ -6588,6 +6646,16 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
                     if e["name"] == "qmatmul"
                     else [rec[e["name"]]["max_abs_err"]])
             e["max_abs_err"] = max([e["max_abs_err"], *errs])
+    # the attention kernel's launches through its tensor-core branch
+    # (gqa_mma), read from LAUNCHES_GQA_MMA: in the six architectures'
+    # `infer` runs (Falcon-7B's, over the dense cache), and around the one
+    # checked call of each timed kernel case (its timed repeats uncounted)
+    entries[2]["launches_gqa_mma"] = {
+        "archs_infer": sum(m["infer"]["gqa_mma_launches"]
+                           for m in archs["models"].values()),
+        "checked_calls": sum(r.get("gqa_mma_launches", 0) for r in arecs)}
+    entries[3]["launches_gqa_mma"] = {
+        "checked_calls": sum(r["gqa_mma_launches"] for r in precs)}
     # qmatmul's launches by consumer path, in each path's own run
     entries[1]["launches_by_consumer_path"] = {
         name: {"swapped": ls["qmatmul_swapped"], "wide": ls["qmatmul_wide"]}
@@ -6638,7 +6706,12 @@ def main() -> None:
         fail(f"kernel_report: {rep_err[-2000:]}")
     results["kernel_report"] = json.loads(rep_out.strip().splitlines()[-1])
     emit({k: results["kernel_report"][k]
-          for k in ("dequant_sass", "main_loop_sass")})
+          for k in ("dequant_sass", "main_loop_sass", "tensor_core_sass")})
+    # the wide path's kernels on wgmma (HGMMA, no HMMA), the attention's
+    # GQA branch on mma.sync (HMMA) without spills
+    for name, tc in results["kernel_report"]["tensor_core_sass"].items():
+        if not tc["ok"] or (name == "gqa_mma" and tc["spills"]):
+            fail(f"kernel_report: {name}: {tc}")
 
     phase_s = results["phase_s"] = {}
     clock = [t_build]

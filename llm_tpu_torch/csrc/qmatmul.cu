@@ -14,21 +14,23 @@
 // fmt: position in llm_tpu_torch.ops.packing.FORMATS (q4_0, q4_1, q5_0,
 // q5_1, q8_0, q2_k, q3_k, q4_k, q5_k, q6_k). scale_packed: two f16 scales
 // per word (32-block formats only). path: tc::Path (0, 1: swapped, x f32
-// [M, ldx]; 2: wide, x bf16 [M, ldx]); ldx % 8 == 0, and the columns
-// from ldx up to Kp are read as zeros. lo/hi/scale/bias are the
-// planes, or with tile_r > 0 the segments of a coalesced buffer (see
-// qmatmul_tc.cuh); tile_k % 64 == 0. The grid is (R rounded to 128) / 128
-// x mtiles x splits, each split `tiles_per_split` 64-k tiles of Kp; with
-// splits > 1, `part` is scratch [splits, M, R rounded to 128] f32 and a
-// second kernel writes y [M, R]. Returns cudaGetLastError().
+// [M, ldx]; 2: wide, x bf16 [M, ldx], 16-byte aligned, bm = 64, 128 or 256
+// tokens a block); ldx % 8 == 0, and the columns from ldx up to Kp are read
+// as zeros. lo/hi/scale/bias are the planes, or with tile_r > 0 the
+// segments of a coalesced buffer (see qmatmul_tc.cuh); tile_k % 64 == 0.
+// The grid is (R rounded to 128) / 128 x mtiles x splits, each split
+// `tiles_per_split` 64-k tiles of Kp; with splits > 1, `part` is scratch
+// [splits, M, R rounded to 128] f32 and a second kernel writes y [M, R].
+// Returns the launch's cudaError_t.
 extern "C" int qmatmul_launch(int fmt, int scale_packed, int path,
                               const void* x, int ldx, const void* lo,
                               const void* hi, const void* scale,
                               const void* bias, int tile_k, int tile_r,
                               int n_k, int rows_tile, int lo_rows,
                               int hi_rows, int sc_rows, void* y, void* part,
-                              int M, int Kp, int Rp, int R, int mtiles,
-                              int splits, int tiles_per_split, void* stream) {
+                              int M, int Kp, int Rp, int R, int bm,
+                              int mtiles, int splits, int tiles_per_split,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const tc::Weight wt{lo,     hi,     scale,     bias,    Rp,      tile_k,
                       tile_r, n_k,    rows_tile, lo_rows, hi_rows, sc_rows};
@@ -37,9 +39,9 @@ extern "C" int qmatmul_launch(int fmt, int scale_packed, int path,
                                                [&](auto f) {
     using F = decltype(f);
     if (tile_r > 0)
-      return tc::launch<F, true>(path, x, ldx, wt, y, part, M, R, mtiles,
+      return tc::launch<F, true>(path, x, ldx, wt, y, part, M, R, bm, mtiles,
                                  splits, tiles_per_split, n_kt, s);
-    return tc::launch<F, false>(path, x, ldx, wt, y, part, M, R, mtiles,
+    return tc::launch<F, false>(path, x, ldx, wt, y, part, M, R, bm, mtiles,
                                 splits, tiles_per_split, n_kt, s);
   }));
 }

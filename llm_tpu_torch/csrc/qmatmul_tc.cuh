@@ -9,7 +9,7 @@
 // (_qmatmul_pallas_c, _qmatmul_pallas_c_stacked; body _make_kernel_c) over
 // the coalesced QuantTensorC buffer. The reference feeds the MXU bf16 x and
 // bf16 weights with f32 accumulation; here that product is mma.sync
-// m16n8k16 bf16 -> f32.
+// m16n8k16 bf16 -> f32 (M <= 32) or wgmma m64n128k16 (M > 32).
 //
 // What bounds it on the H100, and what the design does about it:
 // - M <= 32 (decode, serving steps): the packed weight bytes (4.5 bits a
@@ -22,11 +22,28 @@
 //   is the 16-row A side and the tokens the n = 8 (M <= 8) or 16 side, so
 //   M = 8 pads nothing. x is read as it is, f32, and rounded to bf16 once
 //   a stage into the mma's B fragments: no copy of x before the launch.
-// - M > 32 (prefill chunks of 64 and 512): the bf16 tensor-core rate; x
-//   (bf16) is the A side, 128 rows a block, 128 weight columns, so each
-//   dequantized tile serves 128 tokens; the next tile is dequantized into
-//   a second bf16 tile while this one is multiplied. mma.sync, not
-//   wgmma, so this path stays well below the card's bf16 peak.
+// - M > 32 (prefill chunks of 64 and 512): the bf16 tensor-core rate, and
+//   the dequant, which must overlap the products and not follow them (a
+//   pass over 7B's weights is ~0.9 ms of issue at ~4 instructions a q4_0
+//   weight). Hopper's design: x (bf16) the A side, 64, 128 or 256 tokens a
+//   block by M (wgmma's 64-row tiles: M = 64 pads nothing, and M = 512
+//   dequantizes each weight twice, not four times), the block's 128
+//   weight columns the B side. Two rings: the packed rows, every thread's
+//   16-byte cp.async several k-tiles ahead (the bytes in flight that
+//   stream the weights), and x through a TMA tensor map with 128-byte
+//   swizzle (its out-of-bounds fill gives the zero columns past ldx and
+//   rows past M) on mbarriers. Every thread of the two warpgroups
+//   dequantizes 32 weights of a k-tile into the bf16 B tile (three
+//   buffers, in wgmma's swizzled K-major layout); the warpgroups then
+//   issue their wgmmas asynchronously, both operands from shared memory,
+//   the accumulators in registers, and go on to dequantize the next
+//   k-tile while the tensor cores work. Where the grid does not fill the
+//   card (wo, down) K is split. What bounds it now is not the FLOPs but a
+//   k-tile's latency: its barrier, proxy fence, wgmma wait and mbarrier
+//   wait cost ~160-340 cycles each on the H100 (probes/sync_costs), in
+//   series with the dequant, against ~1000 cycles of wgmma at bm = 256.
+//   (A dedicated dequant warpgroup beside consumer warpgroups measured no
+//   faster: PERF.md.)
 // - The dequant needs no int -> float conversion: a field ORed into the
 //   mantissa of 2^23 (0x4B000000) is 2^23 + q exactly; subtracting
 //   2^23 + zero leaves q - zero. A field at bit p of a word (p + width
@@ -37,7 +54,8 @@
 //   dequant rounded to bf16.
 //
 // The dequantized tile sits in shared memory as bf16 [BN][BK], r-major and
-// k-contiguous, its 16-byte chunks swizzled by row so that the 16-byte
+// k-contiguous, its 16-byte chunks swizzled by row (chunk ^ row % 8: the
+// 128-byte swizzle that TMA writes and wgmma reads), so that the 16-byte
 // stores and ldmatrix meet no bank conflicts.
 //
 // Two weight layouts, one addressing rule (as csrc/qmatmul_body.cuh's
@@ -54,6 +72,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -64,9 +83,7 @@ namespace tc {
 constexpr int BN = 128;     // weight columns (r) a block
 constexpr int BK = 64;      // k a stage
 constexpr int STAGES = 4;   // ring of stages in flight (swapped path)
-constexpr int WIDE_STAGES = 3;  // the wide path's ring
-constexpr int THREADS = 256;
-constexpr int WIDE_BM = 128;  // tokens a block on the wide path
+constexpr int THREADS = 256;  // the swapped path's block
 constexpr int XS = BK + 8;    // f32 x row in shared memory (conflict-free)
 
 // Consumer paths (the plan's `path`): swapped with 8 or 16 tokens a block,
@@ -500,133 +517,283 @@ __global__ void __launch_bounds__(THREADS, 4)
 }
 
 // ---------------------------------------------------------------------------
-// the wide path: 128 tokens a block (the A side, bf16 x [M, ldx]), the
-// block's 128 weight columns the B side. Warps 2 (m) x 4 (n), a 64 x 32
-// tile each; a warp whose rows all lie past M skips its products.
+// the wide path (M > 32) on wgmma: x (bf16 [M, ldx]) the A side, bm = 64,
+// 128 or 256 tokens a block, the block's 128 weight columns the B side. Two
+// warpgroups; each k-tile, every thread dequantizes 32 weights into the
+// bf16 B tile (three buffers), and each warpgroup then issues its wgmmas on
+// it asynchronously: the next tile's dequant overlaps this tile's products.
+// Warpgroup c takes, by bm: 64 - all 64 rows and weight columns 64c ..
+// 64c + 63 (m64n64k16); 128 - rows 64c .. 64c + 63 (m64n128k16); 256 -
+// rows 128c .. 128c + 127 (two m64n128k16). Two rings: the packed weight
+// rows (every thread's 16-byte cp.async, several k-tiles ahead: the bytes
+// in flight that stream the weights), each thread waiting for its own
+// copies before the k-tile's one barrier, and the x tiles (TMA, 128-byte
+// swizzle, on an mbarrier a stage, 2 k-tiles ahead: x comes from L2). A
+// k-tile runs one barrier, one proxy fence, one wgmma wait and one
+// mbarrier wait, ~160-340 cycles each (probes/sync_costs); with bm = 64
+// two blocks share an SM.
+
+constexpr int WG = 128;                       // threads a warpgroup
+constexpr int WIDE_THREADS = 2 * WG;
+constexpr int WIDE_X_STAGES = 4;              // the x ring
+constexpr int WIDE_B_TILES = 3;               // the bf16 weight tiles
+constexpr int WIDE_MAX_PSTAGES = 16;          // the packed ring, at most
+constexpr int B_BYTES = BN * BK * 2;          // a bf16 weight tile
 
 template <class F, bool COAL>
 struct Wide {
-  static constexpr int X_BYTES = WIDE_BM * BK * 2;
-  static constexpr int STAGE = Tile<F, COAL>::BYTES + X_BYTES;
-  static constexpr int SMEM = WIDE_STAGES * STAGE + 2 * BN * BK * 2;
+  static constexpr int PK = Tile<F, COAL>::BYTES;  // a packed stage
+  __host__ __device__ static constexpr int XT(int bm) {  // an x tile
+    return bm * BK * 2;
+  }
+  // bm = 64: two blocks an SM, 113 KB each; else one, 227 KB
+  __host__ __device__ static constexpr int smem_max(int bm) {
+    return bm == 64 ? 115712 : 232448;
+  }
+  // 1 KB of alignment, the x ring (an mbarrier a stage), the weight tiles,
+  // the packed ring
+  __host__ __device__ static constexpr int room(int bm) {
+    return smem_max(bm) - 1024 - WIDE_X_STAGES * (XT(bm) + 8) -
+           WIDE_B_TILES * B_BYTES;
+  }
+  __host__ __device__ static constexpr int pstages(int bm) {
+    return room(bm) / PK < WIDE_MAX_PSTAGES ? room(bm) / PK
+                                            : WIDE_MAX_PSTAGES;
+  }
+  __host__ __device__ static constexpr int smem(int bm) {
+    return 1024 + WIDE_X_STAGES * (XT(bm) + 8) + WIDE_B_TILES * B_BYTES +
+           pstages(bm) * PK;
+  }
 };
 
-template <class F, bool COAL>
-__global__ void __launch_bounds__(THREADS, 2)
-    qmm_wide(const __nv_bfloat16* __restrict__ x, int ldx, const Weight wt,
-             float* __restrict__ out, int M, int ldy, int ldo, int n_kt,
-             int tps) {
+// cp.async.wait_group n, for a run-time n (0 .. 15)
+__device__ __forceinline__ void cp_wait_n(int n) {
+  switch (n) {
+#define TC_CPW(N) \
+  case N:         \
+    cp_wait<N>(); \
+    break;
+    TC_CPW(0) TC_CPW(1) TC_CPW(2) TC_CPW(3) TC_CPW(4) TC_CPW(5) TC_CPW(6)
+    TC_CPW(7) TC_CPW(8) TC_CPW(9) TC_CPW(10) TC_CPW(11) TC_CPW(12)
+    TC_CPW(13) TC_CPW(14)
+#undef TC_CPW
+    default:
+      cp_wait<15>();
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// wait for the phase of parity `parity` to complete; a wait of more than
+// 2^32 cycles (seconds) traps, a launch error, instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > (1ll << 32)) __trap();
+  }
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+// a 2-D box of the tensor map at (c0, c1), innermost first, onto `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// a K-major operand of 8-row groups of 128-byte rows, 128-byte swizzle
+// (the tile 1 KB aligned), starting at shared address `a`
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t a) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving the accumulator's registers across the
+// asynchronous wgmma
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int e = 0; e < 64; ++e) asm volatile("" : "+f"(d[e])::"memory");
+}
+// d (64 x 128, f32) += A (64 x 16 of x) . B (16 x 128 of the weights)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64, f32; d[0..31]) += A (64 x 16 of x) . B (16 x 64 of the
+// weights)
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[64], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// MI: the 64-row tiles of a warpgroup, 2 for bm = 256, else 1 (128
+// registers a thread: two blocks an SM where the shared memory allows).
+template <class F, bool COAL, int MI>
+__global__ void __launch_bounds__(WIDE_THREADS, MI == 1 ? 2 : 1)
+    qmm_wgmma(const __grid_constant__ CUtensorMap xmap, const Weight wt,
+              float* __restrict__ out, int M, int ldy, int ldo, int n_kt,
+              int tps, int bm) {
   using S = Wide<F, COAL>;
-  using T = Tile<F, COAL>;
-  extern __shared__ __align__(128) char smem[];
-  char* wts = smem + WIDE_STAGES * S::STAGE;  // two bf16 weight tiles
+  constexpr int XS = WIDE_X_STAGES, BT = WIDE_B_TILES;
+  extern __shared__ __align__(1024) char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // tiles start on 1 KB
+  char* sbase = smem_raw + (base - raw);
+  const int PS = S::pstages(bm), xt = S::XT(bm);
+  const uint32_t wtiles = base + XS * xt;        // the bf16 weight tiles
+  const uint32_t packed = wtiles + BT * B_BYTES;  // the packed ring
+  const uint32_t xbars = packed + PS * S::PK;     // the x ring's mbarriers
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r0 = blockIdx.x * BN, m0 = blockIdx.y * WIDE_BM;
+  const int c = warp >> 2;  // warpgroup
+  const int r0 = blockIdx.x * BN, m0 = blockIdx.y * bm;
   const int kt0 = blockIdx.z * tps;
   const int nk = min(kt0 + tps, n_kt) - kt0;
-  const int wm = warp >> 2, wn = warp & 3;
-  const bool active = m0 + wm * 64 < M;
-
+  if (tid == 0) {
+    for (int s = 0; s < XS; ++s) mbar_init(xbars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // k-tile i's x tile into x stage i % XS (one thread), and its packed
+  // rows into packed stage i % PS (every thread its copies, a group)
+  auto load_x = [&](int i) {
+    const uint32_t bar = xbars + 8 * (i % XS);
+    mbar_expect_tx(bar, xt);
+    tma_load_2d(base + (i % XS) * xt, &xmap, (kt0 + i) * BK, m0, bar);
+  };
   Feed<F, COAL> feed;
   feed.init(wt, kt0, r0, tid);
-  // this thread's x copies: 16 bytes of rows tid / 8 + 32 j
-  constexpr int XJ = WIDE_BM * 8 / THREADS;
-  const int xc = tid & 7;
-  const __nv_bfloat16* xsrc[XJ];
-  bool x_row[XJ];
-#pragma unroll
-  for (int j = 0; j < XJ; ++j) {
-    const int m = (tid >> 3) + j * (THREADS / 8);
-    x_row[j] = m0 + m < M;
-    xsrc[j] = x_row[j] ? x + (int64_t)(m0 + m) * ldx + kt0 * BK + xc * 8 : x;
-  }
-  int xk = kt0 * BK + xc * 8;
-  const uint32_t sbase = smem_u32(smem);
-  int slot = 0;  // the ring slot of the next load
-  auto load = [&](int i) {
-    const uint32_t st = sbase + slot * S::STAGE;
-    slot = slot + 1 == WIDE_STAGES ? 0 : slot + 1;
-    feed.issue(st);
-    feed.advance(wt, kt0 + i + 1, r0, tid);
-#pragma unroll
-    for (int j = 0; j < XJ; ++j) {
-      const bool ok = x_row[j] && xk < ldx;
-      cp16(st + T::BYTES + swz((tid >> 3) + j * (THREADS / 8), xc),
-           ok ? xsrc[j] : x, ok);
-      xsrc[j] += BK;
+  auto load_packed = [&](int i) {
+    if (i < nk) {
+      feed.issue(packed + (i % PS) * S::PK);
+      feed.advance(wt, kt0 + i + 1, r0, tid);
     }
-    xk += BK;
-  };
-
-  // tile i's packed stage in slot i % WIDE_STAGES, its bf16 weights in
-  // wts tile i % 2: dequantizing tile i + 1 and multiplying tile i share an
-  // iteration, one barrier apart
-  auto deq = [&](int i) {
-    dequant_unit<F, COAL>(smem + (i % WIDE_STAGES) * S::STAGE, tid & (BN - 1),
-                          tid >> 7, wts + (i & 1) * BN * BK * 2);
-  };
-#pragma unroll
-  for (int i = 0; i < WIDE_STAGES - 1; ++i) {
-    if (i < nk) load(i);
     cp_commit();
-  }
-  cp_wait<WIDE_STAGES - 2>();
-  __syncthreads();
-  deq(0);
-  float acc[4][4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][b][e] = 0.f;
+  };
+  for (int i = 0; i < PS - 1; ++i) load_packed(i);
+  cp_wait_n(PS - 2);  // this thread's copies of k-tile 0
+  __syncthreads();    // every thread's, and the mbarriers
+  if (tid == 0)
+    for (int i = 0; i < min(XS, nk); ++i) load_x(i);
 
+  // this warpgroup's A rows and B columns (bytes into the x and weight
+  // tiles)
+  const int a_off = bm == 64 ? 0 : c * MI * 64 * BK * 2;
+  const int b_off = bm == 64 ? c * 64 * BK * 2 : 0;
+  float d[MI][64];
+#pragma unroll
+  for (int h = 0; h < MI; ++h)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) d[h][e] = 0.f;
   for (int i = 0; i < nk; ++i) {
-    // tile i + 1 arrived; tile i's weights are written and tile i - 1's
-    // slot and weights are free
-    cp_wait<WIDE_STAGES - 3>();
+    const uint32_t wb = wtiles + (i % BT) * B_BYTES;
+    // this warpgroup's wgmmas of k-tile i - 2 are done. Weight tile i % BT
+    // was last read by k-tile i - 3's, done in both warpgroups before the
+    // last barrier; packed stage (i - 1) % PS was dequantized before it.
+    wgmma_wait1();
+#pragma unroll
+    for (int h = 0; h < MI; ++h) fence_acc(d[h]);
+    load_packed(i + PS - 1);
+    dequant_unit<F, COAL>(sbase + (packed + (i % PS) * S::PK - base),
+                          tid & (BN - 1), tid >> 7, sbase + (wb - base));
+    // the generic-proxy stores, before the wgmma reads them
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    cp_wait_n(PS - 2);  // this thread's copies of k-tile i + 1
     __syncthreads();
-    if (i + WIDE_STAGES - 1 < nk) load(i + WIDE_STAGES - 1);
-    cp_commit();
-    if (i + 1 < nk) deq(i + 1);
-    if (!active) continue;
-    const char* xs = smem + (i % WIDE_STAGES) * S::STAGE + T::BYTES;
-    const char* wb = wts + (i & 1) * BN * BK * 2;
+    // k-tile i - 2's x stage is free: both warpgroups waited for its
+    // wgmmas before the barrier
+    if (tid == 0 && i >= 2 && i - 2 + XS < nk) load_x(i - 2 + XS);
+    mbar_wait(xbars + 8 * (i % XS), (i / XS) & 1);
+    const uint32_t xa = base + (i % XS) * xt + a_off;
+#pragma unroll
+    for (int h = 0; h < MI; ++h) fence_acc(d[h]);
+    wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t a[4][4], b[2][4];
+      const uint64_t db = sw128_desc(wb + b_off + 32 * ks);
+      if (bm == 64) {
+        wgmma_m64n64k16(d[0], sw128_desc(xa + 32 * ks), db);
+      } else {
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int row = wm * 64 + mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(a[mi], xs + swz(row, 2 * ks + (lane >> 4)));
+        for (int h = 0; h < MI; ++h)
+          wgmma_m64n128k16(d[h], sw128_desc(xa + h * 64 * BK * 2 + 32 * ks),
+                           db);
       }
+    }
+    wgmma_commit();
+  }
+  wgmma_wait0();
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int row = wn * 32 + p * 16 + (lane & 7) + (lane >> 4) * 8;
-        ldmatrix_x4(b[p], wb + swz(row, 2 * ks + ((lane >> 3) & 1)));
-      }
+  for (int h = 0; h < MI; ++h) fence_acc(d[h]);
+  // d[h][4j + e]: row 64h + 16 (warp % 4) + lane / 4 (+ 8 for e >= 2),
+  // column 8j + 2 (lane % 4) (+ 1 for odd e), in this warpgroup's tile
+  const int nj = bm == 64 ? 8 : 16;
+  const int rc = r0 + (bm == 64 ? 64 * c : 0);
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
+  for (int h = 0; h < MI; ++h) {
+    const int m = m0 + (bm == 64 ? 0 : c * MI * 64) + h * 64 +
+                  (warp & 3) * 16 + (lane >> 2);
 #pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-          mma_bf16(acc[mi][nj], a[mi], b[nj >> 1][(nj & 1) * 2],
-                   b[nj >> 1][(nj & 1) * 2 + 1]);
+    for (int j = 0; j < 16; ++j) {
+      if (j >= nj) break;
+      const int r = rc + 8 * j + 2 * (lane & 3);
+      store_out(out, m, r, d[h][4 * j], M, ldy, ldo);
+      store_out(out, m, r + 1, d[h][4 * j + 1], M, ldy, ldo);
+      store_out(out, m + 8, r, d[h][4 * j + 2], M, ldy, ldo);
+      store_out(out, m + 8, r + 1, d[h][4 * j + 3], M, ldy, ldo);
     }
   }
-  cp_wait<0>();
-
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      const int m = m0 + wm * 64 + mi * 16 + g;
-      const int r = r0 + wn * 32 + nj * 8 + 2 * t;
-      store_out(out, m, r, acc[mi][nj][0], M, ldy, ldo);
-      store_out(out, m, r + 1, acc[mi][nj][1], M, ldy, ldo);
-      store_out(out, m + 8, r, acc[mi][nj][2], M, ldy, ldo);
-      store_out(out, m + 8, r + 1, acc[mi][nj][3], M, ldy, ldo);
-    }
 }
 
 // y[m, r] = sum over splits s, in order, of part[s, m, r]
@@ -660,14 +827,70 @@ cudaError_t run(int smem, dim3 grid, cudaStream_t s, const void* x, int ldx,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled through the runtime's driver entry point (no
+// -lcuda), looked up once
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The wide path's launch, bm = 64, 128 or 256: x bf16 [M, ldx] as a tensor
+// map of 64 x bm boxes with 128-byte swizzle (columns past ldx and rows
+// past M read as 0).
+template <class F, bool COAL>
+cudaError_t run_wide(int bm, dim3 grid, cudaStream_t s, const void* x,
+                     int ldx, const Weight& wt, float* out, int M, int ldy,
+                     int ldo, int n_kt, int tps) {
+  using S = Wide<F, COAL>;
+  if (bm != 64 && bm != 128 && bm != 256) return cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)ldx, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)ldx * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)bm};
+  const cuuint32_t estr[2] = {1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  auto kern = bm == 256 ? qmm_wgmma<F, COAL, 2> : qmm_wgmma<F, COAL, 1>;
+  static bool raised[2] = {false, false};
+  if (!raised[bm == 256]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::smem_max(256));
+    if (e != cudaSuccess) return e;
+    raised[bm == 256] = true;
+  }
+  kern<<<grid, WIDE_THREADS, S::smem(bm), s>>>(map, wt, out, M, ldy, ldo,
+                                               n_kt, tps, bm);
+  return cudaGetLastError();
+}
+
 // One launch on `path` (Path), then the split sum when K is split. x is
 // f32 [M, ldx] on the swapped paths, bf16 [M, ldx] on the wide one
-// (ldx % 8 == 0; columns from ldx up to Kp read as 0); part is scratch
-// [splits, M, R rounded to BN] f32 when splits > 1.
+// (ldx % 8 == 0; columns from ldx up to Kp read as 0; bm tokens a block:
+// 64, 128 or 256); part is scratch [splits, M, R rounded to BN] f32 when
+// splits > 1.
 template <class F, bool COAL>
 cudaError_t launch(int path, const void* x, int ldx, const Weight& wt,
-                   void* y, void* part, int M, int R, int mtiles, int splits,
-                   int tps, int n_kt, cudaStream_t s) {
+                   void* y, void* part, int M, int R, int bm, int mtiles,
+                   int splits, int tps, int n_kt, cudaStream_t s) {
   const int ldo = (R + BN - 1) / BN * BN;
   const dim3 grid(ldo / BN, mtiles, splits);
   float* out = static_cast<float*>(splits > 1 ? part : y);
@@ -675,20 +898,17 @@ cudaError_t launch(int path, const void* x, int ldx, const Weight& wt,
   switch (path) {
     case SWAPPED8:
       e = run<qmm_swapped<F, COAL, 1>, float>(Swapped<F, COAL, 1>::SMEM, grid,
-                                              s, x, ldx, wt, out, M, R,
-                                              ldo,
+                                              s, x, ldx, wt, out, M, R, ldo,
                                               n_kt, tps);
       break;
     case SWAPPED16:
       e = run<qmm_swapped<F, COAL, 2>, float>(Swapped<F, COAL, 2>::SMEM, grid,
-                                              s, x, ldx, wt, out, M, R,
-                                              ldo,
+                                              s, x, ldx, wt, out, M, R, ldo,
                                               n_kt, tps);
       break;
     case WIDE:
-      e = run<qmm_wide<F, COAL>, __nv_bfloat16>(Wide<F, COAL>::SMEM, grid, s,
-                                                x, ldx, wt, out, M, R,
-                                                ldo, n_kt, tps);
+      e = run_wide<F, COAL>(bm, grid, s, x, ldx, wt, out, M, R, ldo, n_kt,
+                            tps);
       break;
     default:
       return cudaErrorInvalidValue;

@@ -35,12 +35,15 @@ from llm_tpu_torch.ops.packing import unpack_int4_rows
 
 NEG_INF = -1e30
 LAUNCHES = 0  # kernel launches through paged_attention_pass
+# launches of the tensor-core branch (gqa_mma), through either pass
+LAUNCHES_GQA_MMA = 0
 
 _C, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _SIGNATURES = {
     "paged_attention_launch": [_C, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P, _C, _C, _C, _C, _C, _C, _C, _C,
-                               _C, _C, _C, _C, _C, _C, _C, _C, _P, _F, _P],
+                               _C, _C, _C, _C, _C, _C, _C, _C, _C, _P, _F,
+                               _P],
 }
 _KV_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2,
               torch.uint8: 3}
@@ -110,6 +113,14 @@ SMEM_RESIDENT = 228 * 1024 // 4 - 1024  # 4 blocks an SM (1 KB reserved each)
 STAGE_BYTES = 16 * 1024  # the K and V rows of a tile, copied at once
 CHUNKS = (128, 64, 32, 16)  # positions a block without a tile loop
 FILL = 4  # the grid should give every SM this many blocks
+# the tensor-core branch (gqa_mma): its pools, and 2 blocks an SM
+MMA_DTYPES = (torch.bfloat16, torch.int8, torch.uint8)
+MMA_RESIDENT = 228 * 1024 // 2 - 1024
+# query heads a kv head from which the tensor-core branch takes a call
+# whose heads do not fit registers: below, on int8 and int4 pools, the
+# CUDA-core branch walks one or two head groups and was the faster at 2-64
+# streams on the H100; from rep 5 the tensor-core branch (PERF.md)
+MMA_MIN_REP = 5
 
 
 class Smem(NamedTuple):
@@ -144,8 +155,34 @@ class Plan(NamedTuple):
     nv: int  # vectors a lane and row
     heads: int  # query heads in registers at a time (HA, a power of two)
     pipe: bool  # a tile loop, q and acc of every head held across it
-    smem: Smem  # the block's shared memory
-    grid: tuple[int, int]  # (B * Hkv, splits)
+    smem: Smem  # the block's shared memory (MmaSmem with `mma`)
+    grid: tuple[int, int]  # (B * Hkv, splits); with `mma` B * Hkv * groups
+    mma: bool = False  # the tensor-core branch (gqa_mma)
+    warps_m: int = 0  # its warps along the heads (the rest along the keys)
+
+
+class MmaSmem(NamedTuple):
+    """Byte offsets of gqa_mma's shared-memory regions and their total
+    (`MmaSmem` in the source): per stage the K rows, V rows (`kst`, `vst`
+    a stage; bf16 rows padded to D + 8 elements, codes as they are) and the
+    k and v scales (`sst`); the three bf16 terms of q [m-tiles * 16, D + 8]
+    at `q`; the K and V tiles decoded to bf16 at `cvt` (int8, int4); the
+    split's page rows, the merge's m and l of every split, a 16-byte flag.
+    The warps' partials for the block's merge, after the last tile, overlay
+    the regions before the page rows from offset 0. Each region starts on 16
+    bytes."""
+    kst: int
+    vst: int
+    sst: int
+    v: int
+    ks: int
+    vs: int
+    q: int
+    cvt: int
+    pages: int
+    merge: int
+    flag: int
+    total: int
 
 
 def _row_bytes(D: int, kv_dtype) -> int:
@@ -178,6 +215,82 @@ def smem_layout(tile: int, tps: int, row_bytes: int, heads: int, D: int,
                 flag + 16)
 
 
+def mma_warps(rep: int) -> tuple[int, int]:
+    """(warps along the heads, head groups) of gqa_mma: each of the warps_m
+    warps holds an m-tile of 16 heads, the other warps split the keys; the
+    kv head's m-tiles that a block does not hold go to the blocks of
+    further head groups."""
+    mtiles = -(-rep // 16)
+    warps_m = 1 if mtiles == 1 else 2 if mtiles == 2 else WARPS
+    return warps_m, -(-mtiles // warps_m)
+
+
+def mma_smem_layout(tile: int, tps: int, row_bytes: int, D: int, rep: int,
+                    page: int, W: int, quantized: bool) -> MmaSmem:
+    """gqa_mma's shared memory for a plan."""
+    def a16(n):
+        return (n + 15) // 16 * 16
+    stages = 2 if tps > 1 else 1
+    span = tile * tps
+    splits = -(-W // span)
+    t16 = -(-tile // 16) * 16  # whole chunks of 16 keys
+    es = D + 8  # elements a bf16 row
+    rs = row_bytes if quantized else 2 * es
+    kst = vst = a16(t16 * rs)
+    sst = a16(t16 * 4) if quantized else 0
+    v = stages * kst
+    ks = v + stages * vst
+    vs = ks + stages * sst
+    q = vs + stages * sst
+    warps_m, _ = mma_warps(rep)
+    rows = warps_m * 16  # heads of a block
+    cvt = q + a16(3 * min(rows, -(-rep // 16) * 16) * es * 2)
+    after = cvt + (a16(2 * t16 * es * 2) if quantized else 0)
+    pages = max(after, a16(WARPS * 16 * (D + 4) * 4))
+    merge = pages + a16(span_pages(span, page) * 8)
+    flag = merge + (a16(splits * min(rows, rep) * 8) if splits > 1 else 0)
+    return MmaSmem(kst, vst, sst, v, ks, vs, q, cvt, pages, merge, flag,
+                   flag + 16)
+
+
+def _mma_plan(B: int, Hkv: int, rep: int, D: int, page: int, W: int,
+              kv_dtype, sms: int, vec: int, lanes: int, nv: int,
+              heads: int) -> Plan:
+    """The tensor-core branch's geometry: tiles of about `STAGE_BYTES` of K
+    and V rows and at least 16 keys a warp along the keys, two in flight;
+    as few splits as give each SM the blocks it holds (2, or 1 where the
+    shared memory asks for it); the grid's x is B * Hkv * head groups."""
+    rb = _row_bytes(D, kv_dtype)
+    quantized = kv_dtype != torch.bfloat16
+    warps_m, groups = mma_warps(rep)
+    blocks = B * Hkv * groups
+    top = max(16 * (WARPS // warps_m), min(128, STAGE_BYTES // (2 * rb)))
+    top = 1 << (top.bit_length() - 1)
+    sizes = [top >> i for i in range(top.bit_length())]  # down to 1
+
+    def geometry(tile, resident):
+        tiles = -(-W // tile)
+        splits = min(tiles, max(1, -(-resident * sms // blocks)))
+        return tile, -(-tiles // splits)
+
+    def smem(g):
+        return mma_smem_layout(*g, rb, D, rep, page, W, quantized).total
+
+    tiles = sorted({_legal_chunk(x, page, W) for x in sizes}, reverse=True)
+    for limit, resident in ((MMA_RESIDENT, 2), (SMEM_BLOCK_MAX, 1)):
+        g = next((g for g in (geometry(t, resident) for t in tiles)
+                  if smem(g) <= limit), None)
+        if g is not None:
+            break
+    else:
+        raise ValueError(f"paged_attention: rep={rep}, D={D} needs more "
+                         "shared memory than a block has")
+    tile, tps = g
+    return Plan(tile, tps, vec, lanes, nv, heads, False,
+                mma_smem_layout(tile, tps, rb, D, rep, page, W, quantized),
+                (blocks, -(-W // (tile * tps))), True, warps_m)
+
+
 def span_pages(span: int, page: int) -> int:
     """The most pages `span` consecutive positions can touch."""
     return (span - 1) // page + 2
@@ -204,7 +317,10 @@ def launch_plan(B: int, Hkv: int, rep: int, D: int, page: int, W: int,
     K and V rows, the next tile's copies in flight, and the window is cut
     into as few splits as give each SM `FILL` blocks. Otherwise a block
     takes one tile, the largest of `CHUNKS` that fills the card the same
-    way. Either keeps 4 blocks on an SM where the shared memory allows."""
+    way. Either keeps 4 blocks on an SM where the shared memory allows.
+    Where they do not fit, the pool is bf16, int8 or int4 and rep is at
+    least `MMA_MIN_REP`, the tensor-core branch takes the call
+    (`_mma_plan`)."""
     if D % 8 or not 8 <= D <= 256:
         raise ValueError(f"paged_attention: D={D} not supported")
     rb = _row_bytes(D, kv_dtype)
@@ -217,6 +333,9 @@ def launch_plan(B: int, Hkv: int, rep: int, D: int, page: int, W: int,
     every = 1 << (rep - 1).bit_length()
     pipe = every * elems <= REG_FLOATS // 2  # q and acc of every head
     heads = every if pipe else cap
+    if not pipe and kv_dtype in MMA_DTYPES and rep >= MMA_MIN_REP:
+        return _mma_plan(B, Hkv, rep, D, page, W, kv_dtype, sms, vec, lanes,
+                         nv, heads)
     quantized = kv_dtype in (torch.int8, torch.uint8)
     bh = B * Hkv
 
@@ -298,7 +417,9 @@ def partials_cuda(kq_scale: float, k, v, ks, vs, tables, npast, slopes,
     on one card; reads positions [0, W). Returns (m, l [B, 1, Hkv, rep],
     acc [B, 1, Hkv, rep, D]), views of one new buffer. The callers check
     the arguments and count the launch; this checks the alignment of the
-    base pointers the kernel's vector copies need."""
+    base pointers the kernel's vector copies need and counts the launches
+    of the tensor-core branch."""
+    global LAUNCHES_GQA_MMA
     dev = q.device
     B, Hkv, rep, D = q.shape
     NP, _, page, _ = k.shape
@@ -311,10 +432,12 @@ def partials_cuda(kq_scale: float, k, v, ks, vs, tables, npast, slopes,
         if t is not None and t.data_ptr() % align:
             raise ValueError(f"paged_attention: a base pointer is not "
                              f"aligned to {align} bytes")
-    BH, splits = plan.grid
+    BH = B * Hkv
+    blocks, splits = plan.grid
     stream = torch.cuda.current_stream(dev).cuda_stream
+    stride = -(-rep * (D + 2) // 4) * 4  # a split's partials, on 16 bytes
     part, tickets = _workspace(
-        dev, stream, BH * splits * rep * (D + 2) if splits > 1 else 0, BH)
+        dev, stream, BH * splits * stride if splits > 1 else 0, blocks)
     out = torch.empty(BH * rep * (D + 2), dtype=torch.float32, device=dev)
     acc = out[:BH * rep * D].view(B, 1, Hkv, rep, D)
     m = out[BH * rep * D:BH * rep * (D + 1)].view(B, 1, Hkv, rep)
@@ -327,10 +450,11 @@ def partials_cuda(kq_scale: float, k, v, ks, vs, tables, npast, slopes,
         ptr(m), ptr(l), ptr(acc), B, NP, Hkv, rep, D, page,
         1 if tables is None else tables.shape[1], W, plan.tile, plan.tps,
         splits, plan.vec, plan.nv, plan.lanes, plan.heads, int(plan.pipe),
-        (ctypes.c_int * len(plan.smem))(*plan.smem), float(kq_scale),
-        ctypes.c_void_p(stream),
+        plan.warps_m, (ctypes.c_int * len(plan.smem))(*plan.smem),
+        float(kq_scale), ctypes.c_void_p(stream),
     )
     _build.check(err, "paged_attention_launch")
+    LAUNCHES_GQA_MMA += plan.mma
     return m, l, acc
 
 

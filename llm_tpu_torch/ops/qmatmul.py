@@ -15,8 +15,9 @@ kernel does not take raises.
 
 `plan` picks the kernel's consumer path from M: swapped (M <= 32: the
 weight tile is the mma's A side, 8 or 16 tokens its B side, x read as f32
-where it is f32 already) or wide (x, cast to bf16, the A side, 128 tokens
-a block), and splits K where that shortens the launch.
+where it is f32 already) or wide (x, cast to bf16, the A side of wgmma, 64,
+128 or 256 tokens a block by M), and splits K where that shortens the
+launch.
 
 `coalesce_tiles` and `coalesce_auto` are the reference's tiling rules,
 copied so that the port's coalesced buffers equal the reference's.
@@ -54,18 +55,28 @@ _C = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "qmatmul_launch": [_C, _C, _C, _P, _C, _P, _P, _P, _P, _C, _C, _C, _C,
-                       _C, _C, _C, _P, _P, _C, _C, _C, _C, _C, _C, _C, _P],
+                       _C, _C, _C, _P, _P, _C, _C, _C, _C, _C, _C, _C, _C,
+                       _P],
 }
 BN = 128  # weight columns a block (csrc/qmatmul_tc.cuh BN)
 BK = 64  # k a pipeline stage (BK)
-# tc::Path, and tokens a block
+# tc::Path, and tokens a block (the wide path's by M: `wide_bm`)
 PATHS = {"swapped8": 0, "swapped16": 1, "wide": 2}
-BM = {"swapped8": 8, "swapped16": 16, "wide": 128}
-STAGES = {"swapped8": 4, "swapped16": 4, "wide": 3}  # the ring's stages
+BM = {"swapped8": 8, "swapped16": 16}
+STAGES = {"swapped8": 4, "swapped16": 4}  # the swapped rings' stages
 SWAPPED_MAX_M = 32  # above: the wide path
-# blocks an SM holds at most, by the kernels' __launch_bounds__ (registers)
-REG_BLOCKS = {"swapped8": 4, "swapped16": 4, "wide": 2}
+# blocks an SM holds at most, by the kernels' __launch_bounds__ (registers);
+# the wide path's by bm
+REG_BLOCKS = {"swapped8": 4, "swapped16": 4, "wide": {64: 2, 128: 2, 256: 1}}
 SM_SMEM = 228 * 1024  # shared memory of an H100 SM; a block reserves 1 KB
+# the wide path (csrc/qmatmul_tc.cuh Wide), by bm: a block takes at most
+# 113 KB (bm 64: two an SM) or 227 KB: 1 KB of alignment, a ring of 4 x
+# tiles with an mbarrier each, three bf16 weight tiles and a ring of at
+# most 16 packed stages
+WIDE_SMEM_MAX = {64: 115712, 128: 232448, 256: 232448}
+WIDE_X_STAGES = 4
+WIDE_B_TILES = 3
+WIDE_MAX_PSTAGES = 16
 # a block's pipeline fill, in stage times: what a plan charges a block on
 # top of its tiles
 FILL_TILES = 2
@@ -93,31 +104,54 @@ def qmatmul_plain(x: torch.Tensor, w) -> torch.Tensor:
     return x.to(torch.float32) @ wd
 
 
-def smem_bytes(fmt: QFormat, path: str) -> int:
-    """Dynamic shared memory of a block (csrc/qmatmul_tc.cuh Swapped/Wide
-    SMEM), counting scale rows as f32 so that a format's packed and f32
-    instantiations plan alike: a ring of packed weight tiles and x tiles,
-    and the bf16 weight tile (two on the wide path; with x's bf16 B
-    fragments on the swapped one)."""
-    g = fmt.gsize
-    rows_bytes = BN * 4
-    tile = BK * BN * (fmt.lo_bits + fmt.hi_bits) // 8
-    tile += (BK // g) * rows_bytes * (2 if fmt.has_bias else 1)
-    x = BM[path] * BK * 2 if path == "wide" else BM[path] * (BK + 8) * 4
-    if path == "wide":  # two bf16 weight tiles
-        return STAGES[path] * (tile + x) + 2 * BN * BK * 2
-    # a bf16 weight tile and x as bf16 B fragments
-    return STAGES[path] * (tile + x) + BN * BK * 2 + BM[path] * BK * 2
+def wide_bm(M: int) -> int:
+    """Tokens a block of the wide path, in wgmma's 64-row tiles over its
+    two warpgroups: 64 (each half the weight columns), 128 (a tile each)
+    or 256 (two tiles each)."""
+    return 64 if M <= 64 else 128 if M <= 128 else 256
 
 
-def blocks_per_sm(fmt: QFormat, path: str) -> int:
-    return min(REG_BLOCKS[path], SM_SMEM // (smem_bytes(fmt, path) + 1024))
+def packed_tile_bytes(fmt: QFormat) -> int:
+    """A stage's packed weight rows (csrc/qmatmul_tc.cuh Tile::BYTES) with
+    scale rows counted as f32, so that a format's packed and f32
+    instantiations plan alike."""
+    rows = BK * BN * (fmt.lo_bits + fmt.hi_bits) // 8
+    return rows + (BK // fmt.gsize) * BN * 4 * (2 if fmt.has_bias else 1)
+
+
+def wide_pstages(fmt: QFormat, bm: int) -> int:
+    """Stages of the wide path's packed ring (Wide::pstages): what the x
+    ring and the weight tiles leave of a block's shared memory."""
+    room = (WIDE_SMEM_MAX[bm] - 1024 - WIDE_X_STAGES * (bm * BK * 2 + 8)
+            - WIDE_B_TILES * BN * BK * 2)
+    return min(WIDE_MAX_PSTAGES, room // packed_tile_bytes(fmt))
+
+
+def smem_bytes(fmt: QFormat, path: str, bm: Optional[int] = None) -> int:
+    """Dynamic shared memory of a block (csrc/qmatmul_tc.cuh Swapped SMEM,
+    Wide::smem), counting scale rows as f32: on the swapped paths a ring of
+    packed weight tiles and f32 x tiles, the bf16 weight tile and x's bf16
+    B fragments; on the wide path (`bm` tokens a block) 1 KB of alignment,
+    the x ring with its mbarriers, three bf16 weight tiles and the packed
+    ring."""
+    if path == "wide":
+        return (1024 + WIDE_X_STAGES * (bm * BK * 2 + 8)
+                + WIDE_B_TILES * BN * BK * 2
+                + wide_pstages(fmt, bm) * packed_tile_bytes(fmt))
+    x = BM[path] * (BK + 8) * 4
+    return (STAGES[path] * (packed_tile_bytes(fmt) + x) + BN * BK * 2
+            + BM[path] * BK * 2)
+
+
+def blocks_per_sm(fmt: QFormat, path: str, bm: Optional[int] = None) -> int:
+    regs = REG_BLOCKS[path][bm] if path == "wide" else REG_BLOCKS[path]
+    return min(regs, SM_SMEM // (smem_bytes(fmt, path, bm) + 1024))
 
 
 def plan(w, M: int, sms: int = 132) -> Plan:
     """The tiling of y = x [M, K] @ w on a card of `sms` SMs. M <= 32 takes
-    the swapped path (8 or 16 tokens a block), larger M the wide one
-    (128).
+    the swapped path (8 or 16 tokens a block), larger M the wide one (64,
+    128 or 256: `wide_bm`).
 
     K splits: a launch's time is taken as its waves (blocks over what the
     SMs hold at once) times the 64-k tiles a block runs, plus its pipeline
@@ -129,11 +163,11 @@ def plan(w, M: int, sms: int = 132) -> Plan:
     same order (K3 bit-equal to K1)."""
     path = ("swapped8" if M <= 8 else "swapped16" if M <= SWAPPED_MAX_M
             else "wide")
-    bm = BM[path]
+    bm = wide_bm(M) if path == "wide" else BM[path]
     mtiles = math.ceil(M / bm)
     rblocks = math.ceil(w.r / BN)
     n_kt = w.k_padded // BK
-    cap = blocks_per_sm(w.fmt, path) * sms
+    cap = blocks_per_sm(w.fmt, path, bm) * sms
     blocks = rblocks * mtiles
     best = None
     for s in range(1, n_kt + 1):
@@ -218,15 +252,16 @@ def operands(x: torch.Tensor, w, p: Plan) -> tuple:
     layer of `w` on plan `p`: x as the kernel reads it (f32 on the swapped
     paths, bf16 on the wide one; the kernel takes its columns past its
     width, up to Kp, as zeros), the output y [M, R] f32 and the split
-    scratch [splits, M, R rounded to BN] f32 (None when K is not split). x is read in place where it is already of that type,
-    contiguous and 16-byte aligned (K is a multiple of 32); the wide path
-    casts it; a misaligned x is copied, zero-padded to Kp."""
+    scratch [splits, M, R rounded to BN] f32 (None when K is not split). x
+    is read in place where it is already of that type, contiguous and
+    16-byte aligned with rows of whole 16-byte chunks; the wide path casts
+    it; any other x is copied, zero-padded to Kp."""
     if x.dim() != 2 or x.shape[1] != w.k or x.shape[0] == 0:
         raise ValueError(f"qmatmul: x {tuple(x.shape)} vs weight K={w.k}")
     dev, M = x.device, x.shape[0]
     dt = torch.bfloat16 if p.path == "wide" else torch.float32
     xk = x.to(dt).contiguous()
-    if xk.data_ptr() % 16:
+    if xk.data_ptr() % 16 or (w.k * xk.element_size()) % 16:
         xk = torch.zeros((M, w.k_padded), dtype=dt, device=dev)
         xk[:, : w.k] = x
     y = torch.empty((M, w.r), dtype=torch.float32, device=dev)
@@ -256,7 +291,7 @@ def prepare(x: torch.Tensor, w) -> _build.Launch:
         lib.qmatmul_launch,
         (FORMAT_IDS[w.fmt_name], int(w.scale_packed), PATHS[p.path],
          _build.ptr(xk), xk.shape[1], *args, _build.ptr(y), _build.ptr(part),
-         M, w.k_padded, w.r_padded, w.r, p.mtiles, p.splits,
+         M, w.k_padded, w.r_padded, w.r, p.bm, p.mtiles, p.splits,
          p.tiles_per_split),
         dev, "qmatmul_launch", lambda: _count(coalesced, p.path), y,
         (xk, part, w))

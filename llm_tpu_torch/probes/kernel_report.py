@@ -13,8 +13,12 @@ that has nvcc (the card's).
    and arithmetic, less four 16-byte shared loads).
 3. The SASS instructions of one pass of the main loop (a 64 x 128 weight
    tile, 32 weights a thread) of the q4_0 kernels of `csrc/qmatmul.cu` on
-   each consumer path and layout: the dequant with everything around it
-   (copies, barriers, x, ldmatrix, mma).
+   each swapped consumer path and layout: the dequant with everything
+   around it (copies, barriers, x, ldmatrix, mma). (The wide path's roles
+   run loops of their own, handed on by mbarriers: no one loop is its.)
+4. The tensor-core instructions of the wide path's kernels (`qmm_wgmma`:
+   HGMMA, and no HMMA) and of the attention kernel's GQA branch
+   (`gqa_mma`: HMMA), with their registers and spills.
 
     python -m llm_tpu_torch.probes.kernel_report [--out DIR]
 
@@ -180,13 +184,16 @@ def main_loop(ins: list) -> Counter:
 # (name, demangled-name pieces), one pass of 64 k x 128 columns, 32
 # weights a thread
 LOOP_KERNELS = {
-    f"{path}_{lay}": (f"tc::qmm_{kern}<tc::Fmt<(int)4, (int)0, (bool)1, "
-                      f"(int)8, (int)32, (bool)0, (bool)1>, (bool){c}{tail}")
-    for path, kern, tail in (("swapped8", "swapped", ", (int)1>"),
-                             ("swapped16", "swapped", ", (int)2>"),
-                             ("wide", "wide", ">"))
+    f"{path}_{lay}": (f"tc::qmm_swapped<tc::Fmt<(int)4, (int)0, (bool)1, "
+                      f"(int)8, (int)32, (bool)0, (bool)1>, (bool){c}, "
+                      f"(int){nt}>")
+    for path, nt in (("swapped8", 1), ("swapped16", 2))
     for lay, c in (("planes", 0), ("coalesced", 1))
 }
+# the kernels whose tensor-core instructions are counted: (library, name
+# piece, the instruction they must hold, the one they must not)
+TC_KERNELS = {"qmm_wgmma": ("qmatmul", "tc::qmm_wgmma<", "HGMMA", "HMMA"),
+              "gqa_mma": ("paged_attention", "::gqa_mma<", "HMMA", "HGMMA")}
 
 
 def main_loops(cubin: Path) -> dict:
@@ -204,6 +211,30 @@ def main_loops(cubin: Path) -> dict:
         res[name] = {"instructions": n, "per_weight": n / 32,
                      "by_opcode": dict(loop.most_common())}
     return res
+
+
+def tensor_core_ops(sass: dict, ptxas: list, piece: str, want: str,
+                    never: str) -> dict:
+    """HGMMA and HMMA counts, registers and spills of every kernel whose
+    demangled name holds `piece`; `ok`: each holds `want` and no `never`."""
+    regs = {r["kernel"]: r for r in ptxas}
+    rows = []
+    for k, ins in sass.items():
+        if piece not in k:
+            continue
+        ops = Counter(op for _, op, _ in ins)
+        r = regs.get(k, {})
+        rows.append({"kernel": k, "HGMMA": ops["HGMMA"], "HMMA": ops["HMMA"],
+                     "registers": r.get("registers"),
+                     "spill_stores": r.get("spill_stores"),
+                     "spill_loads": r.get("spill_loads")})
+    return {"kernels": rows,
+            "ok": bool(rows) and all(r[want] > 0 and r[never] == 0
+                                     for r in rows),
+            "max_registers": max((r["registers"] or 0 for r in rows),
+                                 default=0),
+            "spills": sum((r["spill_stores"] or 0) + (r["spill_loads"] or 0)
+                          for r in rows)}
 
 
 CASES = [(f, lay) for f in SASS_FORMATS for lay in ("planes", "coalesced")
@@ -263,6 +294,10 @@ def main(argv=None) -> None:
                                "paged_attention")},
            "dequant_sass": dequant_sass(out / "dequant_only.cubin"),
            "main_loop_sass": main_loops(out / "qmatmul.cubin")}
+    res["tensor_core_sass"] = {
+        name: tensor_core_ops(_sass(out / f"{lib}.cubin"), res["ptxas"][lib],
+                              piece, want, never)
+        for name, (lib, piece, want, never) in TC_KERNELS.items()}
     print(json.dumps(res), flush=True)
 
 

@@ -6,7 +6,13 @@ holds it against its plain version there. Here:
 - `qmatmul.plan` gives a legal tiling for every LLaMA-7B projection at the
   main path's M and for small shapes of all 10 formats, and the same tiling
   for a weight and for `coalesce_auto(weight)` (whose R is padded wider):
-  the condition of K3 being bit-equal to K1.
+  the condition of K3 being bit-equal to K1. The wide path's (wgmma, TMA)
+  layout is legal for every format at every 7B shape and M > 32: shared
+  memory within a block's 227 KB, x's tensor map (16-byte strides, boxes
+  of at most 256), the splits covering K; its 128-byte swizzle, mirrored
+  here, puts each 16-byte chunk of a tile in its own place and agrees with
+  the address-based swizzle that TMA writes and wgmma reads at every k
+  step of the descriptors.
 - A plain walk of a plan's tiles, with the K splits summed in order, covers
   every (k, r) exactly once and equals `qmatmul_plain` to f32 rounding
   (rtol 1e-5: the same products summed in another order).
@@ -55,15 +61,19 @@ def assert_legal(p: tqm.Plan, M: int, K_padded: int, R: int, fmt,
     assert K_padded % tqm.BK == 0
     assert p.path == ("swapped8" if M <= 8 else "swapped16" if M <= 32
                       else "wide")
-    assert p.bm == {"swapped8": 8, "swapped16": 16, "wide": 128}[p.path]
+    assert p.bm == ({"swapped8": 8, "swapped16": 16}[p.path]
+                    if p.path != "wide" else
+                    64 if M <= 64 else 128 if M <= 128 else 256)
     assert p.mtiles == math.ceil(M / p.bm)
     assert p.rblocks == math.ceil(R / tqm.BN)
     # every split holds at least one tile, and the splits cover K
     assert 1 <= p.tiles_per_split <= n_kt
     assert (p.splits - 1) * p.tiles_per_split < n_kt
     assert p.splits * p.tiles_per_split >= n_kt
-    cap = tqm.blocks_per_sm(fmt, p.path) * sms
-    assert 1 <= tqm.blocks_per_sm(fmt, p.path) <= tqm.REG_BLOCKS[p.path]
+    cap = tqm.blocks_per_sm(fmt, p.path, p.bm) * sms
+    regs = tqm.REG_BLOCKS[p.path]
+    assert 1 <= tqm.blocks_per_sm(fmt, p.path, p.bm) <= (
+        regs[p.bm] if p.path == "wide" else regs)
     if p.path == "wide" and p.splits > 1:  # splits only within one wave
         assert p.rblocks * p.mtiles * p.splits <= cap
 
@@ -71,7 +81,7 @@ def assert_legal(p: tqm.Plan, M: int, K_padded: int, R: int, fmt,
 def assert_least_time(p: tqm.Plan, K_padded: int, fmt, sms: int) -> None:
     """No other split runs fewer waves x (tiles a block + fill)."""
     n_kt = K_padded // tqm.BK
-    cap = tqm.blocks_per_sm(fmt, p.path) * sms
+    cap = tqm.blocks_per_sm(fmt, p.path, p.bm) * sms
     blocks = p.rblocks * p.mtiles
 
     def cost(splits, tps):
@@ -96,8 +106,12 @@ def test_plan_legal_at_7b(name, M):
     p = tqm.plan(w, M, sms=132)
     assert_legal(p, M, w.k_padded, R, fmt, 132)
     assert_least_time(p, w.k_padded, fmt, 132)
-    # the blocks a launch runs (grid x splits) fill the card
-    assert p.rblocks * p.mtiles * p.splits >= 132
+    # the blocks a launch runs (grid x splits) fill the card; on the wide
+    # path as far as one more split would not make a second wave
+    blocks = p.rblocks * p.mtiles
+    cap = tqm.blocks_per_sm(fmt, p.path, p.bm) * 132
+    assert blocks * p.splits >= 132 or (
+        p.path == "wide" and blocks * (p.splits + 1) > cap)
 
 
 @pytest.mark.parametrize("t", ALL_TYPES, ids=lambda t: t.name)
@@ -126,6 +140,81 @@ def test_plan_same_for_coalesce_auto(t):
     for M in MAIN_MS + (4, 32, 100):
         for sms in (8, 132):
             assert tqm.plan(tq, M, sms) == tqm.plan(qc, M, sms)
+
+
+WIDE_MS = (33, 64, 65, 128, 512)
+
+
+@pytest.mark.parametrize("M", WIDE_MS)
+@pytest.mark.parametrize("t", ALL_TYPES, ids=lambda t: t.name)
+def test_wide_plan_legal_every_format_at_7b(t, M):
+    """Every format, both scale kinds, at every 7B projection: the wgmma
+    path's shared memory, x's tensor map and the split cover."""
+    fmt = tpk.FORMATS[t]
+    for name, (K, R) in SHAPES_7B.items():
+        g = tpk.k_granule(fmt, K)
+        w = SimpleNamespace(k=K, r=R, k_padded=-(-K // g) * g,
+                            r_padded=-(-R // 128) * 128, fmt=fmt)
+        p = tqm.plan(w, M, sms=132)
+        assert_legal(p, M, w.k_padded, R, fmt, 132)
+        assert_least_time(p, w.k_padded, fmt, 132)
+        # the packed ring several k-tiles deep (the bytes in flight), the
+        # x ring 2 ahead
+        n = tqm.wide_pstages(fmt, p.bm)
+        assert 3 <= n <= tqm.WIDE_MAX_PSTAGES  # copies PS - 1 ahead
+        smem = tqm.smem_bytes(fmt, "wide", p.bm)
+        assert smem <= tqm.WIDE_SMEM_MAX[p.bm]
+        # two blocks an SM at bm = 64, else one
+        assert tqm.blocks_per_sm(fmt, "wide", p.bm) == (2 if p.bm == 64
+                                                         else 1)
+        # the x and weight tiles start on 1 KB, the swizzle's period; the
+        # packed stages on 16 bytes (the copies')
+        assert (p.bm * tqm.BK * 2) % 1024 == 0
+        assert tqm.packed_tile_bytes(fmt) % 16 == 0
+        # x's tensor map: [M, K] bf16, rows of whole 16-byte chunks (the
+        # global stride), a box of 64 x bm, each dimension at most 256, the
+        # inner one 128 bytes (the swizzle's span)
+        assert (K * 2) % 16 == 0
+        assert tqm.BK * 2 == 128 and 0 < p.bm <= 256 and tqm.BK <= 256
+        # two warpgroups share the block's rows (64: both all 64 rows, half
+        # the weight columns each; 128, 256: half the rows each, in wgmma
+        # tiles of 64)
+        assert p.bm in (64, 128, 256) and (p.bm == 64 or p.bm // 2 % 64 == 0)
+
+
+def swz(row: int, chunk: int) -> int:
+    """csrc/qmatmul_tc.cuh swz: the byte offset of 16-byte chunk `chunk`
+    (8 bf16 of k) of row `row` of a [rows][64] bf16 tile."""
+    return row * (tqm.BK * 2) + ((chunk ^ (row & 7)) << 4)
+
+
+def sw128(addr: int) -> int:
+    """The 128-byte swizzle on a shared address (TMA's
+    CU_TENSOR_MAP_SWIZZLE_128B, wgmma's layout 1): bits [4, 7) ^= [7, 10)."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+@pytest.mark.parametrize("rows", [64, 128, 256])
+def test_wide_swizzle_mirror(rows):
+    """Every (row, k) of an x tile (64, 128 or 256 rows) or of the 128-row
+    weight tile lands in one distinct 16-byte chunk; the chunk the dequant
+    writes is the one TMA's swizzle puts there, and the one wgmma reads
+    from the descriptor start + 32 ks bytes (the k step of 16) with its own
+    address swizzle, for a tile on 1 KB."""
+    base = 5 * 1024
+    seen = {}
+    for r in range(rows):
+        for k in range(tqm.BK):
+            chunk, within = k // 8, (k % 8) * 2
+            at = swz(r, chunk)
+            seen.setdefault(at, set()).add((r, chunk))
+            assert base + at + within == sw128(base + r * 128 + 2 * k)
+            ks, kk = divmod(k, 16)
+            start = base + 32 * ks  # the descriptor of k step ks
+            assert sw128(start + r * 128 + 2 * kk) == base + at + within
+    assert len(seen) == rows * tqm.BK // 8
+    assert all(len(v) == 1 for v in seen.values())
+    assert max(seen) + 16 == rows * tqm.BK * 2
 
 
 def walk(x: torch.Tensor, wd: torch.Tensor, p: tqm.Plan,
@@ -167,7 +256,8 @@ def test_plan_walk_covers_once_and_equals_plain(t):
     tq = tpk.pack_ggml(t, random_raw(t, K, R, seed=9), (K, R))
     wd = tpk.dequant(tq, trim=False)
     rng = np.random.default_rng(10)
-    for M, sms in ((1, 1), (5, 132), (20, 2), (40, 1), (130, 132)):
+    for M, sms in ((1, 1), (5, 132), (20, 2), (40, 1), (100, 2), (130, 132),
+                   (300, 1)):
         p = tqm.plan(tq, M, sms)
         x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
         cover = torch.zeros((tq.k_padded, p.rblocks * tqm.BN),
@@ -371,8 +461,31 @@ def test_kernel_report_counts_the_main_loop():
     assert kernel_report.main_loop(ins) == {"BAR": 1, "LOP3": 1, "FADD": 1,
                                             "BRA": 2, "HMMA": 1}
     assert set(kernel_report.LOOP_KERNELS) == {
-        f"{p}_{lay}" for p in ("swapped8", "swapped16", "wide")
+        f"{p}_{lay}" for p in ("swapped8", "swapped16")
         for lay in ("planes", "coalesced")}
+
+
+def test_kernel_report_tensor_core_ops():
+    """The wide path's kernels must hold HGMMA and no HMMA, the attention
+    GQA branch HMMA; registers and spills beside them."""
+    sass = {"tc::qmm_wgmma<A>": [(0, "HGMMA", None), (16, "HGMMA", None),
+                                 (32, "SYNCS", None)],
+            "tc::qmm_wgmma<B>": [(0, "HMMA", None), (16, "HGMMA", None)],
+            "tc::qmm_swapped<A>": [(0, "HMMA", None)]}
+    ptxas = [{"kernel": "tc::qmm_wgmma<A>", "registers": 90,
+              "spill_stores": 0, "spill_loads": 0},
+             {"kernel": "tc::qmm_wgmma<B>", "registers": 96,
+              "spill_stores": 4, "spill_loads": 8}]
+    got = kernel_report.tensor_core_ops(sass, ptxas, "tc::qmm_wgmma<",
+                                        "HGMMA", "HMMA")
+    assert [(r["HGMMA"], r["HMMA"]) for r in got["kernels"]] == [(2, 0),
+                                                                  (1, 1)]
+    assert not got["ok"] and got["max_registers"] == 96
+    assert got["spills"] == 12
+    del sass["tc::qmm_wgmma<B>"]
+    assert kernel_report.tensor_core_ops(sass, ptxas, "tc::qmm_wgmma<",
+                                         "HGMMA", "HMMA")["ok"]
+    assert set(kernel_report.TC_KERNELS) == {"qmm_wgmma", "gqa_mma"}
 
 
 def test_kernel_report_source_has_both_kernels_of_every_case(tmp_path):
@@ -384,3 +497,20 @@ def test_kernel_report_source_has_both_kernels_of_every_case(tmp_path):
         coal = "true" if lay == "coalesced" else "false"
         assert (f"body<Fmt<{kernel_report.SASS_FORMATS[f]}>, {coal}, true>"
                 in src)
+
+
+def test_sync_costs_probe_source_and_parser():
+    """The probe of the wide path's synchronisation steps: one mode of its
+    CUDA source a step, and its output read back by step, an error
+    raised."""
+    from llm_tpu_torch.probes import sync_costs
+
+    src = sync_costs._SRC
+    assert src.count("{") == src.count("}")
+    assert len(sync_costs.STEPS) == 7 and "mode == 5" in src
+    got = sync_costs.parse("0 208.1 0\nnoise\n3 338.5 0\n6 1615.5 0\n")
+    assert got == {"syncthreads": 208.1,
+                   "cp_async_arrive_noinc_try_wait": 338.5,
+                   "cp_async_global_wait_syncthreads": 1615.5}
+    with pytest.raises(RuntimeError):
+        sync_costs.parse("2 10.0 700\n")
