@@ -10,12 +10,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. build:   nvcc compiles csrc/qmatmul.cu (the tensor-core kernel of
             csrc/qmatmul_tc.cuh), csrc/paged_attention.cu (which also
             serves the dense cache's attention) and csrc/qmatmul_probe.cu
-            (the scalar kernel the probes decompose) for sm_90a, all at
-            once, into build/kernels/; beside them,
+            (the probes' cuts and dequant modes of the same tensor-core
+            kernels) for sm_90a, all at once, into build/kernels/; beside
+            them,
             `llm_tpu_torch.probes.kernel_report` compiles its own copies
             for the compiler's report (registers, shared memory, spills of
             every kernel; SASS instructions a weight of the dequant and of
-            the q4_0 kernels' main loop).
+            the main loop of the q4_0 kernels, their cuts and modes).
 2. kernels: each kernel's wrapper runs on the card at the LLaMA-7B shapes
             of the main paths (qmatmul at M = 1, 8, 16, 64, 128 and 512,
             M > 32 on the wgmma path; dense attention at B = 1 and 8; paged
@@ -26,16 +27,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             scale kinds) at a small shape at M = 1, 4, 8, 16, 64 and 512.
             K3 (qmatmul over the coalesced buffer) is held bit-equal to K1
             on the same weights for all 10 formats and at the 7B
-            projections, and timed at M = 1-512. The A/B: the tensor-core
-            kernel against the scalar kernel it replaced, on the same 7B
-            weights (planes and coalesced) at each M, in turns old, new,
-            new, old. Every probe stage, mode and tiling is held against
-            its plain version, at a small shape and at the 7B shape its
-            probe runs it. The attention kernel is also held at small
-            shapes off the 7B ones (D 64 / 80 / 256, 4 / 8 / 71 query heads
-            a kv head, page 24, all four pools, ALiBi, n_past 0, mid-page
-            and full), and repeated launches, and a launch after one with
-            another grid, must give bit-equal results on both branches.
+            projections, and timed at M = 1-512. Every probe cut (stream,
+            unpack, dequant; q4_0, q8_0 and q6_k over planes and coalesced
+            buffers; at M = 1, 8 and 512, so on both consumer paths), mode
+            and tiling is held against its plain version, at a small shape
+            and at the 7B shape its probe runs it. The attention kernel is
+            also held at small shapes off the 7B ones (D 64 / 80 / 256, 4
+            / 8 / 71 query heads a kv head, page 24, all four pools, ALiBi,
+            n_past 0, mid-page and full), and repeated launches, and a
+            launch after one with another grid, must give bit-equal
+            results on both branches.
             Each attention case records whether it took the tensor-core
             branch (`LAUNCHES_GQA_MMA`), which must match its plan; the
             compiler's report must show HGMMA and no HMMA in the wide
@@ -247,7 +248,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             at Falcon-7B's decode (rep 71, D 64) and at MPT's paged cell
             against its plain version, timed. The phase prints its
             `archs_summary`.
-5. probes:  P2 (`llm_tpu_torch.probes.kernel_decompose`, M = 8 and 1), P3
+5. probes:  P2 (`llm_tpu_torch.probes.kernel_decompose`, M = 8, 1 and
+            512: K1's swapped path, and its wide path at 256 tokens a
+            block), P3
             (`dequant_variants`, every mode) and P1 (`coalesced`, up and
             down, every variant) at their 7B geometry with few rounds, each
             with the counters zeroed before and read after its run; their
@@ -542,48 +545,6 @@ def coalesced_phase(dev, timer) -> tuple[list, list]:
         del w, c
     torch.cuda.empty_cache()
     return eq, recs
-
-
-AB_MS = (1, 8, 16, 64, N_BATCH)
-
-
-def ab_phase(dev, timer) -> list[dict]:
-    """The tensor-core kernel against the scalar kernel it replaced
-    (`qmatmul_probe.prepare_full`: one thread a column, f32 FMAs), in one
-    call on one card. Prepared launches (x already staged for each) at each
-    7B projection and M, over Q4_0 planes (K1) and `coalesce_auto`'s buffer
-    of the same weight (K3), timed in turns old, new, new, old; both held
-    against the plain version."""
-    from llm_tpu_torch.ggml.types import GgmlType
-    from llm_tpu_torch.ops import qmatmul as qm
-    from llm_tpu_torch.ops import qmatmul_probe as qp
-
-    rng = np.random.default_rng(12)
-    recs = []
-    for name, K, R in SHAPES_7B:
-        w = random_weight(GgmlType.Q4_0, K, R, rng, dev)
-        for layout, wt in (("planes", w), ("coalesced", qm.coalesce_auto(w))):
-            for M in AB_MS:
-                x = torch.from_numpy(rng.standard_normal((M, K)).astype(
-                    np.float32)).to(dev)
-                old, new = qp.prepare_full(x, wt), qm.prepare(x, wt)
-                held_old = qmatmul_held(old(), x, wt)
-                held_new = qmatmul_held(new(), x, wt)
-                t = [timer.ms(f) for f in (old, new, new, old)]
-                recs.append({
-                    "case": name, "layout": layout, "M": M, "K": K, "R": R,
-                    "path": qm.plan(w, M).path, "old_ms": [t[0], t[3]],
-                    "new_ms": [t[1], t[2]],
-                    "speedup": (t[0] + t[3]) / (t[1] + t[2]),
-                    "ok": held_old["ok"] and held_new["ok"],
-                    "max_abs_err": held_new["max_abs_err"],
-                    "max_abs_err_bf16_plain":
-                        held_new["max_abs_err_bf16_plain"],
-                    "old_max_abs_err_bf16_plain":
-                        held_old["max_abs_err_bf16_plain"]})
-        del w
-    torch.cuda.empty_cache()
-    return recs
 
 
 def attn_held(got, ref, npast) -> tuple[bool, list]:
@@ -5061,10 +5022,17 @@ def stage_rule(stage: str) -> str:
     return "dequant" if stage == "dequant" else "exact"
 
 
+# M of the probe cuts' checks and of P2's runs: a serving step and a
+# decode token on K1's swapped path at 8 tokens a block, a prompt chunk on
+# its wide path at 256
+PROBE_MS = (8, 1, 512)
+
+
 def probe_checks(dev) -> list[dict]:
-    """Every P2 stage, P3 mode and P1 variant against its plain version at
-    K=1024, R=512, layer 1 of a 2-layer stack, over Q4_0, Q8_0 and Q6_K
-    where the variant takes the format."""
+    """Every P2 stage (a cut of K1 on its plan at M = 1, 8 and 512), P3
+    mode and P1 variant against its plain version at K=1024, R=512, layer
+    1 of a 2-layer stack, over Q4_0, Q8_0 and Q6_K where the variant takes
+    the format."""
     from llm_tpu_torch.ggml.types import GgmlType
     from llm_tpu_torch.ops import packing
     from llm_tpu_torch.ops import qmatmul as qm
@@ -5087,18 +5055,20 @@ def probe_checks(dev) -> list[dict]:
             else torch.stack([getattr(q, n) for q in ws])
             for n in ("lo", "hi", "scale", "bias")))
 
-    def stage_rec(probe, case, layout, w, stage):
-        return held(probe, case, layout, qp.stage_run(w, stage, M),
-                    qp.stage_plain(w, stage), stage_rule(stage), w)
+    def stage_rec(probe, case, layout, w, stage, m=M):
+        return held(probe, case, layout, qp.stage_run(w, stage, m),
+                    qp.stage_plain(w, stage), stage_rule(stage), w, M=m)
 
     # P2 stages (and P1/P3's stream) over planes and coalesced buffers
     for t in (GgmlType.Q4_0, GgmlType.Q8_0, GgmlType.Q6_K):
         st = stacked(t)
         sc = packing.coalesce_qt(st, 512, 128)  # 2 k-tiles, 4 r-tiles
         for stage in qp.STAGES:
-            recs.append(stage_rec("P2", stage, "planes", st.layer(1), stage))
-            recs.append(stage_rec("P2", stage, "coalesced", sc.layer(1),
-                                  stage))
+            for m in PROBE_MS:
+                recs.append(stage_rec("P2", stage, "planes", st.layer(1),
+                                      stage, m))
+                recs.append(stage_rec("P2", stage, "coalesced", sc.layer(1),
+                                      stage, m))
     # P3 modes over a coalesced q4_0, whole K x 512 lanes
     st = stacked(GgmlType.Q4_0, 1024)
     qtc = packing.coalesce_qt(st, st.k_padded, 512).layer(1)
@@ -5124,7 +5094,7 @@ def probe_checks(dev) -> list[dict]:
 def probe_checks_7b(dev) -> list[dict]:
     """Every probe variant's kernel against its plain version on one layer
     at the shape and M its probe runs it: P2 over q4_0 4096 x 4096 planes
-    at M = 8 and 1; P3 over 4096 x 11008 coalesced whole K x 512 lanes; P1
+    at M = 8, 1 and 512; P3 over 4096 x 11008 coalesced whole K x 512 lanes; P1
     at up and down, every tiling."""
     from llm_tpu_torch.probes import coalesced as p1
     from llm_tpu_torch.probes import common
@@ -5137,7 +5107,7 @@ def probe_checks_7b(dev) -> list[dict]:
 
     recs = []
     w = common.random_q4_0(p2.K, p2.R, 0, dev)
-    for M in (8, 1):
+    for M in PROBE_MS:
         x = x_of(M, w.k)
         for v in p2.VARIANTS:
             rule = "qmatmul" if v == "full" else stage_rule(v)
@@ -5189,8 +5159,8 @@ def probe_phase(dev) -> dict:
 
     out = {}
     runs = {
-        "P2_M8": lambda: p2.run(dev, M=8, rounds=3),
-        "P2_M1": lambda: p2.run(dev, M=1, rounds=3),
+        **{f"P2_M{m}": (lambda m=m: p2.run(dev, M=m, rounds=3))
+           for m in PROBE_MS},
         "P3": lambda: p3.run(dev, modes=p3.MODES, rounds=3),
         "P1_up": lambda: p1.run(dev, "up", p1.all_variants(), rounds=3),
         "P1_down": lambda: p1.run(dev, "down", p1.all_variants(), rounds=2),
@@ -5215,13 +5185,16 @@ def probe_phase(dev) -> dict:
 
 def probe_entries(probes, checks, dev, timer) -> list[dict]:
     """The kernel line's entries of P1-P3. Each reports its headline
-    variant (P1: the stream pass over coalesce_tiles' own tiling, the
-    kernel `make_stream_chain` built; P2: the stream stage at M=8; P3:
-    base): device time a launch at 7B from the probe's run, the bound of
-    that launch, and the plain version's and one torch.matmul's time on
-    one layer of the same weight (bf16, the same [M, K] x [K, R] shape).
-    `max_abs_err` is the headline variant's largest over its checks (small
-    and 7B shapes); `checks` counts all of the probe's."""
+    variant (P1: the stream cut over coalesce_tiles' own tiling, the
+    kernel `make_stream_chain` built; P2: the stream cut at M=8; P3: base):
+    device time a launch at 7B from the probe's run, the bound of that
+    launch (its inputs read once: the packed weight and x as the kernel
+    takes it, f32 on the swapped path; its output written once), and the
+    plain version's and one torch.matmul's time on one layer of the same
+    weight (bf16, the same [M, K] x [K, R] shape). `max_abs_err` is the
+    headline variant's largest over its checks (small and 7B shapes);
+    `checks` counts all of the probe's. P2's entry also carries its rows at
+    M = 1 and 512 (the wide path)."""
     from llm_tpu_torch.ops import qmatmul_probe as qp
     from llm_tpu_torch.probes import coalesced as p1
     from llm_tpu_torch.probes import common
@@ -5243,31 +5216,33 @@ def probe_entries(probes, checks, dev, timer) -> list[dict]:
     w1 = p1.build(*p1.SHAPES["up"], 0, dev)["coalK"]
     specs.append(("probe_coalesced", "P1", probes["P1_up"], "coalK_stream",
                   "scripts/probe_coalesced.py:137",
-                  w1.buf.numel() * 4 + w1.rp * 4, 0.0,
+                  w1.buf.numel() * 4 + M * w1.k * 4 + w1.rp * 4, 0.0,
                   lambda: qp.stage_plain(w1, "stream"),
                   matmul(w1.k, w1.r)))
     w2 = common.random_q4_0(4096, 4096, 0, dev)
     specs.append(("probe_kernel_decompose", "P2", probes["P2_M8"], "stream",
                   "scripts/probe_kernel_decompose.py:108",
-                  (w2.lo.numel() + w2.scale.numel()) * 4 + w2.r_padded * 4,
+                  (w2.lo.numel() + w2.scale.numel()) * 4 + M * w2.k * 4
+                  + w2.r_padded * 4,
                   0.0, lambda: qp.stage_plain(w2, "stream"),
                   matmul(w2.k, w2.r)))
     w3 = p3.build(p3.K, p3.R, 0, dev)
     x3 = x_of(w3.k)
     specs.append(("probe_dequant_variants", "P3", probes["P3"], "base",
                   "scripts/probe_dequant_variants.py:221",
-                  w3.buf.numel() * 4 + M * w3.k * 2 + M * w3.r * 4,
+                  w3.buf.numel() * 4 + M * w3.k * 4 + M * w3.r * 4,
                   2.0 * M * w3.k * w3.r,
                   lambda: qp.mode_plain(x3, w3, "base"),
                   matmul(w3.k, w3.r)))
     for name, tag, res, variant, rep, n_bytes, flops, plain, lib in specs:
         rows = res.get("variants") or res.get("modes")
         b, by = bound_ms(n_bytes, flops)
-        out.append({
+        launches = sum(res["launches_counted"].values())
+        e = {
             "name": name, "route": "cuda",
             "source": "llm_tpu_torch/csrc/qmatmul_probe.cu",
-            "replaces": rep,
-            "launches": sum(res["launches_counted"].values()),
+            "source_also": ["llm_tpu_torch/csrc/qmatmul_tc.cuh"],
+            "replaces": rep, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in checks
                                if r["probe"] == tag and r["case"] == variant),
             "max_rel_err": max(r.get("max_rel_err", 0.0) for r in checks
@@ -5283,32 +5258,34 @@ def probe_entries(probes, checks, dev, timer) -> list[dict]:
             "variants_kernel_us": {n: d["kernel_us"]
                                    for n, d in rows.items()},
             "busy_share": {n: d["busy_share"] for n, d in rows.items()},
-        })
+        }
+        if tag == "P2":
+            for m in PROBE_MS[1:]:
+                r = probes[f"P2_M{m}"]
+                e["launches"] += sum(r["launches_counted"].values())
+                e[f"variants_us_M{m}"] = {n: d["us"] for n, d in
+                                          r["variants"].items()}
+                e[f"variants_kernel_us_M{m}"] = {
+                    n: d["kernel_us"] for n, d in r["variants"].items()}
+        out.append(e)
     return out
 
 
 # ---------------------------------------------------------------------------
 
 
-def step_by_m(recs, ab, layout: str) -> dict:
+def step_by_m(recs) -> dict:
     """Per M, times of one 7B step's launches (qkv, wo, gate_up, down x 32
     layers, lm_head once where `recs` has it): the call's ms, bound, plain
-    and torch.matmul ms from `recs`, and the A/B's prepared-launch ms of the
-    new and the scalar kernel (each the mean of its two turns)."""
+    and torch.matmul ms from `recs`."""
     per = {"qkv": N_LAYER, "wo": N_LAYER, "gate_up": N_LAYER,
            "down": N_LAYER, "lm_head": 1}
     out = {}
     for M in sorted({r["M"] for r in recs if r["case"] in per}):
         rs = [r for r in recs if r["M"] == M and r["case"] in per]
         cases = {r["case"] for r in rs}
-        abr = [r for r in ab if r["M"] == M and r["layout"] == layout
-               and r["case"] in cases]
         row = {k: sum(r[k] * per[r["case"]] for r in rs)
                for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
-        row["ab_new_ms"] = sum(np.mean(r["new_ms"]) * per[r["case"]]
-                               for r in abr)
-        row["ab_old_ms"] = sum(np.mean(r["old_ms"]) * per[r["case"]]
-                               for r in abr)
         row["launches"] = sum(per[c] for c in cases)
         out[M] = row
     return out
@@ -6470,7 +6447,7 @@ def multihost_phase(dev) -> dict:
 
 
 def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
-                   cinf, ab, dsamp, multi, archs,
+                   cinf, dsamp, multi, archs,
                    session_paths, spec, slice_paths, shard,
                    mhk) -> list[dict]:
     """One entry per kernel: times summed over the launches of one decode
@@ -6546,7 +6523,7 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
         "per": "one 7B decode token's coalesced launches: 128 at M=1 "
                "(lm_head stays planes)",
         "tolerance": "|y - plain| <= 2^-7 (|x| @ |W|); bit-equal to K1",
-        "by_M": step_by_m(k3recs, ab, "coalesced"),
+        "by_M": step_by_m(k3recs),
     })
     for name, recs, all_recs, w, path, rep, extra in (
         ("qmatmul", dec, qrecs, qw, "infer", "llm_tpu/ops/qmatmul.py:560",
@@ -6557,7 +6534,7 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
                             "llm_tpu/ops/qmatmul.py:475"],
           "per": "one 7B decode token: 129 launches at M=1",
           "tolerance": "|y - plain| <= 2^-7 (|x| @ |W|)",
-          "by_M": step_by_m(qrecs, ab, "planes")}),
+          "by_M": step_by_m(qrecs)}),
         ("dense_attention", attn, arecs, per_layer, "infer",
          "llm_tpu/ops/dense_attention.py:195",
          {"source": "llm_tpu_torch/csrc/paged_attention.cu",
@@ -6712,6 +6689,10 @@ def main() -> None:
     for name, tc in results["kernel_report"]["tensor_core_sass"].items():
         if not tc["ok"] or (name == "gqa_mma" and tc["spills"]):
             fail(f"kernel_report: {name}: {tc}")
+    # every counted loop, the probes' cuts and modes too, found once
+    for name, loop in results["kernel_report"]["main_loop_sass"].items():
+        if "error" in loop:
+            fail(f"kernel_report: {name}: {loop['error']}")
 
     phase_s = results["phase_s"] = {}
     clock = [t_build]
@@ -6727,10 +6708,6 @@ def main() -> None:
     lap("qmatmul")
     k3eq, k3recs = coalesced_phase(dev, timer)
     lap("qmatmul_coalesced")
-    ab = ab_phase(dev, timer)
-    results["qmatmul_ab"] = ab
-    emit({"qmatmul_ab": ab})
-    lap("qmatmul_ab")
     arecs = attention_phase(dev, timer)
     precs = paged_phase(dev, timer)
     mrecs = attention_matrix(dev) + [check_repeat(dev)]
@@ -6743,7 +6720,7 @@ def main() -> None:
     mhk = mh_kernel_phase(dev, timer)
     results["multihost_kernels"] = mhk
     lap("multihost_kernels")
-    cases = qrecs + k3eq + k3recs + ab + arecs + precs + mrecs + checks
+    cases = qrecs + k3eq + k3recs + arecs + precs + mrecs + checks
     results["kernel_cases"] = cases
     emit({"kernel_cases": cases})
     bad = [r for r in cases if not r["ok"]]
@@ -6847,7 +6824,7 @@ def main() -> None:
     lap("probes")
 
     kernels = kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
-                             cinf, ab, dsamp, multi, archs, session_paths,
+                             cinf, dsamp, multi, archs, session_paths,
                              spec, {"routes": routes["launches"],
                                     "adapters": adapters["launches"],
                                     "parallel": par["launches"],

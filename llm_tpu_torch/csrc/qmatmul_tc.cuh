@@ -58,8 +58,8 @@
 // 128-byte swizzle that TMA writes and wgmma reads), so that the 16-byte
 // stores and ldmatrix meet no bank conflicts.
 //
-// Two weight layouts, one addressing rule (as csrc/qmatmul_body.cuh's
-// UnitRows): a stage's rows of a segment (lo, hi, scale, bias) start at
+// Two weight layouts, one addressing rule: a stage's rows of a segment
+// (lo, hi, scale, bias) start at
 //   planes:    seg + (kt * rows) * Rp + r0
 //   coalesced: seg + ((rt * n_k + ckt) * rows_tile + kt * rows
 //                     - ckt * seg_rows) * tile_r + r0 % tile_r
@@ -69,6 +69,12 @@
 // shared tiles and sum the same products in the same order: K3 is
 // bit-equal to K1 at every M. The K split (grid z) is summed by a second
 // pass in a fixed order: deterministic, no atomics.
+//
+// The chip probes (csrc/qmatmul_probe.cu) instantiate the same two kernels
+// with a Stage other than FULL (the main loop cut after a stage of each
+// thread's 32 weights) or, on the swapped path, a Mode other than BASE
+// (another dequant arithmetic); FULL and BASE are the production code, and
+// every other branch below is `if constexpr` away from it.
 
 #pragma once
 
@@ -89,6 +95,45 @@ constexpr int XS = BK + 8;    // f32 x row in shared memory (conflict-free)
 // Consumer paths (the plan's `path`): swapped with 8 or 16 tokens a block,
 // or wide.
 enum Path : int { SWAPPED8 = 0, SWAPPED16 = 1, WIDE = 2 };
+
+// How far the main loop runs. FULL is the kernel. A cut keeps every copy
+// (the packed rows and x), wait, barrier and fence of the loop and its trip
+// count; it drops what feeds only the tensor cores (x's bf16 staging,
+// ldmatrix and mma.sync; wgmma, its fence and its waits) and leaves one
+// value a column of the block (lanes of one column summed):
+//   STREAM:  wrapping uint32 sum of every weight word the thread's dequant
+//            reads from the stage (a q8_0 plane's bytes sign-extended; a
+//            scale or bias word once a group, so a packed word twice);
+//   UNPACK:  the same sum of the codes q (as unpack_q gives them: q4_0's
+//            and q8_0's signed) plus the scale and bias words: the
+//            production field extraction, then a shift of each field down
+//            to bit 0 that the dequant does not need;
+//   DEQUANT: f32 sum of every weight after the exact dequant to bf16; the
+//            swapped path keeps it in registers (no store of the tile),
+//            the wide path stores the bf16 B tile as FULL does.
+enum Stage : int { FULL = 0, STREAM = 1, UNPACK = 2, DEQUANT = 3 };
+
+// The dequant arithmetic of a FULL launch of the swapped path at 8 tokens
+// a block over a coalesced q4_0 buffer (the probe P3). BASE is K1's.
+//   BF16:     w = bf16(bf16(q - zero) * bf16(scale)) in bf16x2 arithmetic:
+//             (128 + q) from the bits 0x4300 | q, minus 136, times the
+//             scale; no f32 step, each step exact or rounded once
+//   F32DOT:   x and w unrounded: x as three bf16 terms, w = (q - zero) *
+//             scale (exact in f32) as two, five mma products a k-step
+//   GHOIST:   the tile holds q - zero (exact); the two k16 products of a
+//             32-group go into a partial, then acc += scale * partial
+//   NOSCALE:  w = q - zero (wrong on purpose: the cost of the scaling)
+//   NOUNPACK: w = bf16(int32(lo word) * scale) for each field of the word
+//             (wrong on purpose: the cost of the field extraction)
+enum Mode : int { BASE = 0, BF16 = 1, F32DOT = 2, GHOIST = 3, NOSCALE = 4,
+                  NOUNPACK = 5 };
+
+// What a cut leaves a thread: a wrapping sum (STREAM, UNPACK) or an f32 one
+// (DEQUANT)
+struct Cut {
+  uint32_t ck;
+  float fs;
+};
 
 // A GGML format as the kernel sees it (llm_tpu_torch.ops.packing.FORMATS).
 // SIGNED: the lo field is q - ZERO in two's complement (q4_0).
@@ -286,7 +331,8 @@ struct Feed {
 
 // ---------------------------------------------------------------------------
 // dequant: 32 weights (k = 32u .. 32u+31 of the stage) of column c, from
-// the packed stage `pk` into row c of the bf16 tile `wt`
+// the packed stage `pk` into row c of the bf16 tile `wt`; a cut (STAGE)
+// adds into `cut` instead, a mode (MODE) changes the arithmetic
 
 template <class F>
 __device__ __forceinline__ float group_value(const char* seg, int grp, int c) {
@@ -298,18 +344,70 @@ __device__ __forceinline__ float group_value(const char* seg, int grp, int c) {
   return reinterpret_cast<const float*>(seg)[grp * BN + c];
 }
 
-template <class F, bool COAL>
+// the word group_value reads
+template <class F>
+__device__ __forceinline__ uint32_t group_word(const char* seg, int grp,
+                                               int c) {
+  return reinterpret_cast<const uint32_t*>(
+      seg)[(F::PACKED ? grp >> 1 : grp) * BN + c];
+}
+
+// the f32 sum of a bf16 pair
+__device__ __forceinline__ float bf16x2_sum(uint32_t p) {
+  return __uint_as_float(p << 16) + __uint_as_float(p & 0xFFFF0000u);
+}
+
+// (lo, hi) rounded to a bf16 pair, and what the rounding left in lo and hi
+// (exact in f32)
+__device__ __forceinline__ uint32_t bf16x2_rest(float& lo, float& hi) {
+  const uint32_t p = bf16x2(lo, hi);
+  lo -= __uint_as_float(p << 16);
+  hi -= __uint_as_float(p & 0xFFFF0000u);
+  return p;
+}
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// F32DOT: the bf16 tile of w's second terms, from the first's (after x's B
+// fragments: 8 tokens a block)
+constexpr int XB1_BYTES = BK / 16 * 32 * 8;
+constexpr int F32DOT_LO = BN * BK * 2 + XB1_BYTES;
+// the shared memory a mode adds to the swapped block: F32DOT's second tile
+// and x's second and third terms
+constexpr int mode_smem(int mode) {
+  return mode == F32DOT ? BN * BK * 2 + 2 * XB1_BYTES : 0;
+}
+
+template <class F, bool COAL, int STAGE = FULL, int MODE = BASE,
+          bool STORE = true>
 __device__ __forceinline__ void dequant_unit(const char* pk, int c, int u,
-                                             char* wt) {
+                                             char* wt, Cut* cut = nullptr) {
   using T = Tile<F, COAL>;
   constexpr int LO = F::LO, G = F::G, NG = 32 / G;
   constexpr uint32_t MAGIC = 0x4B000000u;  // 2^23 as f32
+  constexpr bool WORDS = STAGE == STREAM || STAGE == UNPACK;
+  static_assert(MODE == BASE || (STAGE == FULL && LO == 4 && F::HI == 0 &&
+                                 F::SIGNED && G == 32 && !T::Q8P),
+                "the modes take q4_0");
   float s[NG], b[NG];
 #pragma unroll
   for (int gi = 0; gi < NG; ++gi) {
-    s[gi] = group_value<F>(pk + T::SC_OFF, u * NG + gi, c);
-    b[gi] = 0.f;
-    if constexpr (F::BIAS) b[gi] = group_value<F>(pk + T::BI_OFF, u * NG + gi, c);
+    if constexpr (WORDS) {
+      // the group's scale (and bias) word, once a group
+      cut->ck += group_word<F>(pk + T::SC_OFF, u * NG + gi, c);
+      if constexpr (F::BIAS)
+        cut->ck += group_word<F>(pk + T::BI_OFF, u * NG + gi, c);
+    } else {
+      s[gi] = group_value<F>(pk + T::SC_OFF, u * NG + gi, c);
+      b[gi] = 0.f;
+      if constexpr (F::BIAS)
+        b[gi] = group_value<F>(pk + T::BI_OFF, u * NG + gi, c);
+    }
   }
   const uint32_t* lo32 = reinterpret_cast<const uint32_t*>(pk);
   float v[32];
@@ -320,14 +418,60 @@ __device__ __forceinline__ void dequant_unit(const char* pk, int c, int u,
     constexpr uint32_t MASK = (1u << LO) - 1u;
     constexpr uint32_t XOR = (F::SIGNED || LO == 8) ? (1u << (LO - 1)) : 0u;
     constexpr int OFF = XOR ? (int)XOR : F::ZERO;
+    if constexpr (STAGE == STREAM) {
+#pragma unroll
+      for (int wi = 0; wi < NW; ++wi) cut->ck += lo32[(u * NW + wi) * BN + c];
+      return;
+    }
+    if constexpr (MODE == BF16 || MODE == NOUNPACK) {
+      // a word is a chunk: its 8 weights, 4 bf16 pairs
+      const uint32_t s2 = bf16x2(s[0], s[0]);
+#pragma unroll
+      for (int wi = 0; wi < NW; ++wi) {
+        const uint32_t w = lo32[(u * NW + wi) * BN + c];
+        uint4 chunk;
+        if constexpr (MODE == BF16) {
+          // fields f and f + 4 as the bf16 pair (128 + q): XOR 8 undoes
+          // the two's complement of q - 8
+          uint32_t pr[4];
+#pragma unroll
+          for (int f = 0; f < 4; ++f)
+            pr[f] = and_xor(w >> (4 * f), 0x000F000Fu, 0x43084308u);
+          const uint32_t pairs[4] = {prmt(pr[0], pr[1], 0x5410u),
+                                     prmt(pr[2], pr[3], 0x5410u),
+                                     prmt(pr[0], pr[1], 0x7632u),
+                                     prmt(pr[2], pr[3], 0x7632u)};
+          uint32_t o[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const __nv_bfloat162 q = __hsub2(
+                *reinterpret_cast<const __nv_bfloat162*>(&pairs[i]),
+                __nv_bfloat162(__ushort_as_bfloat16(0x4308),
+                               __ushort_as_bfloat16(0x4308)));
+            const __nv_bfloat162 h = __hmul2(
+                q, *reinterpret_cast<const __nv_bfloat162*>(&s2));
+            o[i] = *reinterpret_cast<const uint32_t*>(&h);
+          }
+          chunk = make_uint4(o[0], o[1], o[2], o[3]);
+        } else {
+          const float x = __fmul_rn(__int2float_rn(static_cast<int>(w)), s[0]);
+          const uint32_t p = bf16x2(x, x);
+          chunk = make_uint4(p, p, p, p);
+        }
+        *reinterpret_cast<uint4*>(wt + swz(c, 4 * u + wi)) = chunk;
+      }
+      return;
+    }
     float sp[NG][NPP];
+    if constexpr (!WORDS) {
 #pragma unroll
-    for (int gi = 0; gi < NG; ++gi)
+      for (int gi = 0; gi < NG; ++gi)
 #pragma unroll
-      for (int i = 0; i < NPP; ++i)
-        sp[gi][i] = i == 0 ? s[gi]
-                           : __fmul_rn(s[gi], __uint_as_float(
-                                                  (127u - LO * i) << 23));
+        for (int i = 0; i < NPP; ++i)
+          sp[gi][i] = i == 0 ? s[gi]
+                             : __fmul_rn(s[gi], __uint_as_float(
+                                                    (127u - LO * i) << 23));
+    }
 #pragma unroll
     for (int wi = 0; wi < NW; ++wi) {
       const uint32_t w = lo32[(u * NW + wi) * BN + c];
@@ -336,22 +480,45 @@ __device__ __forceinline__ void dequant_unit(const char* pk, int c, int u,
       for (int f = 0; f < PW; ++f) {
         const int j = wi * PW + f, p = LO * f, pp = p & 15;
         const uint32_t src = p < 16 ? w : wh;
-        const uint32_t bits = and_xor(src, MASK << pp, (XOR << pp) | MAGIC);
-        const float q = __uint_as_float(bits) -
-                        static_cast<float>(8388608 + (OFF << pp));
-        float x = __fmul_rn(q, sp[j / G][pp / LO]);
-        if constexpr (F::BIAS) x = __fadd_rn(x, b[j / G]);
-        v[j] = x;
+        if constexpr (STAGE == UNPACK) {
+          const uint32_t bits = and_xor(src, MASK << pp, (XOR << pp) | MAGIC);
+          cut->ck += ((bits ^ MAGIC) >> pp) - XOR;
+        } else if constexpr (MODE == NOSCALE || MODE == GHOIST) {
+          // the field at bit pp of the mantissa of 2^(23 - pp) is
+          // 2^(23 - pp) + q: q - zero with no multiply
+          const uint32_t bits =
+              and_xor(src, MASK << pp, (XOR << pp) | ((150u - pp) << 23));
+          v[j] = __uint_as_float(bits) -
+                 static_cast<float>((1 << (23 - pp)) + OFF);
+        } else {
+          const uint32_t bits = and_xor(src, MASK << pp, (XOR << pp) | MAGIC);
+          const float q = __uint_as_float(bits) -
+                          static_cast<float>(8388608 + (OFF << pp));
+          float x = __fmul_rn(q, sp[j / G][pp / LO]);
+          if constexpr (F::BIAS) x = __fadd_rn(x, b[j / G]);
+          v[j] = x;
+        }
       }
     }
+    if constexpr (STAGE == UNPACK) return;
   } else if constexpr (T::Q8P) {
     const uint8_t* lo8 = reinterpret_cast<const uint8_t*>(pk);
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
-      const uint32_t byte = lo8[(u * 32 + j) * BN + c];
-      const float q = __uint_as_float((byte ^ 0x80u) | MAGIC) - 8388736.f;
-      v[j] = __fmul_rn(q, s[j / G]);
+      if constexpr (STAGE == STREAM) {
+        cut->ck += static_cast<uint32_t>(static_cast<int32_t>(
+            reinterpret_cast<const int8_t*>(pk)[(u * 32 + j) * BN + c]));
+      } else {
+        const uint32_t byte = lo8[(u * 32 + j) * BN + c];
+        if constexpr (STAGE == UNPACK) {
+          cut->ck += (((byte ^ 0x80u) | MAGIC) ^ MAGIC) - 0x80u;
+        } else {
+          const float q = __uint_as_float((byte ^ 0x80u) | MAGIC) - 8388736.f;
+          v[j] = __fmul_rn(q, s[j / G]);
+        }
+      }
     }
+    if constexpr (WORDS) return;
   } else {  // a hi plane: q = lo field | hi field << LO
     constexpr int NW = LO, PW = 32 / LO, NH = F::HI, HPW = 32 / F::HI;
     constexpr uint32_t MASK = (1u << LO) - 1u, HMASK = (1u << F::HI) - 1u;
@@ -361,23 +528,58 @@ __device__ __forceinline__ void dequant_unit(const char* pk, int c, int u,
     for (int i = 0; i < NW; ++i) lw[i] = lo32[(u * NW + i) * BN + c];
 #pragma unroll
     for (int i = 0; i < NH; ++i) hw[i] = hi32[(u * NH + i) * BN + c];
+    if constexpr (STAGE == STREAM) {
+#pragma unroll
+      for (int i = 0; i < NW; ++i) cut->ck += lw[i];
+#pragma unroll
+      for (int i = 0; i < NH; ++i) cut->ck += hw[i];
+      return;
+    }
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const uint32_t q = ((lw[j / PW] >> (LO * (j % PW))) & MASK) |
                          (((hw[j / HPW] >> (F::HI * (j % HPW))) & HMASK) << LO);
-      const float qf = __uint_as_float(q | MAGIC) -
-                       static_cast<float>(8388608 + F::ZERO);
-      float x = __fmul_rn(qf, s[j / G]);
-      if constexpr (F::BIAS) x = __fadd_rn(x, b[j / G]);
-      v[j] = x;
+      if constexpr (STAGE == UNPACK) {
+        cut->ck += q;
+      } else {
+        const float qf = __uint_as_float(q | MAGIC) -
+                         static_cast<float>(8388608 + F::ZERO);
+        float x = __fmul_rn(qf, s[j / G]);
+        if constexpr (F::BIAS) x = __fadd_rn(x, b[j / G]);
+        v[j] = x;
+      }
     }
+    if constexpr (STAGE == UNPACK) return;
   }
+  if constexpr (!WORDS) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint4 chunk = make_uint4(
-        bf16x2(v[8 * i], v[8 * i + 1]), bf16x2(v[8 * i + 2], v[8 * i + 3]),
-        bf16x2(v[8 * i + 4], v[8 * i + 5]), bf16x2(v[8 * i + 6], v[8 * i + 7]));
-    *reinterpret_cast<uint4*>(wt + swz(c, 4 * u + i)) = chunk;
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (MODE == F32DOT) {
+        // w = hi + lo exactly: the first term to the tile, the second to the
+        // tile at F32DOT_LO
+        float r[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) r[e] = v[8 * i + e];
+        const uint4 hi = make_uint4(
+            bf16x2_rest(r[0], r[1]), bf16x2_rest(r[2], r[3]),
+            bf16x2_rest(r[4], r[5]), bf16x2_rest(r[6], r[7]));
+        const uint4 lo = make_uint4(bf16x2(r[0], r[1]), bf16x2(r[2], r[3]),
+                                    bf16x2(r[4], r[5]), bf16x2(r[6], r[7]));
+        *reinterpret_cast<uint4*>(wt + swz(c, 4 * u + i)) = hi;
+        *reinterpret_cast<uint4*>(wt + F32DOT_LO + swz(c, 4 * u + i)) = lo;
+      } else {
+        const uint4 chunk =
+            make_uint4(bf16x2(v[8 * i], v[8 * i + 1]),
+                       bf16x2(v[8 * i + 2], v[8 * i + 3]),
+                       bf16x2(v[8 * i + 4], v[8 * i + 5]),
+                       bf16x2(v[8 * i + 6], v[8 * i + 7]));
+        if constexpr (STORE)
+          *reinterpret_cast<uint4*>(wt + swz(c, 4 * u + i)) = chunk;
+        if constexpr (STAGE == DEQUANT)
+          cut->fs += bf16x2_sum(chunk.x) + bf16x2_sum(chunk.y) +
+                     bf16x2_sum(chunk.z) + bf16x2_sum(chunk.w);
+      }
+    }
   }
 }
 
@@ -409,11 +611,25 @@ struct Swapped {
   static constexpr int XE = (BK / 16 * NT * 32 + THREADS - 1) / THREADS;
 };
 
-template <class F, bool COAL, int NT>
+// A cut's value of a column into out [splits, mtiles, ldo] (uint32 bits
+// for STREAM and UNPACK)
+template <int STAGE>
+__device__ __forceinline__ void store_cut(float* out, int r, int ldo,
+                                          const Cut& cut) {
+  const int64_t o = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * ldo + r;
+  if constexpr (STAGE == DEQUANT)
+    out[o] = cut.fs;
+  else
+    reinterpret_cast<uint32_t*>(out)[o] = cut.ck;
+}
+
+template <class F, bool COAL, int NT, int STAGE = FULL, int MODE = BASE>
 __global__ void __launch_bounds__(THREADS, 4)
     qmm_swapped(const float* __restrict__ x, int ldx, const Weight wt,
                 float* __restrict__ out, int M, int ldy, int ldo, int n_kt,
                 int tps) {
+  static_assert(MODE == BASE || (STAGE == FULL && NT == 1),
+                "the modes run at 8 tokens a block");
   using S = Swapped<F, COAL, NT>;
   using T = Tile<F, COAL>;
   extern __shared__ __align__(128) char smem[];
@@ -469,6 +685,10 @@ __global__ void __launch_bounds__(THREADS, 4)
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  Cut cut{0u, 0.f};
+  // F32DOT: x's second and third bf16 terms, after the second weight tile
+  uint2* xb1 = xb + F32DOT_LO / 8;
+  uint2* xb2 = xb1 + XB1_BYTES / 8;
 
   for (int i = 0; i < nk; ++i) {
     cp_wait<STAGES - 2>();
@@ -476,43 +696,104 @@ __global__ void __launch_bounds__(THREADS, 4)
     if (i + STAGES - 1 < nk) load(i + STAGES - 1);
     cp_commit();
     const char* st = smem + (i % STAGES) * S::STAGE;
-    const float* xs = reinterpret_cast<const float*>(st + T::BYTES);
+    if constexpr (STAGE == FULL) {
+      const float* xs = reinterpret_cast<const float*>(st + T::BYTES);
 #pragma unroll
-    for (int j = 0; j < S::XE; ++j) {
-      const int e = tid + j * THREADS;
-      if (e < BK / 16 * NT * 32) {
-        const int l = e & 31, n = (e >> 5) % NT, ks = e / (32 * NT);
-        const float* xr = xs + (n * 8 + (l >> 2)) * XS + ks * 16 + 2 * (l & 3);
-        const float2 lo = *reinterpret_cast<const float2*>(xr);
-        const float2 hi = *reinterpret_cast<const float2*>(xr + 8);
-        xb[e] = make_uint2(bf16x2(lo.x, lo.y), bf16x2(hi.x, hi.y));
+      for (int j = 0; j < S::XE; ++j) {
+        const int e = tid + j * THREADS;
+        if (e < BK / 16 * NT * 32) {
+          const int l = e & 31, n = (e >> 5) % NT, ks = e / (32 * NT);
+          const float* xr =
+              xs + (n * 8 + (l >> 2)) * XS + ks * 16 + 2 * (l & 3);
+          const float2 lo = *reinterpret_cast<const float2*>(xr);
+          const float2 hi = *reinterpret_cast<const float2*>(xr + 8);
+          if constexpr (MODE == F32DOT) {
+            float a0 = lo.x, a1 = lo.y, b0 = hi.x, b1 = hi.y;
+            xb[e] = make_uint2(bf16x2_rest(a0, a1), bf16x2_rest(b0, b1));
+            xb1[e] = make_uint2(bf16x2_rest(a0, a1), bf16x2_rest(b0, b1));
+            xb2[e] = make_uint2(bf16x2(a0, a1), bf16x2(b0, b1));
+          } else {
+            xb[e] = make_uint2(bf16x2(lo.x, lo.y), bf16x2(hi.x, hi.y));
+          }
+        }
       }
     }
-    dequant_unit<F, COAL>(st, warp * 16 + (lane & 15), lane >> 4, wts);
+    dequant_unit<F, COAL, STAGE, MODE, STAGE == FULL>(
+        st, warp * 16 + (lane & 15), lane >> 4, wts, &cut);
     __syncthreads();
+    if constexpr (STAGE == FULL) {
+      if constexpr (MODE == GHOIST) {
+        // a 32-group's two k16 products into a partial, then the scale of
+        // the partial's weight rows (16w + g, + 8) and the group
+        const int g = lane >> 2;
 #pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t a[4];
-      const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      ldmatrix_x4(a, wts + swz(row, 2 * ks + (lane >> 4)));
+        for (int gq = 0; gq < BK / 32; ++gq) {
+          float p[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const uint2 b = xb[(ks * NT + n) * 32 + lane];
-        mma_bf16(acc[n], a, b.x, b.y);
+          for (int h = 0; h < 2; ++h) {
+            const int ks = 2 * gq + h;
+            uint32_t a[4];
+            const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+            ldmatrix_x4(a, wts + swz(row, 2 * ks + (lane >> 4)));
+            const uint2 bb = xb[ks * 32 + lane];
+            mma_bf16(p, a, bb.x, bb.y);
+          }
+          const float sa = group_value<F>(st + T::SC_OFF, gq, warp * 16 + g);
+          const float sb =
+              group_value<F>(st + T::SC_OFF, gq, warp * 16 + g + 8);
+          acc[0][0] = fmaf(sa, p[0], acc[0][0]);
+          acc[0][1] = fmaf(sa, p[1], acc[0][1]);
+          acc[0][2] = fmaf(sb, p[2], acc[0][2]);
+          acc[0][3] = fmaf(sb, p[3], acc[0][3]);
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < BK / 16; ++ks) {
+          uint32_t a[4];
+          const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+          ldmatrix_x4(a, wts + swz(row, 2 * ks + (lane >> 4)));
+          if constexpr (MODE == F32DOT) {
+            // the small products first: w's second term, then x's
+            uint32_t al[4];
+            ldmatrix_x4(al, wts + F32DOT_LO + swz(row, 2 * ks + (lane >> 4)));
+            const uint2 b0 = xb[ks * 32 + lane], b1 = xb1[ks * 32 + lane],
+                        b2 = xb2[ks * 32 + lane];
+            mma_bf16(acc[0], al, b1.x, b1.y);
+            mma_bf16(acc[0], a, b2.x, b2.y);
+            mma_bf16(acc[0], al, b0.x, b0.y);
+            mma_bf16(acc[0], a, b1.x, b1.y);
+            mma_bf16(acc[0], a, b0.x, b0.y);
+          } else {
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              const uint2 b = xb[(ks * NT + n) * 32 + lane];
+              mma_bf16(acc[n], a, b.x, b.y);
+            }
+          }
+        }
       }
     }
   }
   cp_wait<0>();
 
-  const int g = lane >> 2, t = lane & 3;
-  const int r = r0 + warp * 16 + g;
+  if constexpr (STAGE == FULL) {
+    const int g = lane >> 2, t = lane & 3;
+    const int r = r0 + warp * 16 + g;
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int m = m0 + n * 8 + 2 * t;
-    store_out(out, m, r, acc[n][0], M, ldy, ldo);
-    store_out(out, m + 1, r, acc[n][1], M, ldy, ldo);
-    store_out(out, m, r + 8, acc[n][2], M, ldy, ldo);
-    store_out(out, m + 1, r + 8, acc[n][3], M, ldy, ldo);
+    for (int n = 0; n < NT; ++n) {
+      const int m = m0 + n * 8 + 2 * t;
+      store_out(out, m, r, acc[n][0], M, ldy, ldo);
+      store_out(out, m + 1, r, acc[n][1], M, ldy, ldo);
+      store_out(out, m, r + 8, acc[n][2], M, ldy, ldo);
+      store_out(out, m + 1, r + 8, acc[n][3], M, ldy, ldo);
+    }
+  } else {
+    // lanes l and l + 16 hold the two halves of column 16w + l % 16
+    if constexpr (STAGE == DEQUANT)
+      cut.fs += __shfl_xor_sync(0xFFFFFFFFu, cut.fs, 16);
+    else
+      cut.ck += __shfl_xor_sync(0xFFFFFFFFu, cut.ck, 16);
+    if (lane < 16) store_cut<STAGE>(out, r0 + warp * 16 + lane, ldo, cut);
   }
 }
 
@@ -680,8 +961,10 @@ __device__ __forceinline__ void wgmma_wait1() {
 }
 
 // MI: the 64-row tiles of a warpgroup, 2 for bm = 256, else 1 (128
-// registers a thread: two blocks an SM where the shared memory allows).
-template <class F, bool COAL, int MI>
+// registers a thread: two blocks an SM where the shared memory allows). A
+// cut (STAGE) keeps the x ring's TMA loads and waits, the packed ring's
+// copies, the proxy fence and the barrier, and issues no wgmma.
+template <class F, bool COAL, int MI, int STAGE = FULL>
 __global__ void __launch_bounds__(WIDE_THREADS, MI == 1 ? 2 : 1)
     qmm_wgmma(const __grid_constant__ CUtensorMap xmap, const Weight wt,
               float* __restrict__ out, int M, int ldy, int ldo, int n_kt,
@@ -736,17 +1019,21 @@ __global__ void __launch_bounds__(WIDE_THREADS, MI == 1 ? 2 : 1)
   for (int h = 0; h < MI; ++h)
 #pragma unroll
     for (int e = 0; e < 64; ++e) d[h][e] = 0.f;
+  Cut cut{0u, 0.f};
   for (int i = 0; i < nk; ++i) {
     const uint32_t wb = wtiles + (i % BT) * B_BYTES;
     // this warpgroup's wgmmas of k-tile i - 2 are done. Weight tile i % BT
     // was last read by k-tile i - 3's, done in both warpgroups before the
     // last barrier; packed stage (i - 1) % PS was dequantized before it.
-    wgmma_wait1();
+    if constexpr (STAGE == FULL) {
+      wgmma_wait1();
 #pragma unroll
-    for (int h = 0; h < MI; ++h) fence_acc(d[h]);
+      for (int h = 0; h < MI; ++h) fence_acc(d[h]);
+    }
     load_packed(i + PS - 1);
-    dequant_unit<F, COAL>(sbase + (packed + (i % PS) * S::PK - base),
-                          tid & (BN - 1), tid >> 7, sbase + (wb - base));
+    dequant_unit<F, COAL, STAGE>(sbase + (packed + (i % PS) * S::PK - base),
+                                 tid & (BN - 1), tid >> 7,
+                                 sbase + (wb - base), &cut);
     // the generic-proxy stores, before the wgmma reads them
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     cp_wait_n(PS - 2);  // this thread's copies of k-tile i + 1
@@ -755,43 +1042,62 @@ __global__ void __launch_bounds__(WIDE_THREADS, MI == 1 ? 2 : 1)
     // wgmmas before the barrier
     if (tid == 0 && i >= 2 && i - 2 + XS < nk) load_x(i - 2 + XS);
     mbar_wait(xbars + 8 * (i % XS), (i / XS) & 1);
-    const uint32_t xa = base + (i % XS) * xt + a_off;
+    if constexpr (STAGE == FULL) {
+      const uint32_t xa = base + (i % XS) * xt + a_off;
+#pragma unroll
+      for (int h = 0; h < MI; ++h) fence_acc(d[h]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks) {
+        const uint64_t db = sw128_desc(wb + b_off + 32 * ks);
+        if (bm == 64) {
+          wgmma_m64n64k16(d[0], sw128_desc(xa + 32 * ks), db);
+        } else {
+#pragma unroll
+          for (int h = 0; h < MI; ++h)
+            wgmma_m64n128k16(
+                d[h], sw128_desc(xa + h * 64 * BK * 2 + 32 * ks), db);
+        }
+      }
+      wgmma_commit();
+    }
+  }
+  if constexpr (STAGE != FULL) {
+    // threads c and c + 128 hold the two halves of column c: the second
+    // hands its value over in the x ring (every TMA load was waited for)
+    __syncthreads();
+    uint32_t* red = reinterpret_cast<uint32_t*>(sbase);
+    if (tid >= BN)
+      red[tid - BN] = STAGE == DEQUANT ? __float_as_uint(cut.fs) : cut.ck;
+    __syncthreads();
+    if (tid < BN) {
+      if constexpr (STAGE == DEQUANT)
+        cut.fs += __uint_as_float(red[tid]);
+      else
+        cut.ck += red[tid];
+      store_cut<STAGE>(out, r0 + tid, ldo, cut);
+    }
+  } else {
+    wgmma_wait0();
 #pragma unroll
     for (int h = 0; h < MI; ++h) fence_acc(d[h]);
-    wgmma_fence();
+    // d[h][4j + e]: row 64h + 16 (warp % 4) + lane / 4 (+ 8 for e >= 2),
+    // column 8j + 2 (lane % 4) (+ 1 for odd e), in this warpgroup's tile
+    const int nj = bm == 64 ? 8 : 16;
+    const int rc = r0 + (bm == 64 ? 64 * c : 0);
 #pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      const uint64_t db = sw128_desc(wb + b_off + 32 * ks);
-      if (bm == 64) {
-        wgmma_m64n64k16(d[0], sw128_desc(xa + 32 * ks), db);
-      } else {
+    for (int h = 0; h < MI; ++h) {
+      const int m = m0 + (bm == 64 ? 0 : c * MI * 64) + h * 64 +
+                    (warp & 3) * 16 + (lane >> 2);
 #pragma unroll
-        for (int h = 0; h < MI; ++h)
-          wgmma_m64n128k16(d[h], sw128_desc(xa + h * 64 * BK * 2 + 32 * ks),
-                           db);
+      for (int j = 0; j < 16; ++j) {
+        if (j >= nj) break;
+        const int r = rc + 8 * j + 2 * (lane & 3);
+        store_out(out, m, r, d[h][4 * j], M, ldy, ldo);
+        store_out(out, m, r + 1, d[h][4 * j + 1], M, ldy, ldo);
+        store_out(out, m + 8, r, d[h][4 * j + 2], M, ldy, ldo);
+        store_out(out, m + 8, r + 1, d[h][4 * j + 3], M, ldy, ldo);
       }
-    }
-    wgmma_commit();
-  }
-  wgmma_wait0();
-#pragma unroll
-  for (int h = 0; h < MI; ++h) fence_acc(d[h]);
-  // d[h][4j + e]: row 64h + 16 (warp % 4) + lane / 4 (+ 8 for e >= 2),
-  // column 8j + 2 (lane % 4) (+ 1 for odd e), in this warpgroup's tile
-  const int nj = bm == 64 ? 8 : 16;
-  const int rc = r0 + (bm == 64 ? 64 * c : 0);
-#pragma unroll
-  for (int h = 0; h < MI; ++h) {
-    const int m = m0 + (bm == 64 ? 0 : c * MI * 64) + h * 64 +
-                  (warp & 3) * 16 + (lane >> 2);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      if (j >= nj) break;
-      const int r = rc + 8 * j + 2 * (lane & 3);
-      store_out(out, m, r, d[h][4 * j], M, ldy, ldo);
-      store_out(out, m, r + 1, d[h][4 * j + 1], M, ldy, ldo);
-      store_out(out, m + 8, r, d[h][4 * j + 2], M, ldy, ldo);
-      store_out(out, m + 8, r + 1, d[h][4 * j + 3], M, ldy, ldo);
     }
   }
 }
@@ -851,7 +1157,7 @@ inline EncodeTiled encode_tiled() {
 // The wide path's launch, bm = 64, 128 or 256: x bf16 [M, ldx] as a tensor
 // map of 64 x bm boxes with 128-byte swizzle (columns past ldx and rows
 // past M read as 0).
-template <class F, bool COAL>
+template <class F, bool COAL, int STAGE = FULL>
 cudaError_t run_wide(int bm, dim3 grid, cudaStream_t s, const void* x,
                      int ldx, const Weight& wt, float* out, int M, int ldy,
                      int ldo, int n_kt, int tps) {
@@ -869,7 +1175,8 @@ cudaError_t run_wide(int bm, dim3 grid, cudaStream_t s, const void* x,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  auto kern = bm == 256 ? qmm_wgmma<F, COAL, 2> : qmm_wgmma<F, COAL, 1>;
+  auto kern = bm == 256 ? qmm_wgmma<F, COAL, 2, STAGE>
+                        : qmm_wgmma<F, COAL, 1, STAGE>;
   static bool raised[2] = {false, false};
   if (!raised[bm == 256]) {
     const cudaError_t e = cudaFuncSetAttribute(

@@ -270,6 +270,15 @@ def operands(x: torch.Tensor, w, p: Plan) -> tuple:
     return xk, y, part
 
 
+def check_k_tiles(w) -> None:
+    """The kernel's k-tiles of 64 must tile K padded and a coalesced
+    buffer's tile_k."""
+    if w.k_padded % BK or (isinstance(w, QuantTensorC) and w.tile_k % BK):
+        raise ValueError(f"qmatmul: K padded to {w.k_padded} (tile_k "
+                         f"{getattr(w, 'tile_k', None)}) is not a multiple "
+                         f"of {BK}")
+
+
 def prepare(x: torch.Tensor, w) -> _build.Launch:
     """Check x [M, K] (M >= 1, any float) and a one-layer weight (planes or
     a coalesced buffer) on one CUDA device, stage x as the kernel reads it,
@@ -278,10 +287,7 @@ def prepare(x: torch.Tensor, w) -> _build.Launch:
     kernel and returns y."""
     dev = x.device
     args = weight_args(w, dev)
-    if w.k_padded % BK or (isinstance(w, QuantTensorC) and w.tile_k % BK):
-        raise ValueError(f"qmatmul: K padded to {w.k_padded} (tile_k "
-                         f"{getattr(w, 'tile_k', None)}) is not a multiple "
-                         f"of {BK}")
+    check_k_tiles(w)
     M = x.shape[0]
     p = plan(w, M, torch.cuda.get_device_properties(dev).multi_processor_count)
     xk, y, part = operands(x, w, p)

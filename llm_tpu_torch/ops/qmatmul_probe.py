@@ -3,16 +3,20 @@
 `scripts/probe_kernel_decompose.py` (P2), `scripts/probe_coalesced.py`'s
 stream-only pass (P1) and `scripts/probe_dequant_variants.py` (P3).
 
-The CUDA is `csrc/qmatmul_probe.cu`, which includes the scalar kernel's
-body (`csrc/qmatmul_body.cuh`: one thread a column, f32 FMAs, the
-production kernel before the tensor-core one of `csrc/qmatmul_tc.cuh`): a
-probe runs that kernel's own loads, grid and K split (`plan` below at the
-same M), and `prepare_full` launches it whole (P2's `full`, and the old
-side of the A/B against the tensor-core kernel).
+The CUDA is `csrc/qmatmul_probe.cu`: cuts and dequant modes of the
+production tensor-core kernels of `csrc/qmatmul_tc.cuh` (`qmm_swapped`
+for M <= 32, `qmm_wgmma` for M > 32). A probe launch runs `qmatmul.plan`'s
+consumer path, tokens a block and K split at its M, with x staged as
+`qmatmul.operands` stages it; K1 whole is `qmatmul.prepare` itself (P2's
+`full`).
 
-Stages, one value a column of the padded width Rp, reading no x (P2's
-stream / unpack / dequant, and P1's `<name>_stream`), for q4_0 and q8_0
-with f16-packed scales and q6_k, over planes or a coalesced buffer:
+Stages, one value a column of the padded width Rp, for q4_0 and q8_0 with
+f16-packed scales and q6_k, over planes or a coalesced buffer (P2's
+stream / unpack / dequant, and P1's `<name>_stream`): the main loop cut
+after a stage of each thread's 32 weights a k-tile. A cut keeps every copy
+(the packed rows and x), wait, barrier and fence of the loop, and its trip
+count; it drops what feeds only the tensor cores. x is copied and never
+summed, so the values are the weight's:
 
     stream   wrapping uint32 sum of every word the kernel loads for the
              column: every lo word (a q8_0 plane's int8 sign-extended),
@@ -26,13 +30,16 @@ The reference's stages kept their loads alive with a max over 8 elements;
 the port's values depend on every word loaded, so the compiler drops no
 load. stream and unpack are exact; dequant sums in another order than its
 plain version: held to 1e-5 of the sum of |w| (f32 summation error over
-at most 11264 terms).
+at most 11264 terms). A cut's grid covers every column of Rp, where K1's
+stops at R rounded to 128: a stage's value is defined on the padding too
+(q4_0's padding fields are -8).
 
 Modes, y [M, R] over a coalesced q4_0 buffer with f16-packed scales (the
-reference probe's format): base (the scalar kernel's arithmetic), bf16,
-f32dot, ghoist, noscale, nounpack (`csrc/qmatmul_body.cuh` Mode; noscale
-and nounpack are wrong on purpose). They compute the reference probe's
-numbers for its modes of the same names.
+reference probe's format), on the swapped path at 8 tokens a block (M <=
+8; P3 runs M = 8): base (K1's arithmetic), bf16, f32dot, ghoist, noscale,
+nounpack (`csrc/qmatmul_tc.cuh` Mode; noscale and nounpack are wrong on
+purpose). They compute the reference probe's numbers for its modes of the
+same names.
 
 Each wrapper runs the plain version for a tensor on the CPU and the kernel
 for one on the card, or raises.
@@ -41,15 +48,14 @@ for one on the card, or raises.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional
 
 import torch
 
 from llm_tpu_torch import _build
+from llm_tpu_torch.ops import qmatmul as qm
 from llm_tpu_torch.ops.packing import (
     FORMAT_IDS,
-    QuantTensor,
     QuantTensorC,
     _as_int32_bits,
     coalesced_word_planes,
@@ -58,7 +64,6 @@ from llm_tpu_torch.ops.packing import (
     uncoalesce_qt,
     unpack_q,
 )
-from llm_tpu_torch.ops.qmatmul import weight_args
 
 STAGES = {"stream": 1, "unpack": 2, "dequant": 3}
 MODES = {"base": 0, "bf16": 1, "f32dot": 2, "ghoist": 3, "noscale": 4,
@@ -66,17 +71,16 @@ MODES = {"base": 0, "bf16": 1, "f32dot": 2, "ghoist": 3, "noscale": 4,
 # (format, f16-packed scales) the stage kernels are built for
 STAGE_FORMATS = {("q4_0", True), ("q8_0", True), ("q6_k", False)}
 
-LAUNCHES = 0  # probe kernel launches (full, stages, modes; plain not)
+LAUNCHES = 0  # probe kernel launches (stages, modes; plain not)
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "qmatmul_full_launch": [_C, _C, _C, _P, _P, _P, _P, _P, _C, _C, _C, _C,
-                            _C, _C, _C, _P, _P, _C, _C, _C, _C, _C, _C, _P],
-    "qmatmul_stage_launch": [_C, _C, _C, _P, _P, _P, _P, _C, _C, _C, _C, _C,
-                             _C, _C, _P, _P, _C, _C, _C, _C, _C, _P],
-    "qmatmul_mode_launch": [_C, _C, _P, _P, _P, _C, _C, _C, _C, _C, _C, _P,
-                            _P, _C, _C, _C, _C, _C, _C, _P],
+    "qmatmul_stage_launch": [_C, _C, _C, _C, _P, _C, _P, _P, _P, _P, _C,
+                             _C, _C, _C, _C, _C, _C, _P, _P, _C, _C, _C, _C,
+                             _C, _C, _C, _P],
+    "qmatmul_mode_launch": [_C, _P, _C, _P, _P, _C, _C, _C, _C, _C, _C, _P,
+                            _P, _C, _C, _C, _C, _C, _C, _C, _P],
 }
 
 
@@ -89,68 +93,8 @@ def _lib():
     return _build.load("qmatmul_probe", _SIGNATURES)
 
 
-# ---------------------------------------------------------------------------
-# the scalar kernel's plan and operands
-
-_THREADS = 128  # output columns per block (csrc/qmatmul_body.cuh kThreads)
-_UNIT = 32  # K elements per dequant unit (kUnit)
-_CHUNK_UNITS = 8  # units of x staged per pass (kChunk / kUnit)
-
-
-def plan(w, M: int, sms: int = 132) -> tuple[int, int, int]:
-    """(rows of x per thread, K splits, 32-element units per split) of the
-    scalar kernel on a card of `sms` SMs: split K only when the (column,
-    row) blocks alone would leave SMs idle. The blocks are counted over R
-    rounded to 128, not the padded width, so a coalesced buffer padded
-    wider splits K as its planes do."""
-    mt = 1 if M == 1 else 16
-    blocks = math.ceil(w.r / _THREADS) * math.ceil(M / mt)
-    n_units = w.k_padded // _UNIT
-    splits = 1
-    if blocks < 2 * sms:
-        splits = min(math.ceil(4 * sms / blocks), n_units)
-    ups = math.ceil(n_units / splits)
-    ups = math.ceil(ups / _CHUNK_UNITS) * _CHUNK_UNITS  # whole x chunks
-    return mt, math.ceil(n_units / ups), ups
-
-
 def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
-def operands(x: torch.Tensor, w, x_dtype=torch.bfloat16) -> tuple:
-    """The buffers of a scalar-kernel launch for x [M, K] (M >= 1, any
-    float) over one layer of `w`: x zero-padded to Kp in `x_dtype`, the
-    output y [M, R] f32, the plan at M (mt, splits, ups) and the split
-    scratch [splits, M, Rp] f32 (None when K is not split)."""
-    if x.dim() != 2 or x.shape[1] != w.k or x.shape[0] == 0:
-        raise ValueError(f"qmatmul: x {tuple(x.shape)} vs weight K={w.k}")
-    dev, M = x.device, x.shape[0]
-    xp = torch.zeros((M, w.k_padded), dtype=x_dtype, device=dev)
-    xp[:, : w.k] = x
-    y = torch.empty((M, w.r), dtype=torch.float32, device=dev)
-    mt, splits, ups = plan(w, M, _sms(dev))
-    part: Optional[torch.Tensor] = (
-        torch.empty((splits, M, w.r_padded), dtype=torch.float32, device=dev)
-        if splits > 1 else None)
-    return xp, y, (mt, splits, ups), part
-
-
-def prepare_full(x: torch.Tensor, w) -> _build.Launch:
-    """The scalar kernel whole for x [M, K] over one layer of `w` (planes
-    or a coalesced buffer, any of the 10 formats) on the card (not yet
-    run); its result is y [M, R] f32, what `qmatmul.qmatmul` computes."""
-    if not isinstance(w, (QuantTensor, QuantTensorC)):
-        raise ValueError("prepare_full takes a quantized weight")
-    dev = x.device
-    args = weight_args(w, dev)
-    xp, y, (mt, splits, ups), part = operands(x, w)
-    return _build.Launch(
-        _lib().qmatmul_full_launch,
-        (FORMAT_IDS[w.fmt_name], int(w.scale_packed), mt, _build.ptr(xp),
-         *args, _build.ptr(y), _build.ptr(part), x.shape[0], w.k_padded,
-         w.r_padded, w.r, splits, ups),
-        dev, "qmatmul_full_launch", _count, y, (xp, part, w))
 
 
 # ---------------------------------------------------------------------------
@@ -190,32 +134,55 @@ def stage_plain(w, stage: str) -> torch.Tensor:
     return _as_int32_bits(s & 0xFFFFFFFF)
 
 
-def prepare_stage(w, stage: str, M: int) -> _build.Launch:
-    """The stage kernel over one layer of `w` on the card, with the grid
-    and K split of the scalar kernel at M rows of x (not yet run)."""
+def _check_stage(w, stage: str) -> None:
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}")
     if (w.fmt_name, w.scale_packed) not in STAGE_FORMATS:
         raise ValueError(f"stage kernels take {sorted(STAGE_FORMATS)}, not "
                          f"({w.fmt_name!r}, {w.scale_packed})")
-    dev = w.device
-    args = weight_args(w, dev)
-    Kp, Rp = w.k_padded, w.r_padded
-    mt, splits, ups = plan(w, M, _sms(dev))
-    mtiles = math.ceil(M / mt)
+
+
+def stage_buffers(w, stage: str, x: torch.Tensor, sms: int) -> tuple:
+    """The plan and buffers of a stage launch over one layer of `w` with x
+    [M, K] on x's device: (K1's plan at M on a card of `sms` SMs, x as the
+    kernel reads it, the split scratch [splits, mtiles, Rp] and the output
+    [Rp], both int32 for stream and unpack, f32 for dequant)."""
+    _check_stage(w, stage)
+    qm.check_k_tiles(w)
+    p = qm.plan(w, x.shape[0], sms)
+    xk, _, _ = qm.operands(x, w, p)
     dt = torch.float32 if stage == "dequant" else torch.int32
-    part = torch.empty((splits, mtiles, Rp), dtype=dt, device=dev)
-    out = torch.empty(Rp, dtype=dt, device=dev)
+    part = torch.empty((p.splits, p.mtiles, w.r_padded), dtype=dt,
+                       device=x.device)
+    out = torch.empty(w.r_padded, dtype=dt, device=x.device)
+    return p, xk, part, out
+
+
+def prepare_stage(w, stage: str, M: int,
+                  x: Optional[torch.Tensor] = None) -> _build.Launch:
+    """The stage kernel over one layer of `w` on the card (not yet run),
+    on the plan of K1 at M rows of x: `x` [M, K] (copied, never summed;
+    zeros when None)."""
+    _check_stage(w, stage)
+    dev = w.device
+    if x is None:
+        x = torch.zeros((M, w.k), dtype=torch.float32, device=dev)
+    if x.shape[0] != M:
+        raise ValueError(f"x has {x.shape[0]} rows, not {M}")
+    args = qm.weight_args(w, dev)
+    p, xk, part, out = stage_buffers(w, stage, x, _sms(dev))
     return _build.Launch(
         _lib().qmatmul_stage_launch,
-        (STAGES[stage], FORMAT_IDS[w.fmt_name], int(w.scale_packed), *args,
-         _build.ptr(part), _build.ptr(out), mtiles, Kp, Rp, splits, ups),
-        dev, "qmatmul_stage_launch", _count, out, (part, w))
+        (STAGES[stage], FORMAT_IDS[w.fmt_name], int(w.scale_packed),
+         qm.PATHS[p.path], _build.ptr(xk), xk.shape[1], *args,
+         _build.ptr(part), _build.ptr(out), M, w.k_padded, w.r_padded, p.bm,
+         p.mtiles, p.splits, p.tiles_per_split),
+        dev, "qmatmul_stage_launch", _count, out, (xk, part, w))
 
 
 def stage_run(w, stage: str, M: int = 8) -> torch.Tensor:
     """A stage over one layer of `w`: its kernel for a weight on the card
-    (grid of the scalar kernel at M), else its plain version."""
+    (K1's plan at M), else its plain version."""
     if w.device.type == "cuda":
         return prepare_stage(w, stage, M)()
     return stage_plain(w, stage)
@@ -263,22 +230,36 @@ def mode_plain(x: torch.Tensor, qtc: QuantTensorC, mode: str) -> torch.Tensor:
     return y[:, : qtc.r]
 
 
+def mode_buffers(x: torch.Tensor, qtc: QuantTensorC, mode: str,
+                 sms: int) -> tuple:
+    """The plan and buffers of a mode launch for x [M, K] over one layer
+    of a coalesced q4_0 weight, on x's device: (K1's plan at M on a card of
+    `sms` SMs, x as the kernel reads it (f32), y [M, R] f32, the split
+    scratch or None)."""
+    _check_mode(qtc, mode)
+    qm.check_k_tiles(qtc)
+    p = qm.plan(qtc, x.shape[0], sms)
+    if p.path != "swapped8":
+        raise ValueError(f"the modes run on the swapped path at 8 tokens a "
+                         f"block (M <= 8), not M = {x.shape[0]}")
+    return (p, *qm.operands(x, qtc, p))
+
+
 def prepare_mode(x: torch.Tensor, qtc: QuantTensorC,
                  mode: str) -> _build.Launch:
     """The mode kernel for x [M, K] over one layer of a coalesced q4_0
     weight on the card (not yet run); its result is y [M, R] f32."""
     _check_mode(qtc, mode)
     dev = x.device
-    lo, _, scale, _, tk, tr, n_k, rows, lo_rows, _, sc_rows = weight_args(
+    lo, _, scale, _, tk, tr, n_k, rows, lo_rows, _, sc_rows = qm.weight_args(
         qtc, dev)
-    xp, y, (mt, splits, ups), part = operands(
-        x, qtc, torch.float32 if mode == "f32dot" else torch.bfloat16)
+    p, xk, y, part = mode_buffers(x, qtc, mode, _sms(dev))
     return _build.Launch(
         _lib().qmatmul_mode_launch,
-        (MODES[mode], mt, _build.ptr(xp), lo, scale, tk, tr, n_k, rows,
-         lo_rows, sc_rows, _build.ptr(y), _build.ptr(part), x.shape[0],
-         qtc.kp, qtc.rp, qtc.r, splits, ups),
-        dev, "qmatmul_mode_launch", _count, y, (xp, part, qtc))
+        (MODES[mode], _build.ptr(xk), xk.shape[1], lo, scale, tk, tr, n_k,
+         rows, lo_rows, sc_rows, _build.ptr(y), _build.ptr(part), x.shape[0],
+         qtc.kp, qtc.rp, qtc.r, p.mtiles, p.splits, p.tiles_per_split),
+        dev, "qmatmul_mode_launch", _count, y, (xk, part, qtc))
 
 
 def mode_run(x: torch.Tensor, qtc: QuantTensorC, mode: str) -> torch.Tensor:

@@ -15,8 +15,10 @@ stream-only kernel `make_stream_chain`). Q4_0 at a 7B FFN shape, `up`
     cK_r512      K3 at whole K x 512 lanes
     dense        torch.matmul on a bf16 [Kp, Rp] weight: the yardstick, as
                  the reference's jnp.dot was (not a kernel of the port)
-    <name>_stream  the stream stage (ops/qmatmul_probe.py) over each
-                 coalesced buffer: the scalar kernel's loads alone
+    <name>_stream  the stream cut of K3 (ops/qmatmul_probe.py) over each
+                 coalesced buffer, on K3's plan at M=8: the main loop's
+                 copies, waits and barriers and the words a thread's
+                 dequant reads, summed; no dequant, no mma
 
 The tiling changes only where the kernel finds a word on the card: every
 128-column block still reads its columns' words, so the variants measure
@@ -104,7 +106,7 @@ def variant_plain(name: str, x: torch.Tensor, w) -> torch.Tensor:
 
 def variant_launch(name: str, x: torch.Tensor, w):
     if name.endswith("_stream"):
-        return qp.prepare_stage(w, "stream", x.shape[0])
+        return qp.prepare_stage(w, "stream", x.shape[0], x)
     return qm.prepare(x, w)
 
 

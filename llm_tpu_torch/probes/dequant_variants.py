@@ -3,19 +3,22 @@
 The port of `scripts/probe_dequant_variants.py` (its Pallas kernels,
 `make_call`). Q4_0 at the 7B FFN shape K=4096, R=11008 (packed at a
 1024-multiple, 11264), coalesced whole-K x 512 lanes, M=8, stacked over L
-layers. Every mode runs the scalar kernel's loads and loop (the
-production kernel before the tensor-core one; csrc/qmatmul_probe.cu over
-csrc/qmatmul_body.cuh) with another
-arithmetic (ops/qmatmul_probe.py):
+layers. Every mode is K1's swapped kernel (`qmm_swapped` at 8 tokens a
+block, on K1's plan: csrc/qmatmul_probe.cu over csrc/qmatmul_tc.cuh) with
+another arithmetic in its dequant and products (ops/qmatmul_probe.py):
 
-    base      unpack -> f32 convert -> f32 scale multiply -> bf16 -> FMA
-    bf16      unpack -> bf16 convert -> bf16 scale multiply -> FMA
-    f32dot    unpack -> f32 convert -> f32 scale multiply -> FMA, x in f32
-    ghoist    per 32-group: sum of x * q in f32, then one FMA by the scale
-              (the form a tensor-core design takes: scale on the partials)
+    base      K1: the field ORed into 2^23's mantissa, one f32 multiply by
+              scale * 2^-p, bf16 -> mma.sync (bf16 x bf16, f32 accumulate)
+    bf16      bf16x2 arithmetic: (128 + q) from the bits, minus 136, times
+              the bf16 scale (no f32 step) -> mma.sync
+    f32dot    x and w unrounded: x as three bf16 terms, w as two, five
+              mma.sync a k-step (the tensor cores have no f32 product)
+    ghoist    the tile holds q - zero (exact); a 32-group's two k16
+              products into a partial, then acc += scale * partial (the
+              form a tensor-core design takes: scale on the partials)
     noscale   no scale multiply (wrong numbers: the scaling's cost)
     nounpack  no field extraction (wrong numbers: the unpack's cost)
-    stream    the loads alone (the stream stage over the same buffer)
+    stream    the loads alone (the stream cut over the same buffer)
 
 `gdot` only moved x's grouping out of the TPU kernel; here it runs ghoist
 and is reported as ghoist. `dimsem` was only a Mosaic hint; here it runs
@@ -75,7 +78,7 @@ def mode_plain(mode: str, x: torch.Tensor, qtc) -> torch.Tensor:
 
 def mode_launch(mode: str, x: torch.Tensor, qtc):
     if mode == "stream":
-        return qp.prepare_stage(qtc, "stream", x.shape[0])
+        return qp.prepare_stage(qtc, "stream", x.shape[0], x)
     return qp.prepare_mode(x, qtc, mode)
 
 

@@ -1,27 +1,32 @@
-"""P2: where the scalar qmatmul kernel's time goes on the card, stage by
-stage.
+"""P2: where the qmatmul kernel's time goes on the card, stage by stage.
 
 The port of `scripts/probe_kernel_decompose.py` (its Pallas kernels,
-`make_probe` and `run_chain`). Four variants over the same Q4_0 planes,
-each with the scalar kernel's grid and K split (`qmatmul_probe.plan`) at
-decode shape (M=8, K=R=4096), stacked over L layers:
+`make_probe` and `run_chain`). Four variants over the same Q4_0 planes at
+K=R=4096, stacked over L layers, each on K1's own plan at M (consumer
+path, tokens a block, K split: `qmatmul.plan`):
 
-    stream   every weight word the kernel loads (lo and scale), summed
-    unpack   + the nibble extraction
+    stream   the main loop's copies (packed rows and x), waits and
+             barriers, and every weight word a thread's dequant reads,
+             summed
+    unpack   + the field extraction
     dequant  + zero point, scale and the bf16 rounding
-    full     + x staging and the FMAs: the scalar kernel whole
+    full     + x's bf16 staging and the tensor-core products: K1 whole
 
-All four are `ops/qmatmul_probe.py`'s launches (csrc/qmatmul_probe.cu: the
-scalar kernel of csrc/qmatmul_body.cuh, whole or cut after a stage), the
-design the probe was written to decompose; the production kernel is now
-the tensor-core one (csrc/qmatmul_tc.cuh), which P1 times. Reported as us a launch and GB/s of packed bytes
-(lo + scale planes); the differences between rows locate the time.
+The first three are cuts of the production kernels (ops/qmatmul_probe.py,
+csrc/qmatmul_probe.cu over csrc/qmatmul_tc.cuh): `qmm_swapped` at M <= 32
+(mma.sync; 8 tokens a block at M=8 and 1), `qmm_wgmma` at M > 32 (wgmma,
+x by TMA; 256 tokens a block at M=512). `full` is `qmatmul.prepare`. A
+cut keeps every copy, wait, barrier and fence of the loop and its trip
+count, so the differences between rows are work: unpack - stream the
+extraction, dequant - unpack the scaling and rounding (and, on the wide
+path, the bf16 tile's stores), full - dequant what feeds the tensor
+cores. Reported as us a launch and GB/s of packed bytes (lo + scale
+planes).
 
 Differences from the reference: its TPU tile arguments (`tile_r tile_k`)
 are gone (the card's kernel has its own grid); the stack holds L=24 layers
 so one pass reads 4x the 50 MB L2 (the reference's 4 layers, 38 MB, would
-be read from the L2); M=8 runs in the kernel's 16-row tiles, half of them
-padding. Timing is on the card (probes/common.py).
+be read from the L2). Timing is on the card (probes/common.py).
 
     python -m llm_tpu_torch.probes.kernel_decompose [--M 8] [--rounds 7]
 """
@@ -52,8 +57,8 @@ def variant_plain(variant: str, x: torch.Tensor, w) -> torch.Tensor:
 def variant_launch(variant: str, x: torch.Tensor, w):
     """The prepared launch of a variant over one layer, on the card."""
     if variant == "full":
-        return qp.prepare_full(x, w)
-    return qp.prepare_stage(w, variant, x.shape[0])
+        return qm.prepare(x, w)
+    return qp.prepare_stage(w, variant, x.shape[0], x)
 
 
 def run(device, M: int = 8, rounds: int = 7, tiny: bool = False) -> dict:

@@ -12,10 +12,13 @@ that has nvcc (the card's).
    (`cuobjdump -sass`), over 32, is the dequant's count a weight (its loads
    and arithmetic, less four 16-byte shared loads).
 3. The SASS instructions of one pass of the main loop (a 64 x 128 weight
-   tile, 32 weights a thread) of the q4_0 kernels of `csrc/qmatmul.cu` on
-   each swapped consumer path and layout: the dequant with everything
-   around it (copies, barriers, x, ldmatrix, mma). (The wide path's roles
-   run loops of their own, handed on by mbarriers: no one loop is its.)
+   tile, 32 weights a thread) of the q4_0 kernels: the production ones of
+   `csrc/qmatmul.cu` (`qmm_swapped` on each swapped consumer path, and
+   `qmm_wgmma` at 64-128 and at 256 tokens a block, over both layouts),
+   and the chip probes' instantiations of `csrc/qmatmul_probe.cu`: each cut
+   (stream, unpack, dequant) on P2's paths (8 tokens a block and the wide
+   path at 256, planes) and P1's (8 tokens a block, coalesced), and each
+   dequant mode of P3 (8 tokens a block, coalesced).
 4. The tensor-core instructions of the wide path's kernels (`qmm_wgmma`:
    HGMMA, and no HMMA) and of the attention kernel's GQA branch
    (`gqa_mma`: HMMA), with their registers and spills.
@@ -181,14 +184,40 @@ def main_loop(ins: list) -> Counter:
 
 
 # the q4_0 (f16-packed scales) instantiations whose main loop is counted:
-# (name, demangled-name pieces), one pass of 64 k x 128 columns, 32
-# weights a thread
+# {name: (library, demangled-name piece)}, one pass of 64 k x 128 columns,
+# 32 weights a thread. The template arguments past the layout are the
+# tokens a block (8-token tiles; on the wide path 64-row tiles a
+# warpgroup: 1 at 64 or 128 tokens a block, 2 at 256), the stage
+# (csrc/qmatmul_tc.cuh Stage: 0 the kernel, 1-3 a cut) and, on the swapped
+# path, the mode (Mode: 0 K1's).
+_Q4_0 = ("tc::Fmt<(int)4, (int)0, (bool)1, (int)8, (int)32, (bool)0, "
+         "(bool)1>")
+_LAYOUTS = (("planes", 0), ("coalesced", 1))
+_CUTS = (("stream", 1), ("unpack", 2), ("dequant", 3))
+_MODES = ("base", "bf16", "f32dot", "ghoist", "noscale", "nounpack")
+
+
+def _swapped(coal: int, nt: int, stage: int = 0, mode: int = 0) -> str:
+    return (f"tc::qmm_swapped<{_Q4_0}, (bool){coal}, (int){nt}, "
+            f"(int){stage}, (int){mode}>")
+
+
+def _wide(coal: int, mi: int, stage: int = 0) -> str:
+    return f"tc::qmm_wgmma<{_Q4_0}, (bool){coal}, (int){mi}, (int){stage}>"
+
+
 LOOP_KERNELS = {
-    f"{path}_{lay}": (f"tc::qmm_swapped<tc::Fmt<(int)4, (int)0, (bool)1, "
-                      f"(int)8, (int)32, (bool)0, (bool)1>, (bool){c}, "
-                      f"(int){nt}>")
-    for path, nt in (("swapped8", 1), ("swapped16", 2))
-    for lay, c in (("planes", 0), ("coalesced", 1))
+    **{f"{path}_{lay}": ("qmatmul", _swapped(c, nt))
+       for path, nt in (("swapped8", 1), ("swapped16", 2))
+       for lay, c in _LAYOUTS},
+    **{f"wide_mi{mi}_{lay}": ("qmatmul", _wide(c, mi))
+       for mi in (1, 2) for lay, c in _LAYOUTS},
+    **{f"{cut}_swapped8_{lay}": ("qmatmul_probe", _swapped(c, 1, st))
+       for cut, st in _CUTS for lay, c in _LAYOUTS},
+    **{f"{cut}_wide_mi2_planes": ("qmatmul_probe", _wide(0, 2, st))
+       for cut, st in _CUTS},
+    **{f"mode_{m}": ("qmatmul_probe", _swapped(1, 1, 0, i))
+       for i, m in enumerate(_MODES)},
 }
 # the kernels whose tensor-core instructions are counted: (library, name
 # piece, the instruction they must hold, the one they must not)
@@ -196,20 +225,25 @@ TC_KERNELS = {"qmm_wgmma": ("qmatmul", "tc::qmm_wgmma<", "HGMMA", "HMMA"),
               "gqa_mma": ("paged_attention", "::gqa_mma<", "HMMA", "HGMMA")}
 
 
-def main_loops(cubin: Path) -> dict:
+def main_loops(sass: dict) -> dict:
     """Instructions of one pass of each LOOP_KERNELS main loop, in all and
-    a weight (32 a thread), with its HMMA, BAR and shared-memory counts."""
-    sass = _sass(cubin)
+    a weight (32 a thread), by opcode; `sass` maps a library to its
+    `_sass` listing. Where the compiler unrolled the loop, its body holds
+    several passes: a pass has two barriers on the swapped path and one on
+    the wide path, and the counts are divided by the passes found."""
     res = {}
-    for name, piece in LOOP_KERNELS.items():
-        hits = [ins for k, ins in sass.items() if piece in k]
+    for name, (lib, piece) in LOOP_KERNELS.items():
+        hits = [ins for k, ins in sass[lib].items() if piece in k]
         if len(hits) != 1:
             res[name] = {"error": f"{len(hits)} kernels match {piece}"}
             continue
         loop = main_loop(hits[0])
-        n = sum(loop.values())
+        passes = max(1, loop["BAR"] // (1 if "qmm_wgmma<" in piece else 2))
+        n = sum(loop.values()) / passes
         res[name] = {"instructions": n, "per_weight": n / 32,
-                     "by_opcode": dict(loop.most_common())}
+                     "passes_in_body": passes,
+                     "by_opcode": {k: v / passes
+                                   for k, v in loop.most_common()}}
     return res
 
 
@@ -293,7 +327,9 @@ def main(argv=None) -> None:
                      for n in ("qmatmul", "qmatmul_probe",
                                "paged_attention")},
            "dequant_sass": dequant_sass(out / "dequant_only.cubin"),
-           "main_loop_sass": main_loops(out / "qmatmul.cubin")}
+           "main_loop_sass": main_loops(
+               {lib: _sass(out / f"{lib}.cubin")
+                for lib in ("qmatmul", "qmatmul_probe")})}
     res["tensor_core_sass"] = {
         name: tensor_core_ops(_sass(out / f"{lib}.cubin"), res["ptxas"][lib],
                               piece, want, never)

@@ -176,6 +176,79 @@ def test_stage_kernels_refuse_other_formats():
         qp.prepare_mode(torch.zeros((8, 256)), tq, "base")
 
 
+def _q4_0(K=512, R=256, seed=2):
+    return tpk.pack_ggml(GgmlType.Q4_0,
+                         random_raw(GgmlType.Q4_0, K, R, seed), (K, R))
+
+
+@pytest.mark.parametrize("case", [
+    "f32_scales_planes", "f32_scales_coalesced", "q5_0_coalesced",
+    "q4_k_planes", "unknown_stage"])
+def test_stage_entry_points_refuse(case):
+    """The cuts are built for q4_0 and q8_0 with f16-packed scales and
+    q6_k, over planes or a coalesced buffer; anything else is refused
+    before a launch (here, where there is no card)."""
+    x = torch.zeros((8, 512))
+    stage = "stream"
+    if case.startswith("f32_scales"):
+        w = tpk.unpack_scales_qt(_q4_0())
+    elif case == "q5_0_coalesced":
+        w = tpk.pack_ggml(GgmlType.Q5_0,
+                          random_raw(GgmlType.Q5_0, 512, 256, 3), (512, 256))
+    elif case == "q4_k_planes":
+        w = tpk.pack_ggml(GgmlType.Q4_K,
+                          random_raw(GgmlType.Q4_K, 512, 256, 4), (512, 256))
+    else:
+        w, stage = _q4_0(), "full"
+    if case.endswith("coalesced"):
+        w = tpk.coalesce_qt(w, 512, 128)
+    match = "unknown stage" if stage == "full" else "stage kernels take"
+    with pytest.raises(ValueError, match=match):
+        qp.stage_buffers(w, stage, x, 132)
+    with pytest.raises(ValueError, match=match):
+        qp.prepare_stage(w, stage, 8, x)
+
+
+@pytest.mark.parametrize("case", [
+    "planes", "f32_scales", "q8_0", "M16", "M512", "unknown_mode"])
+def test_mode_entry_points_refuse(case):
+    """The modes take a coalesced q4_0 buffer with f16-packed scales, on
+    the swapped path at 8 tokens a block (M <= 8)."""
+    w, M, mode = _q4_0(), 8, "bf16"
+    match = "coalesced q4_0"
+    if case == "f32_scales":
+        w = tpk.unpack_scales_qt(w)
+    elif case == "q8_0":
+        w = tpk.pack_ggml(GgmlType.Q8_0,
+                          random_raw(GgmlType.Q8_0, 512, 256, 5), (512, 256))
+    elif case in ("M16", "M512"):
+        M, match = int(case[1:]), "8 tokens a block"
+    elif case == "unknown_mode":
+        mode, match = "fp8", "unknown mode"
+    if case != "planes":
+        w = tpk.coalesce_qt(w, 512, 128)
+    x = torch.zeros((M, 512))
+    with pytest.raises(ValueError, match=match):
+        qp.mode_buffers(x, w, mode, 132)
+    if case not in ("M16", "M512"):  # these reach the card's properties
+        with pytest.raises(ValueError, match=match):
+            qp.prepare_mode(x, w, mode)
+
+
+@pytest.mark.parametrize("module", [
+    "llm_tpu_torch.ops.qmatmul_probe", "llm_tpu_torch.probes.coalesced",
+    "llm_tpu_torch.probes.kernel_decompose",
+    "llm_tpu_torch.probes.dequant_variants",
+    "llm_tpu_torch.probes.kernel_report"])
+def test_probe_module_imports_neither_jax_nor_the_reference(module):
+    code = (f"import sys\nimport {module}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'llm_tpu')]\nassert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
 def test_full_variant_is_qmatmul_plain():
     w = common.random_q4_0(256, 256, 3, "cpu")
     x = torch.randn(8, 256, generator=torch.Generator().manual_seed(4))
@@ -221,7 +294,7 @@ def test_entry_point_defaults_to_the_card(probe, monkeypatch):
 
 def test_build_rebuilds_when_a_header_is_newer(tmp_path, monkeypatch):
     """A library is stale when its source or a csrc/ header it includes is
-    newer (the probe and production kernels share csrc/qmatmul_body.cuh);
+    newer (the probe and production kernels share csrc/qmatmul_tc.cuh);
     a header it does not include leaves it built."""
     import os
 

@@ -16,8 +16,9 @@ holds it against its plain version there. Here:
 - A plain walk of a plan's tiles, with the K splits summed in order, covers
   every (k, r) exactly once and equals `qmatmul_plain` to f32 rounding
   (rtol 1e-5: the same products summed in another order).
-- The probe module still plans the scalar kernel's grids at the probes'
-  shapes.
+- The chip probes' cuts and modes launch on K1's own plan: the probe
+  module's plan and buffers at each probe's 7B shape and at the main
+  path's M equal `qmatmul.plan`'s, x staged as K1 stages it.
 - The producer's arithmetic, written here as plain torch on the int32 words
   the kernel reads (the field ORed into the mantissa of 2^23, minus 2^23 +
   zero, times scale * 2^-p for a field at bit p, bias added, rounded to
@@ -288,22 +289,47 @@ def test_walk_of_a_split_7b_plan_matches_reference():
                                atol=1e-5 * float(np.abs(ref).max()))
 
 
-# the scalar kernel's grids at the probes' shapes (mt, splits, units a
-# split), on 132 SMs: P2 (K = R = 4096 at M = 8 and 1), P1 up and P3
-# (K = 4096, R = 11008), P1 down (K = 11008, padded to 11264; R = 4096)
-PROBE_PLANS = [
-    ((4096, 4096), 8, (16, 16, 8)),
-    ((4096, 4096), 1, (1, 16, 8)),
-    ((4096, 11008), 8, (16, 6, 24)),
-    ((11264, 4096), 8, (16, 15, 24)),
-]
+# the probes' 7B weights (K padded, R, R padded): P2's planes, P1's planes
+# at up and down, P3's coalesced buffer (R packed to 1024s)
+PROBE_SHAPES = {"p2": (4096, 4096, 4096), "p1_up": (4096, 11008, 11008),
+                "p1_down": (11264, 4096, 4096), "p3": (4096, 11008, 11264)}
 
 
-@pytest.mark.parametrize("shape,M,want", PROBE_PLANS)
-def test_probe_module_keeps_the_scalar_plan(shape, M, want):
-    Kp, R = shape
-    w = SimpleNamespace(k_padded=Kp, r=R)
-    assert qp.plan(w, M, 132) == want
+@pytest.mark.parametrize("M", [1, 8, 16, 64, 512])
+@pytest.mark.parametrize("shape", list(PROBE_SHAPES))
+def test_probe_launches_on_k1s_plan(shape, M):
+    """A cut runs K1's plan at its M, x as K1 reads it (f32 on the swapped
+    path, bf16 on the wide one), one value a column of Rp per split and
+    m-tile; a mode runs only on the swapped path at 8 tokens a block."""
+    Kp, R, Rp = PROBE_SHAPES[shape]
+    w = SimpleNamespace(fmt_name="q4_0", fmt=tpk.FORMATS[GgmlType.Q4_0],
+                        scale_packed=True, k=Kp, r=R, k_padded=Kp,
+                        r_padded=Rp)
+    want = tqm.plan(w, M, 132)
+    x = torch.zeros((M, Kp))
+    for stage, dt in (("stream", torch.int32), ("dequant", torch.float32)):
+        p, xk, part, out = qp.stage_buffers(w, stage, x, 132)
+        assert p == want
+        assert xk.dtype == (torch.bfloat16 if p.path == "wide"
+                            else torch.float32)
+        assert part.shape == (p.splits, p.mtiles, Rp) and part.dtype == dt
+        assert out.shape == (Rp,) and out.dtype == dt
+    if want.path != "swapped8":
+        with pytest.raises(ValueError, match="8 tokens a block"):
+            _mode_buffers(w, x)
+    else:
+        p, xk, y, part = _mode_buffers(w, x)
+        assert p == want and xk.dtype == torch.float32
+        assert y.shape == (M, R)
+        assert (part is None) == (p.splits == 1)
+
+
+def _mode_buffers(w, x):
+    """qp.mode_buffers over a coalesced stand-in of `w` (the modes take a
+    coalesced q4_0 buffer)."""
+    qtc = tpk.QuantTensorC("q4_0", w.k, w.r, w.k_padded, w.r_padded,
+                           w.k_padded, 512, True, torch.zeros(0), None)
+    return qp.mode_buffers(x, qtc, "bf16", 132)
 
 
 # -- the producer's arithmetic ------------------------------------------------
@@ -460,9 +486,41 @@ def test_kernel_report_counts_the_main_loop():
     assert ins[2] == (0x20, "BRA", 0x10)
     assert kernel_report.main_loop(ins) == {"BAR": 1, "LOP3": 1, "FADD": 1,
                                             "BRA": 2, "HMMA": 1}
+    layouts = ("planes", "coalesced")
     assert set(kernel_report.LOOP_KERNELS) == {
-        f"{p}_{lay}" for p in ("swapped8", "swapped16")
-        for lay in ("planes", "coalesced")}
+        *(f"{p}_{lay}" for p in ("swapped8", "swapped16", "wide_mi1",
+                                 "wide_mi2") for lay in layouts),
+        *(f"{c}_swapped8_{lay}" for c in ("stream", "unpack", "dequant")
+          for lay in layouts),
+        *(f"{c}_wide_mi2_planes" for c in ("stream", "unpack", "dequant")),
+        *(f"mode_{m}" for m in qp.MODES)}
+    # one kernel a name: the production ones in the production library
+    pieces = [piece for _, piece in kernel_report.LOOP_KERNELS.values()]
+    assert len(set(pieces)) == len(pieces) - 1  # mode_base is K1's code
+    assert {lib for name, (lib, _) in kernel_report.LOOP_KERNELS.items()
+            if name.startswith(("swapped", "wide"))} == {"qmatmul"}
+
+
+def test_kernel_report_main_loops_count_a_pass():
+    """A loop the compiler unrolled twice holds two passes (four barriers
+    on the swapped path): its counts are halved; a kernel no name matches
+    once is reported as an error."""
+    body = [(0x10, "LDS", None), (0x20, "BAR", None), (0x30, "HMMA", None),
+            (0x40, "BAR", None)]
+    twice = body + [(a + 0x40, o, t) for a, o, t in body] + \
+        [(0x90, "BRA", 0x10)]
+    piece = kernel_report.LOOP_KERNELS["swapped8_planes"][1]
+    wide = kernel_report.LOOP_KERNELS["wide_mi2_planes"][1]
+    sass = {"qmatmul": {f"void {piece}(args)": twice,
+                        f"void {wide}(args)": twice},
+            "qmatmul_probe": {}}
+    got = kernel_report.main_loops(sass)
+    assert got["swapped8_planes"]["passes_in_body"] == 2
+    assert got["swapped8_planes"]["instructions"] == 4.5
+    assert got["swapped8_planes"]["by_opcode"] == {
+        "LDS": 1, "BAR": 2, "HMMA": 1, "BRA": 0.5}
+    assert got["wide_mi2_planes"]["passes_in_body"] == 4
+    assert "error" in got["mode_bf16"] and "error" in got["swapped8_coalesced"]
 
 
 def test_kernel_report_tensor_core_ops():

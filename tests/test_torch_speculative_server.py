@@ -187,12 +187,23 @@ def test_server_over_speculative_engine(models, cls, kw):
             assert _post(srvs["torch"], sampled)["finish_reason"] \
                 .startswith("error")
         else:
-            for body in (sampled, {"prompt": "<t5>", "max_tokens": 4}):
+            # the second body omits temperature (1.0 by default); a sampled
+            # EoT ends a stream early, so the rule is stated, not the seed's
+            # draw: a "length" finish has all 4 tokens, any other is EoT's
+            # "stop" with fewer
+            eot = tt.eot_token_id()
+            for body in (sampled, {"prompt": "<t5>", "max_tokens": 4,
+                                   "seed": 52}):
                 choice = _post(srvs["torch"], body)
-                assert choice["text"].count("<t") == 4
-                assert choice["finish_reason"] == "length"
-            assert (engine.finished[max(engine.finished)].request
-                    .device_sampler.temperature) == 1.0
+                n = choice["text"].count("<t")
+                fin = engine.finished[max(engine.finished)]
+                if choice["finish_reason"] == "length":
+                    assert n == 4
+                else:
+                    assert choice["finish_reason"] == "stop" and n < 4
+                    assert fin.finish_reason == "eot"
+                    assert fin.tokens[-1] == eot
+            assert fin.request.device_sampler.temperature == 1.0
         assert _post(srvs["torch"], {"prompt": "<t5>", "max_tokens": 2,
                                      "temperature": 0})["text"]
     finally:
