@@ -9,10 +9,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. build:   nvcc compiles csrc/qmatmul.cu (the tensor-core kernel of
             csrc/qmatmul_tc.cuh), csrc/paged_attention.cu (which also
-            serves the dense cache's attention) and csrc/qmatmul_probe.cu
+            serves the dense cache's attention), csrc/qmatmul_probe.cu
             (the probes' cuts and dequant modes of the same tensor-core
-            kernels) for sm_90a, all at once, into build/kernels/; beside
-            them,
+            kernels) and csrc/codecs.cu (the load's decode of the GGML
+            blocks, the counterpart of llm_tpu/native/codecs.cpp) for
+            sm_90a, all at once, into build/kernels/; beside them,
             `llm_tpu_torch.probes.kernel_report` compiles its own copies
             for the compiler's report (registers, shared memory, spills of
             every kernel; SASS instructions a weight of the dequant and of
@@ -47,10 +48,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             16 local heads, each against its plain version and timed. The
             multi-host row's shapes: K1 over the 7B projections at M = 128
             (a row's [2, 64] prefill chunk), K2 (bf16) and K4 (int8) at
-            the row's 2 streams.
+            the row's 2 streams. The codec kernel (`native.decode`): all
+            ten formats at a small shape with edge blocks and at the 7B
+            shapes (K 4096 x R 11008; Q6_K also x 32000) bit-equal to its
+            plain version on the card and to the host numpy decode.
 3. e2e:     a full-width random LLaMA-7B Q4_0 checkpoint (seed 0, ~3.9 GB,
             written under build/smoke/, removed by the gguf phase) is loaded
-            on the card, and `InferenceSession.infer` answers three greedy
+            on the card (`load_record`: its wall time, untouched, and the
+            codec kernel's launches held to the quantized matrices the
+            load packs, one each, as at every load below), then loaded
+            once more with each part timed (`load_parts`: the copy out of
+            the file, the H2D of the raw bytes, the decode, the planes),
+            and
+            `InferenceSession.infer` answers three greedy
             prompts (16, 64 and 1100 tokens, 32 new tokens each) with the
             launch counters set to 0 just before and read just after
             (prompt chunks of 512 rows on qmatmul's wide path, decode steps
@@ -231,7 +241,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             layers of GPT-J-6B Q4_0, BLOOM-7B1 Q4_0 and Falcon-7B Q4_0.
             Each: greedy host-sampled `infer` (MPT: prompts of 64 and 1100
             tokens, 32 new; the others 64 and 16), launches counted as in
-            e2e from the spec; the first prefill and decode logits against
+            e2e from the spec; the load timed as in e2e (MPT: its parts
+            too, and layer 0 and the embedding rebuilt from blocks decoded
+            on the host, every plane bit-equal); the first prefill and
+            decode logits against
             the plain path (relative L2 within 2^-8, top-1 equal but at a
             near-tie); `infer_device` greedy tokens equal to the host
             ones, every capture counting 4 n_layer + 1 qmatmul and n_layer
@@ -985,6 +998,247 @@ def check_repeat(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the codec kernel (native.decode) and the loads it serves
+
+
+# (case, K, R) of the codec checks: a small shape with edge blocks, a 7B
+# FFN tensor (K 4096 x R 11008) and, for Q6_K, the usual K-quant of a 7B
+# output tensor (K 4096 x R 32000)
+CODEC_CASES = [("small", 512, 24, True), ("7b_ffn", E, FF, False)]
+CODEC_Q6K_HEAD = ("7b_head", E, V, False)
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bit patterns (as ints), to compare -0.0 and NaN
+    payloads too; other tensors as they are."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def decoded_equal(a, b) -> tuple[bool, float]:
+    """Two decodings (q, scale, bias) bit for bit, and their largest
+    absolute difference (0 when equal)."""
+    ok, err = True, 0.0
+    for x, y in zip(a, b):
+        if (x is None) != (y is None):
+            return False, math.inf
+        if x is None:
+            continue
+        ok &= x.shape == y.shape and bool(torch.equal(bits(x), bits(y)))
+        if x.shape == y.shape:
+            err = max(err, float((x.double() - y.double()).abs().max()))
+    return ok, err
+
+
+def host_decode(t, data, K: int, R: int, device="cpu") -> tuple:
+    """numpy's `ggml/quant.decode_blocks` as `decode_ggml` returns a
+    decode, (q, scale, bias) [R, ...] on `device`: the host decode the
+    port's loads took for the K-quants before the codec kernel."""
+    from llm_tpu_torch.ggml.quant import decode_blocks
+
+    dec = decode_blocks(t, data, K * R)
+    return tuple(None if a is None else torch.from_numpy(
+        np.ascontiguousarray(a, dtype).reshape(R, -1)).to(device)
+        for a, dtype in ((dec.q, np.int32), (dec.scale, np.float32),
+                         (dec.bias, np.float32)))
+
+
+def codec_checks(dev, timer) -> list[dict]:
+    """`native.decode` (csrc/codecs.cu) for all ten formats, at a small
+    shape with edge blocks (`testing.codec_blocks`: d 0, -0, negative,
+    subnormal; scale bytes 0xFF, 0x80, 0x7F) and at the 7B shapes, bit-equal
+    (q, and scale and bias as bits) to its plain version
+    (`packing.decode_plain`) on the same card and to the host numpy
+    `ggml/quant.decode_blocks`; kernel and plain ms, the bound (the raw
+    bytes read, q, scale and bias written, over HBM). No PyTorch call
+    decodes GGML blocks: library_ms is None."""
+    from llm_tpu_torch import native
+    from llm_tpu_torch.ops import packing
+    from llm_tpu_torch.testing import codec_blocks
+
+    rng = np.random.default_rng(17)
+    recs = []
+    for t in packing.FORMATS:
+        cases = CODEC_CASES + ([CODEC_Q6K_HEAD] if t.name == "Q6_K" else [])
+        for case, K, R, edges in cases:
+            raw_np = codec_blocks(t, K, R, rng, edges=edges)
+            raw = torch.from_numpy(raw_np).to(dev)
+            got = native.decode(t, raw, K, R)
+            plain = packing.decode_plain(t, raw, K, R)
+            torch.cuda.synchronize()
+            host = host_decode(t, raw_np, K, R)
+            got_cpu = tuple(None if a is None else a.cpu() for a in got)
+            eq_plain, err_plain = decoded_equal(got, plain)
+            eq_host, err_host = decoded_equal(got_cpu, host)
+            del plain, got_cpu, host
+            rec = {"case": f"{t.name}_{case}", "format": t.name, "K": K,
+                   "R": R, "edges": edges, "ok": eq_plain and eq_host,
+                   "bit_equal_plain": eq_plain, "bit_equal_host": eq_host,
+                   "max_abs_err": max(err_plain, err_host)}
+            if case != "small":
+                n_bytes = raw.numel() + sum(
+                    a.numel() * a.element_size() for a in got
+                    if a is not None)
+                del got
+                rec["ms"] = timer.ms(lambda: native.decode(t, raw, K, R))
+                rec["plain_ms"] = timer.ms(
+                    lambda: packing.decode_plain(t, raw, K, R), iters=3)
+                rec["library_ms"] = None
+                rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, 0.0)
+                rec["bytes"] = n_bytes
+            recs.append(rec)
+            del raw
+            torch.cuda.empty_cache()
+    return recs
+
+
+CODEC_LOADS: list[dict] = []  # every load_record, in the order they ran
+
+
+def device_allocs() -> int:
+    """cudaMalloc calls so far (the caching allocator's `num_device_alloc`;
+    -1 on a PyTorch that does not count them)."""
+    return torch.cuda.memory_stats().get("num_device_alloc", -1)
+
+
+@contextlib.contextmanager
+def load_record(path_name: str):
+    """Around one load, which it does not slow: its wall time (a
+    synchronize before and after, none inside), the cudaMalloc calls it
+    made, and the codec kernel's launches (`native.LAUNCHES`, set to 0 just
+    before and read just after), held to the quantized matrices the load
+    packed (each decoded once, on the card). Yields the record; it is
+    complete after the block."""
+    from llm_tpu_torch import native
+    from llm_tpu_torch.models import params
+
+    rec = {"path": path_name}
+    names: set = set()
+    matrix = params.WeightSource.matrix
+
+    def seen(self, name, rows=None):
+        if self.reader.tensors[name].element_type.is_quantized:
+            names.add(name)
+        return matrix(self, name, rows)
+
+    params.WeightSource.matrix = seen
+    torch.cuda.synchronize()
+    native.LAUNCHES = 0
+    allocs = device_allocs()
+    t0 = time.monotonic()
+    try:
+        yield rec
+        torch.cuda.synchronize()
+        rec["load_s"] = time.monotonic() - t0
+        rec["device_allocs"] = device_allocs() - allocs
+        rec["codec_launches"] = native.LAUNCHES
+    finally:
+        params.WeightSource.matrix = matrix
+    rec["quantized_matrices"] = len(names)
+    if rec["codec_launches"] != len(names):
+        fail(f"{path_name}: {rec['codec_launches']} codec launches for "
+             f"{len(names)} quantized matrices")
+    CODEC_LOADS.append(rec)
+
+
+def part_hooks() -> list:
+    """(module, function, part) of the load's four parts: the block bytes
+    copied out of the memory-mapped file (`packing.raw_bytes`), that plus
+    their copy to the card and the decode (`decode_ggml`), the decode
+    (`native.decode`), and the planes (`pack_decoded`)."""
+    from llm_tpu_torch import native
+    from llm_tpu_torch.models import params
+    from llm_tpu_torch.ops import packing
+
+    return [(packing, "raw_bytes", "read_s"), (native, "decode", "decode_s"),
+            *[(m, f, part) for m in (packing, params)
+              for f, part in (("decode_ggml", "decode_ggml_s"),
+                              ("pack_decoded", "pack_s"))]]
+
+
+def load_parts(load, hooks=None) -> dict:
+    """The parts of one more load, `load()`, whose result is dropped: each
+    call of a hooked function (`part_hooks()` by default) is timed with a
+    synchronize after it, so this load is slower than the one `load_record`
+    times, and serves only to split it. The caching allocator's free
+    blocks are released first, as they are before the main path's load.
+    Returns the load's wall time, its parts (`h2d_s` is `decode_ggml` less
+    the read and the decode; `other_s` the norms, the vocabulary, the
+    spec), and the cudaMalloc calls of each part."""
+    acc: dict = {}
+    allocs: dict = {}
+    saved = []
+
+    def timed(fn, part):
+        def run(*a, **k):
+            a0, t0 = device_allocs(), time.monotonic()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc[part] = acc.get(part, 0.0) + time.monotonic() - t0
+            allocs[part] = allocs.get(part, 0) + device_allocs() - a0
+            return out
+        return run
+
+    for mod, attr, part in hooks or part_hooks():
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, timed(getattr(mod, attr), part))
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    try:
+        model = load()
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+    finally:
+        for mod, attr, fn in reversed(saved):
+            setattr(mod, attr, fn)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    read, dec = acc.get("read_s", 0.0), acc.get("decode_s", 0.0)
+    ggml, pack = acc.get("decode_ggml_s", 0.0), acc.get("pack_s", 0.0)
+    return {"load_s": load_s,
+            "parts": {"read_s": read, "h2d_s": ggml - read - dec,
+                      "decode_s": dec, "pack_s": pack,
+                      "other_s": load_s - ggml - pack},
+            "device_allocs": allocs}
+
+
+def host_decoded_planes(name, model, path, arch, dev) -> dict:
+    """Layer 0 and the embedding of a loaded model rebuilt from blocks
+    decoded on the host (`ggml/quant.decode_blocks`, then moved to the card
+    and packed by `pack_decoded`), every plane bit-equal to the loaded
+    model's (decoded on the card)."""
+    import dataclasses
+
+    from llm_tpu_torch.ggml.reader import GgmlReader
+    from llm_tpu_torch.models import params
+    from llm_tpu_torch.models.spec import get_arch
+    from llm_tpu_torch.ops import packing
+
+    spec = model.spec
+    reader = GgmlReader(path).load(
+        lambda f: (lambda h: (h, h.n_vocab))(get_arch(arch).read_hparams(f)))
+    saved = [(m, getattr(m, "decode_ggml")) for m in (packing, params)]
+    for m, _ in saved:
+        m.decode_ggml = host_decode
+    try:
+        host = params.build_params(params.WeightSource(reader, dev),
+                                   dataclasses.replace(spec, n_layer=1))
+    finally:
+        for m, fn in saved:
+            m.decode_ggml = fn
+    n = leaves_equal(name, (model.params.wte, model.params.layers.layer(0)),
+                     (host.wte, host.layers.layer(0)),
+                     "the card's decode differs from the host's")
+    del host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"planes_bit_equal": n}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path end to end
 
 
@@ -1202,12 +1456,15 @@ def e2e_phase(dev):
         out["write_s"] = time.monotonic() - t0
         out["file_bytes"] = path.stat().st_size
 
-        t0 = time.monotonic()
-        model = loader.load(path, "llama",
-                            params=loader.ModelParameters(context_size=CTX),
-                            device=dev)
-        torch.cuda.synchronize()
-        out["load_s"] = time.monotonic() - t0
+        def load():
+            return loader.load(path, "llama", params=loader.ModelParameters(
+                context_size=CTX), device=dev)
+
+        with load_record("e2e") as rec:
+            model = load()
+        out["load_s"] = rec["load_s"]
+        out["load"] = rec
+        out["load_parts"] = load_parts(load)
     except BaseException:
         path.unlink(missing_ok=True)
         raise
@@ -2541,12 +2798,12 @@ def gguf_phase(model, dev, e2e) -> tuple[dict, Path]:
     out["convert_s"] = time.monotonic() - t0
     out["gguf_bytes"] = dst.stat().st_size
 
-    t0 = time.monotonic()
-    gm = loader.load(dst, "llama",
-                     params=loader.ModelParameters(context_size=CTX),
-                     device=dev)
-    torch.cuda.synchronize()
-    out["gguf_load_s"] = time.monotonic() - t0
+    with load_record("gguf") as rec:
+        gm = loader.load(dst, "llama",
+                         params=loader.ModelParameters(context_size=CTX),
+                         device=dev)
+    out["gguf_load_s"] = rec["load_s"]
+    out["codec_launches"] = rec["codec_launches"]
     if gm.container_type.kind != "gguf":
         fail(f"gguf: loaded a {gm.container_type} container")
     if asdict(gm.spec) != asdict(model.spec):
@@ -3568,9 +3825,11 @@ def speculative_phase(model, dev, e2e, timer) -> dict:
         make_bench_file("llama", path, GgmlType.Q4_0, seed=1, n_ff=DRAFT_FF,
                         n_vocab=V, n_embd=DRAFT_E, n_head=DRAFT_H,
                         n_layer=DRAFT_LAYERS, n_mult=256)
-        draft = loader.load(path, "llama",
-                            params=loader.ModelParameters(context_size=CTX),
-                            device=dev)
+        with load_record("speculative_draft"):
+            draft = loader.load(path, "llama",
+                                params=loader.ModelParameters(
+                                    context_size=CTX),
+                                device=dev)
     finally:
         path.unlink(missing_ok=True)
     spec = draft.spec
@@ -4116,15 +4375,24 @@ def arch_model(entry, dev, timer) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-        t0 = time.monotonic()
-        model = loader.load(path, arch,
-                            params=loader.ModelParameters(context_size=ctx),
-                            device=dev)
-        torch.cuda.synchronize()
-        out["load_s"] = time.monotonic() - t0
+
+        def load():
+            return loader.load(path, arch, params=loader.ModelParameters(
+                context_size=ctx), device=dev)
+
+        with load_record(f"archs_{name}") as rec:
+            model = load()
+        out["load_s"] = rec["load_s"]
+        out["load"] = rec
+        load_peak = torch.cuda.max_memory_allocated(dev)
         if arch == "mpt":  # the pack cache on the K-quant model
+            out["load_parts"] = load_parts(load)
+            torch.cuda.reset_peak_memory_stats(dev)  # not the parts' load
             out["pack"] = pack_case(name, path, arch, model, out["load_s"],
                                     ctx, dev)
+            # the card's decode against the host's, one whole layer
+            out["host_decoded"] = host_decoded_planes(name, model, path,
+                                                      arch, dev)
     finally:
         path.unlink(missing_ok=True)
     spec = model.spec
@@ -4149,7 +4417,7 @@ def arch_model(entry, dev, timer) -> dict:
             model, dev, MPT_CELL_STREAMS, [MPT_CELL_PAST] * MPT_CELL_STREAMS,
             "mpt paged int8 B=2 at 7680")
         out["engines"] = arch_engines(name, model, dev)
-    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["peak_bytes"] = max(load_peak, torch.cuda.max_memory_allocated(dev))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4201,7 +4469,9 @@ def archs_phase(dev, timer) -> dict:
     out["kernel_cases"] = {"dense_attention": k2, "paged_attention": k4}
     out["launches"] = archs_launches(out["models"])
     out["summary"] = {
-        name: {"load_s": m["load_s"], "weights_bytes": m["weights_bytes"],
+        name: {"load_s": m["load_s"], "load_parts": m.get("load_parts"),
+               "file_bytes": m["file_bytes"],
+               "weights_bytes": m["weights_bytes"],
                "peak_bytes": m["peak_bytes"], "n_ctx": m["n_ctx"],
                **{k: m["device_sampling"][k] for k in (
                    "ms_per_token", "bound_ms_per_token", "host_ms_per_step",
@@ -4227,7 +4497,8 @@ def archs_phase(dev, timer) -> dict:
         paged_cell={k: cell[k] for k in (
             "ms_per_step", "tok_s", "bound_ms_per_step", "device_busy_share",
             "device_ms_per_step")},
-        engines_texts_equal=mpt["engines"]["texts_equal"])
+        engines_texts_equal=mpt["engines"]["texts_equal"],
+        host_decoded=mpt["host_decoded"])
     out["summary"]["kernels"] = {
         "dense_attention_falcon7b": {k: k2[k] for k in (
             "ms", "bound_ms", "plain_ms", "library_ms")},
@@ -4679,12 +4950,10 @@ def load_gpt2(path, dev, lora=None) -> tuple:
     """(model, load seconds) of a GPT-2 file on the card."""
     from llm_tpu_torch import loader
 
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    model = loader.load(path, "gpt2", params=loader.ModelParameters(
-        context_size=GPT2_HP["n_ctx"], lora_adapters=lora), device=dev)
-    torch.cuda.synchronize()
-    return model, time.monotonic() - t0
+    with load_record("adapters") as rec:
+        model = loader.load(path, "gpt2", params=loader.ModelParameters(
+            context_size=GPT2_HP["n_ctx"], lora_adapters=lora), device=dev)
+    return model, rec["load_s"]
 
 
 def lora_planes_equal(model, path, ggla) -> dict:
@@ -5308,9 +5577,12 @@ def attn_by_case(recs, label) -> dict:
 # phase 3c: the pack cache (models/pack_cache.py)
 
 
-def leaves_equal(name, a, b) -> int:
-    """Every tensor leaf of two parameter trees bit-equal (same dtype and
-    shape); returns the number of leaves compared."""
+def leaves_equal(name, a, b,
+                 what: str = "the warm load differs from the cold load's"
+                 ) -> int:
+    """Every tensor leaf of two parameter trees (or tuples of them)
+    bit-equal (same dtype and shape); returns the number of leaves
+    compared."""
     from dataclasses import fields
 
     from llm_tpu_torch.ops.packing import QuantTensor, QuantTensorC
@@ -5318,6 +5590,9 @@ def leaves_equal(name, a, b) -> int:
     def leaves(obj, out):
         if isinstance(obj, torch.Tensor):
             out.append(obj)
+        elif isinstance(obj, tuple):
+            for x in obj:
+                leaves(x, out)
         elif isinstance(obj, QuantTensor):
             for p in obj.planes():
                 leaves(p, out)
@@ -5333,10 +5608,8 @@ def leaves_equal(name, a, b) -> int:
         fail(f"{name}: {len(la)} leaves against {len(lb)}")
     for i, (x, y) in enumerate(zip(la, lb)):
         if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
-                x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
-                y.view(torch.int16) if y.dtype == torch.bfloat16 else y):
-            fail(f"{name}: leaf {i} of the warm load differs from the cold "
-                 "load's")
+                bits(x), bits(y)):
+            fail(f"{name}: leaf {i}: {what}")
     return len(la)
 
 
@@ -5368,13 +5641,12 @@ def pack_case(name, path, arch, model, cold_s, ctx, dev) -> dict:
         write_s = time.monotonic() - t0
         n_bytes = sum(f.stat().st_size for f in pp.iterdir())
         loader.build_params = forbidden
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        warm = loader.load(path, arch,
-                           params=loader.ModelParameters(context_size=ctx),
-                           device=dev)
-        torch.cuda.synchronize()
-        warm_s = time.monotonic() - t0
+        with load_record(f"pack_{name}") as rec:
+            warm = loader.load(path, arch,
+                               params=loader.ModelParameters(
+                                   context_size=ctx),
+                               device=dev)
+        warm_s = rec["load_s"]
     finally:
         loader.build_params = build
         shutil.rmtree(pp, ignore_errors=True)
@@ -6643,6 +6915,44 @@ def kernel_entries(qrecs, arecs, precs, e2e, serve, k3recs, k3eq,
     return entries
 
 
+def codec_entry(crecs) -> dict:
+    """The codec kernel's entry: ms, bound and plain ms summed over one
+    decode of each of the ten formats at K 4096 x R 11008; launches of the
+    e2e load (the main path's), and of every load by path (`load_record`:
+    e2e, the pack phase's warm loads, gguf, the speculative draft, the six
+    architectures, the adapters' GPT-2 loads). The parallel and multihost
+    ranks load in their own processes and are not counted here."""
+    ffn = [r for r in crecs if r["case"].endswith("_7b_ffn")]
+    by_path: dict = {}
+    for rec in CODEC_LOADS:
+        p = rec["path"]
+        key = ("pack" if p.startswith("pack_") else "archs"
+               if p.startswith("archs_") else p)
+        by_path[key] = by_path.get(key, 0) + rec["codec_launches"]
+    return {
+        "name": "codecs", "route": "cuda",
+        "source": "llm_tpu_torch/csrc/codecs.cu",
+        "replaces": "llm_tpu/native/codecs.cpp:240",
+        "replaces_note": "not a TPU kernel: the counterpart of "
+                         "llm_tpu/native/codecs.cpp, the JAX package's host "
+                         "C++ codec (llm_transcode :240, its block decoders "
+                         ":62-183)",
+        "launches": by_path["e2e"], "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in crecs),
+        "ms": sum(r["ms"] for r in ffn),
+        "plain_ms": sum(r["plain_ms"] for r in ffn),
+        "bound_ms": sum(r["bound_ms"] for r in ffn), "bound_by": "bytes",
+        "library_ms": None,
+        "per": "one decode of each of the ten formats at K 4096 x R 11008, "
+               "summed",
+        "tolerance": "bit-equal to the plain version and to the host "
+                     "decode_blocks (q; scale and bias as bits)",
+        "by_case": {r["case"]: {k: r[k] for k in (
+            "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+            "max_abs_err")} for r in crecs if "ms" in r},
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=Path, default=None,
@@ -6671,7 +6981,8 @@ def main() -> None:
         [sys.executable, "-m", "llm_tpu_torch.probes.kernel_report"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
-        built = _build.build(["qmatmul", "paged_attention", "qmatmul_probe"])
+        built = _build.build(["qmatmul", "paged_attention", "qmatmul_probe",
+                              "codecs"])
     except BaseException:
         report.kill()
         report.wait()
@@ -6720,7 +7031,9 @@ def main() -> None:
     mhk = mh_kernel_phase(dev, timer)
     results["multihost_kernels"] = mhk
     lap("multihost_kernels")
-    cases = qrecs + k3eq + k3recs + arecs + precs + mrecs + checks
+    crecs = codec_checks(dev, timer)
+    lap("codecs")
+    cases = qrecs + k3eq + k3recs + arecs + precs + mrecs + checks + crecs
     results["kernel_cases"] = cases
     emit({"kernel_cases": cases})
     bad = [r for r in cases if not r["ok"]]
@@ -6831,9 +7144,12 @@ def main() -> None:
                                     "multihost": mhp["launches"]}, shard,
                              mhk)
     kernels += probe_entries(probes, checks, dev, timer)
+    kernels.append(codec_entry(crecs))
     del timer
     lap("kernel_entries")
     emit({"phase_s": phase_s})
+    results["codec_loads"] = CODEC_LOADS
+    emit({"codec_loads": CODEC_LOADS})
     results["kernels"] = kernels
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)

@@ -38,8 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from llm_tpu_torch.ggml.quant import decode_blocks
-from llm_tpu_torch.ggml.types import GgmlType, block_size, type_size
+from llm_tpu_torch.ggml.types import QK_K, GgmlType, block_size, type_size
 
 
 @dataclass(frozen=True)
@@ -282,32 +281,116 @@ def _decode_scalar(t: GgmlType, blocks: torch.Tensor):
     raise NotImplementedError(t)
 
 
+def _k4_scale_min(sb: torch.Tensor):
+    """get_scale_min_k4 of the 8 sub-blocks: [..., 12] bytes -> (scale,
+    min) int32 [..., 8]."""
+    b = sb.to(torch.int32)
+    sc = torch.cat([b[..., 0:4] & 63,
+                    (b[..., 8:12] & 0xF) | ((b[..., 0:4] >> 6) << 4)], -1)
+    mn = torch.cat([b[..., 4:8] & 63,
+                    (b[..., 8:12] >> 4) | ((b[..., 4:8] >> 6) << 4)], -1)
+    return sc, mn
+
+
+def _decode_kquant(t: GgmlType, blocks: torch.Tensor):
+    """Canonical decoding of the K-quants with torch ops, the twin of
+    ggml/quant.py's `_dec_q2_k` ... `_dec_q6_k`: blocks uint8 [..., nb, ts]
+    -> (q int32 [..., nb, 256], scale f32 [..., nb, 256/g], bias f32 |
+    None). Every scale product is exact in f32 (an f16 times at most 8
+    bits), as in the numpy decode."""
+    b = blocks.to(torch.int32)
+    lead = b.shape[:-1]
+
+    def ar(n, *ones):  # 0..n-1 along the dim that has len(ones) dims after
+        return torch.arange(n, dtype=torch.int32, device=b.device).reshape(
+            n, *ones)
+
+    def row_major(x):  # [..., nb, a, b, 32] -> [..., nb, 256]
+        return x.reshape(*lead, QK_K)
+
+    if t in (GgmlType.Q2_K, GgmlType.Q3_K):
+        # element order: half (2) x shift (4) x byte (32)
+        qs_off = 16 if t == GgmlType.Q2_K else 32
+        qs = b[..., qs_off:qs_off + 64].reshape(*lead, 2, 1, 32)
+        shift = ar(4, 1)
+        q = (qs >> (2 * shift)) & 3
+        if t == GgmlType.Q2_K:
+            sc = b[..., 0:16]  # group order == scale byte order
+            return (row_major(q), _f16_field(blocks, 80) * (sc & 0xF),
+                    -(_f16_field(blocks, 82) * (sc >> 4)))
+        hm = b[..., 0:32].reshape(*lead, 1, 1, 32)
+        half = ar(2, 1, 1)
+        q = q | (((hm >> (half * 4 + shift)) & 1) << 2)
+        s = b[..., 96:108]
+        sc = torch.cat([
+            (s[..., 0:4] & 0xF) | ((s[..., 8:12] & 3) << 4),
+            (s[..., 4:8] & 0xF) | (((s[..., 8:12] >> 2) & 3) << 4),
+            (s[..., 0:4] >> 4) | (((s[..., 8:12] >> 4) & 3) << 4),
+            (s[..., 4:8] >> 4) | (((s[..., 8:12] >> 6) & 3) << 4)], -1)
+        return row_major(q), _f16_field(blocks, 108) * (sc - 32), None
+    if t in (GgmlType.Q4_K, GgmlType.Q5_K):
+        # element order: chunk (4) x {low, high nibble} x byte (32)
+        qs_off = 16 if t == GgmlType.Q4_K else 48
+        qs = b[..., qs_off:qs_off + 128].reshape(*lead, 4, 1, 32)
+        sub = ar(2, 1)
+        q = (qs >> (4 * sub)) & 0xF
+        if t == GgmlType.Q5_K:  # chunk c, nibble s: qh bit 2c + s
+            qh = b[..., 16:48].reshape(*lead, 1, 1, 32)
+            chunk = ar(4, 1, 1)
+            q = q | (((qh >> (2 * chunk + sub)) & 1) << 4)
+        sc, mn = _k4_scale_min(b[..., 4:16])
+        return (row_major(q), _f16_field(blocks, 0) * sc,
+                -(_f16_field(blocks, 2) * mn))
+    if t == GgmlType.Q6_K:
+        # element order: half (2) x {q1 .. q4} x byte (32); q1/q3 the low
+        # and high nibbles of ql's first 32 bytes of the half, q2/q4 of its
+        # second 32, the two high bits from qh at 0, 2, 4, 6
+        ql = b[..., 0:128].reshape(*lead, 2, 1, 2, 32)  # [.., half, 1, r&1]
+        qh = b[..., 128:192].reshape(*lead, 2, 1, 1, 32)
+        hi_nib = ar(2, 1, 1)
+        lo4 = (ql >> (4 * hi_nib)) & 0xF  # [..., half, r>>1, r&1, 32]
+        r = 2 * hi_nib + ar(2, 1)
+        q = lo4 | (((qh >> (2 * r)) & 3) << 4)
+        sc = blocks[..., 192:208].contiguous().view(torch.int8).to(
+            torch.int32)  # group order == scale byte order
+        return row_major(q), _f16_field(blocks, 208) * sc, None
+    raise NotImplementedError(t)
+
+
 _SCALAR = (GgmlType.Q4_0, GgmlType.Q4_1, GgmlType.Q5_0, GgmlType.Q5_1,
            GgmlType.Q8_0)
 
 
+def raw_bytes(t: GgmlType, data, K: int, R: int) -> torch.Tensor:
+    """The block bytes of an R x K tensor of type `t` as a host uint8
+    tensor (a copy: reading a memory-mapped file happens here)."""
+    n_bytes = K * R // block_size(t) * type_size(t)
+    return torch.from_numpy(
+        np.frombuffer(data, dtype=np.uint8, count=n_bytes).copy())
+
+
+def decode_plain(t: GgmlType, raw: torch.Tensor, K: int, R: int):
+    """The plain version of `native.decode`, with torch ops on the device
+    of `raw` (uint8 block bytes): (q int32 [R, K], scale f32 [R, K/g],
+    bias f32 [R, K/g] | None), bit-equal to ggml/quant.decode_blocks."""
+    blocks = raw.reshape(R, K // block_size(t), type_size(t))
+    dec = _decode_scalar if t in _SCALAR else _decode_kquant
+    q, s, b = dec(t, blocks)
+    return (q.reshape(R, K), s.reshape(R, -1),
+            b.reshape(R, -1) if b is not None else None)
+
+
 def decode_ggml(t: GgmlType, data, K: int, R: int, device):
     """(q int32 [R, K], scale f32 [R, K/g], bias f32 [R, K/g] | None) on
-    `device`. The 32-block formats decode there with torch ops; K-quants
-    decode on the host (ggml/quant.py) and are then moved."""
-    if t in _SCALAR:
-        n_bytes = K * R // block_size(t) * type_size(t)
-        raw = torch.from_numpy(
-            np.frombuffer(data, dtype=np.uint8, count=n_bytes).copy()
-        )
-        blocks = raw.to(device).reshape(R, K // block_size(t), type_size(t))
-        q, s, b = _decode_scalar(t, blocks)
-        return (q.reshape(R, K), s.reshape(R, -1),
-                b.reshape(R, -1) if b is not None else None)
-    dec = decode_blocks(t, data, K * R)
-    g = dec.gsize
-    q = torch.from_numpy(dec.q.reshape(R, K)).to(device)
-    s = torch.from_numpy(np.ascontiguousarray(
-        dec.scale.reshape(R, K // g), np.float32)).to(device)
-    b = (torch.from_numpy(np.ascontiguousarray(
-        dec.bias.reshape(R, K // g), np.float32)).to(device)
-        if dec.bias is not None else None)
-    return q, s, b
+    `device`: the raw block bytes are copied there and decoded, on a CUDA
+    device by the codec kernel (`native.decode`), on the CPU by
+    `decode_plain`."""
+    from llm_tpu_torch import native  # (native imports this module)
+
+    raw = raw_bytes(t, data, K, R).to(device)
+    if raw.is_cuda:
+        return native.decode(t, raw, K, R)
+    return decode_plain(t, raw, K, R)
 
 
 def k_granule(fmt: QFormat, K: int) -> int:

@@ -184,6 +184,15 @@ def _tensor_names(
     return out
 
 
+# byte offsets of each format's f16 fields (d, and dmin or m)
+_F16_FIELDS = {
+    GgmlType.Q4_0: [0], GgmlType.Q4_1: [0, 2], GgmlType.Q5_0: [0],
+    GgmlType.Q5_1: [0, 2], GgmlType.Q8_0: [0], GgmlType.Q2_K: [80, 82],
+    GgmlType.Q3_K: [108], GgmlType.Q4_K: [0, 2], GgmlType.Q5_K: [0, 2],
+    GgmlType.Q6_K: [208],
+}
+
+
 def _random_kquant(rng, t: GgmlType, n: int) -> bytes:
     """Random valid K-quant block bytes (we read K-quants but, like the
     reference, never write them from floats — quantize.rs:224-244)."""
@@ -194,17 +203,49 @@ def _random_kquant(rng, t: GgmlType, n: int) -> bytes:
     d16 = (
         np.float16(rng.uniform(0.001, 0.05, size=nb)).view(np.uint8).reshape(nb, 2)
     )
-    offs = {
-        GgmlType.Q2_K: [80, 82], GgmlType.Q3_K: [108],
-        GgmlType.Q4_K: [0, 2], GgmlType.Q5_K: [0, 2], GgmlType.Q6_K: [208],
-    }[t]
-    for o in offs:
+    for o in _F16_FIELDS[t]:
         raw[:, o : o + 2] = d16
     return raw.tobytes()
 
 
 _K_QUANTS = {GgmlType.Q2_K, GgmlType.Q3_K, GgmlType.Q4_K, GgmlType.Q5_K,
              GgmlType.Q6_K}
+
+# the K-quants' packed sub-block scale bytes
+_SCALE_BYTES = {GgmlType.Q2_K: (0, 16), GgmlType.Q3_K: (96, 108),
+                GgmlType.Q4_K: (4, 16), GgmlType.Q5_K: (4, 16),
+                GgmlType.Q6_K: (192, 208)}
+# f16 bit patterns of the edge blocks' d fields: zero, -0.0, a negative
+# normal, the smallest and a mid subnormal, a negative subnormal
+EDGE_F16 = (0x0000, 0x8000, 0xA24E, 0x0001, 0x0203, 0x83FF)
+
+
+def codec_blocks(t: GgmlType, K: int, R: int, rng, edges: bool = False):
+    """Raw block bytes (uint8 numpy, R * K / bs blocks) of a [K, R] tensor
+    of type `t` for the codec checks: random bytes with finite f16 fields.
+    `edges` rewrites the first blocks: one block for each d of EDGE_F16
+    (dmin or m alike), then for a K-quant a block with every packed scale
+    byte 0xFF (6-bit scales and mins all 63; Q2_K's 15; Q3_K's 63 - 32;
+    Q6_K's -1) and a block with every scale byte 0x80 (Q6_K's -128) and
+    one with 0x7F (Q6_K's 127)."""
+    from llm_tpu_torch.ggml.types import block_size, type_size
+
+    nb = K * R // block_size(t)
+    raw = np.frombuffer(
+        _random_kquant(rng, t, K * R) if t in _K_QUANTS
+        else _random_scalar_quant(rng, t, K * R), np.uint8
+    ).reshape(nb, type_size(t)).copy()
+    if not edges:
+        return raw.reshape(-1)
+    special = [np.array([h], np.uint16).view(np.uint8) for h in EDGE_F16]
+    for i, h in enumerate(special):
+        for o in _F16_FIELDS[t]:
+            raw[i, o:o + 2] = h
+    if t in _SCALE_BYTES:
+        a, b = _SCALE_BYTES[t]
+        for i, v in enumerate((0xFF, 0x80, 0x7F)):
+            raw[len(special) + i, a:b] = v
+    return raw.reshape(-1)
 
 
 def make_tiny_file(
@@ -282,12 +323,7 @@ def _random_scalar_quant(rng, t: GgmlType, n: int) -> bytes:
         .view(np.uint8)
         .reshape(nb, 2)
     )
-    offs = {
-        GgmlType.Q4_0: [0], GgmlType.Q8_0: [0],
-        GgmlType.Q4_1: [0, 2], GgmlType.Q5_0: [0],
-        GgmlType.Q5_1: [0, 2],
-    }[t]
-    for o in offs:
+    for o in _F16_FIELDS[t]:
         raw[:, o : o + 2] = d16
     return raw.tobytes()
 

@@ -248,7 +248,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "llm_tpu_torch.tokenizer.bpe", "llm_tpu_torch.snapshot",
             "llm_tpu_torch.harness", "llm_tpu_torch.speculative",
             "llm_tpu_torch.lora", "llm_tpu_torch.quantize",
-            "llm_tpu_torch.convert_hf", "llm_tpu_torch.engine_snapshot"} \
+            "llm_tpu_torch.convert_hf", "llm_tpu_torch.engine_snapshot",
+            "llm_tpu_torch.native"} \
         <= set(modules)
     # importing every module of the port loads neither package
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
