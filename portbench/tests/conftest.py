@@ -1,0 +1,27 @@
+"""The benchmark's own tests: `python -m pytest portbench/tests -q` from
+the root of a checkout. Tests marked `card` need a CUDA device and skip
+without one (decided inside the `card` fixture, never at import)."""
+
+import os
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device (skips without one)")
+
+
+@pytest.fixture
+def card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda:0")
