@@ -46,6 +46,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from llm_tpu_torch import trace
 from llm_tpu_torch.models.params import LayerParams, ModelParams
 from llm_tpu_torch.models.spec import ModelSpec, ShardSpec
 from llm_tpu_torch.ops import dense_attention, paged_attention
@@ -738,31 +739,34 @@ def _capture(g: DecodeGraph, dev, step) -> None:
     and npast go back to their loaded values. A dense cache's warm-up
     writes its rows at npast, which no read sees before the first replay
     overwrites them; a paged step writes only the block's rows. Raises if
-    the capture fails: there is no eager fallback on the card."""
-    st = g.state
-    # the buffers a step advances (a forward graph has no step index)
-    loaded = {k: st[k].clone() for k in ("i", "npast") if k in st}
-    s = torch.cuda.Stream(dev)
-    s.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(s):
-        for _ in range(_WARMUPS):
-            for k, v in loaded.items():
-                st[k].copy_(v)
+    the capture fails: there is no eager fallback on the card. The whole
+    of it is the `graph.capture` span; `g.capture_s` times the capture
+    alone."""
+    with trace.span("graph.capture"):
+        st = g.state
+        # the buffers a step advances (a forward graph has no step index)
+        loaded = {k: st[k].clone() for k in ("i", "npast") if k in st}
+        s = torch.cuda.Stream(dev)
+        s.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(s):
+            for _ in range(_WARMUPS):
+                for k, v in loaded.items():
+                    st[k].copy_(v)
+                step()
+        torch.cuda.current_stream(dev).wait_stream(s)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before = _launch_counts()
+        t0 = time.monotonic()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=s):
             step()
-    torch.cuda.current_stream(dev).wait_stream(s)
-    torch.cuda.synchronize(dev)
-    torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved(dev)
-    before = _launch_counts()
-    t0 = time.monotonic()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=s):
-        step()
-    torch.cuda.synchronize(dev)
-    g.capture_s = time.monotonic() - t0
-    g.launches = {k: v - before[k] for k, v in _launch_counts().items()}
-    g.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-    g.graph = graph
+        torch.cuda.synchronize(dev)
+        g.capture_s = time.monotonic() - t0
+        g.launches = {k: v - before[k] for k, v in _launch_counts().items()}
+        g.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        g.graph = graph
 
 
 def _graph_entry(graphs: dict, key, make) -> DecodeGraph:

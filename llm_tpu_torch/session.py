@@ -226,33 +226,31 @@ class InferenceSession:
         (padding there would run the cache write past its end)."""
         spec = self.model.spec
         n = len(batch)
-        _span = trace.span(f"evaluate[{n}]", level=2)
-        _span.__enter__()
-        bucket = 1 if n == 1 else self.config.n_batch
-        if n > bucket:
-            bucket = n
-        if self.n_past + bucket > spec.n_ctx:
-            bucket = n
-        ids = np.zeros(bucket, dtype=np.int64)
-        ids[:n] = np.asarray(batch, dtype=np.int64)
+        with trace.span(f"evaluate[{n}]", level=2):
+            bucket = 1 if n == 1 else self.config.n_batch
+            if n > bucket:
+                bucket = n
+            if self.n_past + bucket > spec.n_ctx:
+                bucket = n
+            ids = np.zeros(bucket, dtype=np.int64)
+            ids[:n] = np.asarray(batch, dtype=np.int64)
 
-        logits, hidden, self.cache = forward_step(
-            spec,
-            self.model.params,
-            torch.from_numpy(ids),
-            self.n_past,
-            self.cache,
-            window_bucket(self.n_past, spec.n_ctx),
-        )
-        want_all = output_request is not None and (
-            output_request.all_logits is not None
-        )
-        if want_all:
-            logits = logits[:n].cpu().numpy()
-            self.last_logits = logits[-1]
-        else:
-            self.last_logits = logits[n - 1].cpu().numpy()
-        _span.__exit__(None, None, None)
+            logits, hidden, self.cache = forward_step(
+                spec,
+                self.model.params,
+                torch.from_numpy(ids),
+                self.n_past,
+                self.cache,
+                window_bucket(self.n_past, spec.n_ctx),
+            )
+            want_all = output_request is not None and (
+                output_request.all_logits is not None
+            )
+            if want_all:
+                logits = logits[:n].cpu().numpy()
+                self.last_logits = logits[-1]
+            else:
+                self.last_logits = logits[n - 1].cpu().numpy()
         self.n_past += n
         if output_request is not None:
             if want_all:
@@ -281,20 +279,21 @@ class InferenceSession:
 
         bot = model.bot_token_id()
         halted = False
-        for start in range(0, len(prompt_tokens), self.config.n_batch):
-            if halted:
-                break
-            chunk = prompt_tokens[start : start + self.config.n_batch]
-            self._evaluate(chunk, output_request)
-            for tk in chunk:
-                token = self._decode_incremental(tk)
-                if callback is not None and tk != bot:
-                    fb = callback(bytes(token))
-                    if fb is InferenceFeedback.Halt:
-                        halted = True
-                        break
-                self.tokens.append(tk)
-                self.decoded_tokens.extend(token)
+        with trace.span("session.prefill"):
+            for start in range(0, len(prompt_tokens), self.config.n_batch):
+                if halted:
+                    break
+                chunk = prompt_tokens[start : start + self.config.n_batch]
+                self._evaluate(chunk, output_request)
+                for tk in chunk:
+                    token = self._decode_incremental(tk)
+                    if callback is not None and tk != bot:
+                        fb = callback(bytes(token))
+                        if fb is InferenceFeedback.Halt:
+                            halted = True
+                            break
+                    self.tokens.append(tk)
+                    self.decoded_tokens.extend(token)
 
     def _decode_incremental(self, tk: TokenId) -> bytes:
         """Token bytes for callbacks BEFORE tk is appended to self.tokens;
@@ -350,6 +349,7 @@ class InferenceSession:
         self.decoded_tokens.extend(res)
         return bytes(res)
 
+    @trace.span("session.request")
     def infer(
         self,
         request: InferenceRequest,
@@ -413,6 +413,7 @@ class InferenceSession:
         stats.predict_tokens = self.n_past
         return stats
 
+    @trace.span("session.request")
     def infer_device(
         self,
         prompt: Union[str, Sequence[TokenId], Prompt],
@@ -460,55 +461,60 @@ class InferenceSession:
             steps = min(n_steps, remaining, spec.n_ctx - 1 - self.n_past)
             if steps <= 0:
                 break
-            window = window_bucket(self.n_past + steps, spec.n_ctx)
-            pstate = None
-            if sampler is not None and sampler.has_penalties:
-                # the penalty window from the session history, a block at a
-                # time; the loop updates it on the device
-                st = penalty_state([self.tokens], sampler.penalty_last_n,
-                                   spec.n_vocab, device=dev)
-                pstate = {k: v[0] for k, v in st.items()}
-            miro = sampler is not None and sampler.mirostat != 0
-            if miro:
-                # a different sampler starts afresh at 2 * tau
-                if (self._mirostat_mu is None
-                        or self._mirostat_sampler != sampler):
-                    self._mirostat_mu = mirostat_mu_init(sampler)
-                    self._mirostat_sampler = sampler
-                pstate = {**(pstate or {}), "mu": torch.tensor(
-                    self._mirostat_mu, dtype=torch.float32)}
-            out = decode_loop(spec, model.params, self.last_logits,
-                              self.n_past, self.cache, steps, window, sampler,
-                              key, pstate, return_state=miro)
-            toks = out[0].cpu().numpy()
-            hit = (np.nonzero(toks == eot)[0] if halt_on_eot
-                   else np.array([], np.int64))
-            n_keep = int(hit[0]) + 1 if hit.size else steps
-            if miro:
-                # mu at the truncation point: the block-final mu folds in
-                # the surprises of overshoot tokens the host discards
-                self._mirostat_mu = float(out[4]["mu_steps"][n_keep - 1])
-            for t in toks[:n_keep]:
-                t = int(t)
-                self.tokens.append(t)
-                piece = self._diff_decode(self.tokens, t)
-                self.decoded_tokens.extend(piece)
-                if t != eot:
-                    text = buf.push(piece)
-                    if text and callback:
-                        callback(text)
-            self.n_past += n_keep
-            remaining -= n_keep
-            if hit.size and n_keep < steps:
-                # EoT mid-block: the loop's final logits are the block's
-                # end, not the truncation point's; evaluate the last kept
-                # token again (it rewrites the same cache row)
-                self.n_past -= 1
-                self._evaluate([int(toks[n_keep - 1])], None)
-                break
-            self.last_logits = out[1].cpu().numpy()
-            if hit.size:
-                break
+            with trace.span("session.block", level=2):
+                window = window_bucket(self.n_past + steps, spec.n_ctx)
+                pstate = None
+                if sampler is not None and sampler.has_penalties:
+                    # the penalty window from the session history, a block
+                    # at a time; the loop updates it on the device
+                    st = penalty_state([self.tokens], sampler.penalty_last_n,
+                                       spec.n_vocab, device=dev)
+                    pstate = {k: v[0] for k, v in st.items()}
+                miro = sampler is not None and sampler.mirostat != 0
+                if miro:
+                    # a different sampler starts afresh at 2 * tau
+                    if (self._mirostat_mu is None
+                            or self._mirostat_sampler != sampler):
+                        self._mirostat_mu = mirostat_mu_init(sampler)
+                        self._mirostat_sampler = sampler
+                    pstate = {**(pstate or {}), "mu": torch.tensor(
+                        self._mirostat_mu, dtype=torch.float32)}
+                out = decode_loop(spec, model.params, self.last_logits,
+                                  self.n_past, self.cache, steps, window,
+                                  sampler, key, pstate, return_state=miro)
+                toks = out[0].cpu().numpy()
+                with trace.span("session.block.host", level=2):
+                    hit = (np.nonzero(toks == eot)[0] if halt_on_eot
+                           else np.array([], np.int64))
+                    n_keep = int(hit[0]) + 1 if hit.size else steps
+                    if miro:
+                        # mu at the truncation point: the block-final mu
+                        # folds in the surprises of overshoot tokens the
+                        # host discards
+                        self._mirostat_mu = float(
+                            out[4]["mu_steps"][n_keep - 1])
+                    for t in toks[:n_keep]:
+                        t = int(t)
+                        self.tokens.append(t)
+                        piece = self._diff_decode(self.tokens, t)
+                        self.decoded_tokens.extend(piece)
+                        if t != eot:
+                            text = buf.push(piece)
+                            if text and callback:
+                                callback(text)
+                    self.n_past += n_keep
+                    remaining -= n_keep
+                    if hit.size and n_keep < steps:
+                        # EoT mid-block: the loop's final logits are the
+                        # block's end, not the truncation point's; evaluate
+                        # the last kept token again (it rewrites the same
+                        # cache row)
+                        self.n_past -= 1
+                        self._evaluate([int(toks[n_keep - 1])], None)
+                        break
+                    self.last_logits = out[1].cpu().numpy()
+                    if hit.size:
+                        break
 
         stats.predict_duration = time.monotonic() - start_at
         stats.predict_tokens = self.n_past
