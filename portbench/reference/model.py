@@ -1,15 +1,8 @@
-"""The plain reference of Falcon-7B: its forward pass in f32 with plain
-torch ops (TF32 off), no cache and no batching, over the same raw GGML
-bytes the program loads.
-
-Equations (as published in tiiuae `modelling_RW`, `parallel_attn`,
-`multi_query`, with ggml's numerics where the two differ): a = LN(h) with
-bias, eps 1e-5; h += Wdense . attn(a) + W4h_to_h . gelu(Wh_to_4h . a);
-q|k|v rows: the 71 query heads, then the one key head and the one value
-head; scores q.k / sqrt(d_head); rotary (NeoX halves) over the whole
-head, base 10000; a separate lm_head.
-Departure: GELU is ggml's tanh approximation, which the ported system
-computes, where the published models use the exact erf form.
+"""What every architecture's plain reference (`reference/<arch>.py`)
+shares: f32 weights from the raw GGML bytes the program loads, a matmul
+in f32 with TF32 off or in the control's lower precision, the logits of
+chosen rows one sequence at a time, and plain torch forms of the
+operations more than one architecture uses.
 
 `precision="fp8"` is the control: each matmul's activation rounded to
 float8 e4m3 with a scale a row, and each weight to bf16.
@@ -24,22 +17,21 @@ import torch
 
 from portbench.reference.ggml import dequant
 
-LN_EPS = 1e-5
 
-
-def _layer_norm(x, w, b):
+def layer_norm(x, w, b, eps: float):
     mu = x.mean(-1, keepdim=True)
     xc = x - mu
     var = (xc * xc).mean(-1, keepdim=True)
-    return xc / torch.sqrt(var + LN_EPS) * w + b
+    return xc / torch.sqrt(var + eps) * w + b
 
 
-def _gelu(x):
+def gelu_tanh(x):
+    """ggml's GELU: the tanh approximation."""
     return 0.5 * x * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
                                         * (x + 0.044715 * x ** 3)))
 
 
-def _rope_neox(x, base: float = 10000.0):
+def rope_neox(x, base: float = 10000.0):
     """x [T, H, D] at positions 0..T-1, rotated over the whole head."""
     T, _, D = x.shape
     half = D // 2
@@ -52,7 +44,7 @@ def _rope_neox(x, base: float = 10000.0):
     return torch.cat([x0 * cos - x1 * sin, x0 * sin + x1 * cos], dim=-1)
 
 
-def _attend(q, k, v):
+def attend(q, k, v):
     """Causal attention: q [T, H, D], k and v [T, Hkv, D] -> [T, H * D]."""
     T, H, D = q.shape
     rep = H // k.shape[1]
@@ -65,11 +57,12 @@ def _attend(q, k, v):
     return torch.einsum("hij,jhd->ihd", p, v).reshape(T, H * D)
 
 
-class Reference:
+class Base:
     """The forward pass of one checkpoint (`hp`: the port-independent
-    hyperparameters; `tensors`: name -> (format, dims, host uint8 array)),
-    layer by layer on `device`, so that one layer's f32 weights are
-    resident at a time."""
+    hyperparameters; `tensors`: name -> (format, dims, host uint8 array))
+    on `device`. An architecture's `Reference` subclasses it and defines
+    `_logits(seqs, rows, reduce)`, going layer by layer so that one
+    layer's f32 weights are resident at a time."""
 
     def __init__(self, hp: dict, tensors: dict, device,
                  precision: str = "f32"):
@@ -92,30 +85,6 @@ class Reference:
             w = w.to(torch.bfloat16).to(torch.float32)
         return x @ w.t()
 
-    def _falcon_layer(self, i, hs):
-        p = f"transformer.h.{i}"
-        hp = self.hp
-        E, H, Hkv = hp["n_embd"], hp["n_head"], hp["n_head_kv"]
-        D = E // H
-        lw, lb = (self.w(f"{p}.input_layernorm.weight"),
-                  self.w(f"{p}.input_layernorm.bias"))
-        wqkv = self.w(f"{p}.self_attention.query_key_value.weight")
-        wd = self.w(f"{p}.self_attention.dense.weight")
-        w4h, w4h_h = (self.w(f"{p}.mlp.dense_h_to_4h.weight"),
-                      self.w(f"{p}.mlp.dense_4h_to_h.weight"))
-        out = []
-        for h in hs:
-            T = h.shape[0]
-            a = _layer_norm(h, lw, lb)
-            qkv = self.mm(a, wqkv)
-            q = qkv[:, :H * D].reshape(T, H, D)
-            k = qkv[:, H * D:(H + Hkv) * D].reshape(T, Hkv, D)
-            v = qkv[:, (H + Hkv) * D:].reshape(T, Hkv, D)
-            o = _attend(_rope_neox(q), _rope_neox(k), v)
-            h = h + self.mm(o, wd) + self.mm(_gelu(self.mm(a, w4h)), w4h_h)
-            out.append(h)
-        return out
-
     @torch.no_grad()
     def logits(self, seqs: list, rows: list, reduce=None) -> list:
         """For each token sequence, the logits [len(rows[i]), V] of the
@@ -133,20 +102,4 @@ class Reference:
              torch.backends.cudnn.allow_tf32) = prev
 
     def _logits(self, seqs, rows, reduce):
-        if self.hp["arch"] != "falcon":
-            raise ValueError(f"no reference of {self.hp['arch']!r}")
-        emb = self.w("transformer.word_embeddings.weight")
-        hs = [emb[torch.as_tensor(s, dtype=torch.long, device=self.dev)]
-              for s in seqs]
-        del emb
-        for i in range(self.hp["n_layer"]):
-            hs = self._falcon_layer(i, hs)
-        nw, nb, head = (self.w("transformer.ln_f.weight"),
-                        self.w("transformer.ln_f.bias"),
-                        self.w("lm_head.weight"))
-        out = []
-        for i, (h, r) in enumerate(zip(hs, rows)):
-            x = _layer_norm(h[torch.as_tensor(r, dtype=torch.long,
-                                              device=self.dev)], nw, nb)
-            out.append(reduce(i, self.mm(x, head)))
-        return out
+        raise NotImplementedError

@@ -2,8 +2,11 @@
 published widths and its formats, whatever implements them; and the
 least time the card could take for them.
 
-A quantized weight is its GGML block bytes (Q4_0: 4.5 bits a weight),
-read once a forward call. A matmul reads its activations as bf16
+An architecture's file (`archs/<arch>.py`) gives its `shape_of(cfg, hp)`:
+an object with `matmul(rows, head_rows)` and `attention(queries,
+rows_read)`, each returning a Cost. `Shape` below is the dense one. A
+quantized weight is its GGML block bytes (the format file's `BITS` a
+weight), read once a forward call. A matmul reads its activations as bf16
 and writes f32. Attention at position p reads the p + 1 cached rows of
 every layer once (K and V, each kv head's D elements in the cache's
 element type plus its scale) and the query, and writes the output, both
@@ -20,9 +23,6 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
-
-# bits a weight of each block format (block bytes * 8 / block elements)
-BITS = {"q4_0": 18 * 8 / 32}
 
 
 def peaks(device_name: str):
@@ -87,17 +87,6 @@ class Shape:
         flops = 4.0 * hd * sum(p + 1 for p in queries)
         nbytes = rows_read * self.kv_row_bytes() + len(queries) * hd * 8
         return Cost(flops * self.n_layer, nbytes * self.n_layer)
-
-
-def shape_of(cfg: dict, hp: dict) -> Shape:
-    E, F = hp["n_embd"], hp["n_ff"]
-    hd = E // hp["n_head"]
-    qkv = hd * (hp["n_head"] + 2 * hp["n_head_kv"])
-    mats = [(E, qkv), (E, E), (E, F), (F, E)]
-    kv = cfg["kv_bytes"]
-    return Shape(hp["n_layer"], E, hp["n_head"], hp["n_head_kv"],
-                 hp["n_vocab"], mats, BITS[cfg["format"]],
-                 kv["element"], kv["scale"])
 
 
 @dataclass

@@ -7,8 +7,12 @@ from the root of a checkout, on a machine with the card(s) the cell asks
 for. The cell names a configuration (`portbench/configs/<config>.json`)
 and a traffic mix (`portbench/traffic/<traffic>.json`), which names the
 driver that puts it through the port (`portbench/drivers/<driver>.py`);
-its limits are in `portbench/limits/<cell>.json`, and each metric is read
-by `portbench/metrics/<metric>.py`. A run:
+the configuration names its architecture (`portbench/archs/<arch>.py`,
+with its plain reference in `portbench/reference/<arch>.py`) and its
+block format (`portbench/formats/<format>.py`); the cell's limits are in
+`portbench/limits/<cell>.json`, and each metric is read by
+`portbench/metrics/<metric>.py` (`portbench/plugins.py` finds each file
+by its name). A run:
 
 1. set-up: builds the port's kernels once into the checkout's
    `build/kernels`, makes the checkpoint from the seed on the card, builds
@@ -35,7 +39,6 @@ T_START = time.monotonic()
 
 import argparse  # noqa: E402
 import gc  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -49,6 +52,8 @@ if str(ROOT) not in sys.path:
 os.environ.setdefault("USE_FLAX", "0")
 os.environ.setdefault("USE_JAX", "0")
 
+from portbench import plugins  # noqa: E402
+
 FORBIDDEN = ("jax", "jaxlib", "flax", "llm_tpu")
 HERE = Path(__file__).resolve().parent
 
@@ -57,22 +62,14 @@ def load_json(*parts) -> dict:
     return json.loads(HERE.joinpath(*parts).read_text())
 
 
-def _module(folder: str, name: str):
-    spec = importlib.util.spec_from_file_location(
-        f"portbench_{folder}_{name}", HERE / folder / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def reader(name: str):
     """The `read(run)` function of portbench/metrics/<name>.py."""
-    return _module("metrics", name).read
+    return plugins.load("metrics", name).read
 
 
 def driver_class(name: str):
     """The `Driver` class of portbench/drivers/<name>.py."""
-    return _module("drivers", name).Driver
+    return plugins.load("drivers", name).Driver
 
 
 def cell_metrics(bench: dict, section: str, cell: str) -> list:
@@ -95,7 +92,6 @@ def run_cell(cfg: dict, traffic: dict, limits: dict, metric_defs: list,
 
     from portbench import check, roofline
     from portbench.profile import profiled
-    from portbench.reference.model import Reference
     from portbench.traffic import RequestStream
     from portbench.weights import EOT_ID, build_model, make_checkpoint
     from portbench.window import Timeline, p95
@@ -152,6 +148,7 @@ def run_cell(cfg: dict, traffic: dict, limits: dict, metric_defs: list,
         torch.cuda.empty_cache()
 
     # what the window served, against the plain reference
+    Reference = plugins.load("reference", cfg["arch"]).Reference
     banned = (EOT_ID,) if settings["ban_eot"] else ()
     picked = check.pick(sample, seed, traffic["check"]["requests"])
     gap, cmp = None, {}
@@ -173,7 +170,7 @@ def run_cell(cfg: dict, traffic: dict, limits: dict, metric_defs: list,
                and failed == 0
                and n_checked >= traffic["check"]["min_tokens"])
 
-    shape = roofline.shape_of(cfg, ckpt.hp)
+    shape = plugins.arch(cfg["arch"]).shape_of(cfg, ckpt.hp)
     kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     run = SimpleNamespace(

@@ -5,10 +5,12 @@ reference before the card trusts it."""
 import numpy as np
 import torch
 
+from portbench import plugins
 from portbench.reference.ggml import dequant
-from portbench.reference.model import Reference
 from portbench.tests import tiny
-from portbench.weights import build_model, make_checkpoint
+from portbench.weights import build_model, ggml_type, make_checkpoint
+
+Reference = plugins.load("reference", tiny.FALCON["arch"]).Reference
 
 
 def test_reference_logits_equal_the_ports():
@@ -34,22 +36,24 @@ def test_reference_logits_equal_the_ports():
 
 
 def test_dequant_equals_the_ports_decode():
-    from llm_tpu_torch.ggml.types import GgmlType
-    from llm_tpu_torch.ops.packing import decode_plain
+    from llm_tpu_torch.ops.packing import FORMATS, decode_plain
 
     ckpt = make_checkpoint(tiny.FALCON, 99, "cpu")
+    n = 0
     for name, (fmt, dims, raw) in ckpt.tensors.items():
-        if fmt != "q4_0":
+        if fmt == "f32":
             continue
         K, R = dims
-        q, s, b = decode_plain(GgmlType.Q4_0, torch.from_numpy(raw.copy()),
-                               K, R)
+        t = ggml_type(fmt)
+        q, s, b = decode_plain(t, torch.from_numpy(raw.copy()), K, R)
         assert b is None
         g = K // s.shape[1]
-        # the canonical decode keeps the nibble; w = d(q - 8)
-        port = (q - 8).float() * s.repeat_interleave(g, 1)
+        # the canonical decode keeps the stored field; w = d(q - zero)
+        port = (q - FORMATS[t].zero).float() * s.repeat_interleave(g, 1)
         mine = dequant(fmt, torch.from_numpy(raw.copy()), dims)
         assert torch.equal(mine, port), name
+        n += 1
+    assert n == 4 * tiny.FALCON["num_hidden_layers"] + 2
 
 
 def test_weights_have_a_trained_models_spread():

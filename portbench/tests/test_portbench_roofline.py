@@ -6,7 +6,8 @@ from pathlib import Path
 
 import pytest
 
-from portbench.roofline import Work, peaks, shape_of
+from portbench import plugins
+from portbench.roofline import Work, peaks
 from portbench.weights import hparams
 
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
@@ -14,7 +15,7 @@ CONFIGS = Path(__file__).resolve().parent.parent / "configs"
 
 def shape(name):
     cfg = json.loads((CONFIGS / f"{name}.json").read_text())
-    return shape_of(cfg, hparams(cfg))
+    return plugins.arch(cfg["arch"]).shape_of(cfg, hparams(cfg))
 
 
 def test_falcon_decode_step_by_hand():

@@ -1,16 +1,20 @@
 """A cell's checkpoint, made from the seed on the card, and the port's model built from it.
 
-The block bytes are random valid GGML blocks, as `llm_tpu_torch.testing`'s
-`_random_scalar_quant` makes them (copied here, not imported): random
-bytes with every f16 scale field rewritten. The scales
-are drawn from the configuration's `weights` ranges, chosen so that a
-dequantized weight has the spread of a trained 7B model's (std ~0.02); the
-repo's test generator draws scales up to 50x larger, which makes attention
+The architecture's file (`archs/<arch>.py`) lists the tensors; each
+block format's file (`formats/<fmt>.py`) draws random valid blocks of its
+kind: random bytes with every scale field rewritten, the scales drawn
+from the configuration's `weights` ranges, chosen so that a dequantized
+weight has the spread of a trained 7B model's (std ~0.02); the repo's
+test generator draws scales up to 50x larger, which makes attention
 one-hot and the logits chaotic (ROADMAP C), so that no comparison could
-tell bf16 rounding from a fault.
+tell bf16 rounding from a fault. f32 tensors are `weights["norm_std"]`
+times normal noise, plus 1 for a vector not named `.bias` (a norm's
+weight).
 
 The bytes are made on the card with one `torch.Generator` in a few large
-calls, copied to the host once, and handed to the port's own load path
+calls (every block format's blocks in one, in the order the formats first
+appear in the tensor list, then every f32 tensor in one), copied to the
+host once, and handed to the port's own load path
 (`models.params.build_params` over a `WeightSource`) through a reader over
 host memory with `GgmlReader`'s `tensors` / `fetch` interface: the H2D of
 each tensor's raw bytes, `native.decode` and `pack_decoded` all run.
@@ -19,108 +23,87 @@ Nothing goes through a file.
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-# elements a block, bytes a block, byte offset of the f16 scale field d
-FORMATS = {
-    "q4_0": (32, 18, 0),
-}
+from portbench import plugins
 
 
 def hparams(cfg: dict) -> dict:
-    """The port's hyperparameters from the configuration's published keys."""
-    arch = cfg["arch"]
-    if arch == "falcon":
-        e = cfg["hidden_size"]
-        return dict(arch=arch, n_embd=e, n_head=cfg["num_attention_heads"],
-                    n_head_kv=1 if cfg["multi_query"] else
-                    cfg["num_attention_heads"],
-                    n_layer=cfg["num_hidden_layers"],
-                    n_vocab=cfg["vocab_size"], n_ff=cfg["ffn_hidden_size"])
-    raise ValueError(f"no architecture {arch!r}")
+    """The harness's hyperparameters from the configuration's published
+    keys, by its architecture's file."""
+    return plugins.arch(cfg["arch"]).hparams(cfg)
 
 
-def tensor_list(hp: dict) -> list[tuple[str, tuple[int, ...]]]:
-    """(name, ggml dims (K, R) or (E,)) of every tensor, in the names the
-    port's builders read (as `llm_tpu_torch.testing._tensor_names`)."""
-    E, V, L, F = hp["n_embd"], hp["n_vocab"], hp["n_layer"], hp["n_ff"]
-    hd = E // hp["n_head"]
-    fused = hd * (hp["n_head"] + 2 * hp["n_head_kv"])
-    out = [("transformer.word_embeddings.weight", (E, V)),
-           ("transformer.ln_f.weight", (E,)),
-           ("transformer.ln_f.bias", (E,)),
-           ("lm_head.weight", (E, V))]
-    for i in range(L):
-        p = f"transformer.h.{i}"
-        out += [(f"{p}.input_layernorm.weight", (E,)),
-                (f"{p}.input_layernorm.bias", (E,)),
-                (f"{p}.self_attention.query_key_value.weight", (E, fused)),
-                (f"{p}.self_attention.dense.weight", (E, E)),
-                (f"{p}.mlp.dense_h_to_4h.weight", (E, F)),
-                (f"{p}.mlp.dense_4h_to_h.weight", (F, E))]
+def tensors_of(cfg: dict, hp: dict) -> list:
+    """(name, ggml dims, format) of every tensor the architecture's file
+    lists: the format it names, or else the configuration's block format
+    for a matrix and f32 for a vector."""
+    out = []
+    for name, dims, *own in plugins.arch(hp["arch"]).tensor_list(hp):
+        fmt = own[0] if own else cfg["format"] if len(dims) == 2 else "f32"
+        out.append((name, tuple(dims), fmt))
     return out
 
 
 @dataclass
 class Checkpoint:
     """Raw tensors in host memory: name -> (format name, dims, uint8 array);
-    the format is "f32" for the 1-D norms and biases."""
+    the format is "f32" for the vectors and any tensor the architecture
+    keeps in f32."""
 
     hp: dict
     tensors: dict
 
 
-def _scale_bits(gen, n: int, lo: float, hi: float, dev) -> torch.Tensor:
-    d = torch.rand(n, generator=gen, device=dev) * (hi - lo) + lo
-    return d.to(torch.float16).view(torch.uint8).view(n, 2)
-
-
 def make_checkpoint(cfg: dict, seed: int, device) -> Checkpoint:
-    """Every tensor of the configuration from `seed`: one buffer of block
-    bytes and one of f32 vectors, each made on `device` and copied to the
-    host once."""
+    """Every tensor of the configuration from `seed`: one buffer of blocks
+    for each block format and one of f32 values, each made on `device` and
+    copied to the host once."""
     hp = hparams(cfg)
-    fmt = cfg["format"]
-    bs, ts, d_at = FORMATS[fmt]
+    entries = tensors_of(cfg, hp)
     w = cfg["weights"]
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    names = tensor_list(hp)
-    mats = [(n, d) for n, d in names if len(d) == 2]
-    vecs = [(n, d) for n, d in names if len(d) == 1]
+    tensors = {}
+    for fmt in dict.fromkeys(f for _, _, f in entries if f != "f32"):
+        kind = plugins.fmt(fmt)
+        mine = [(n, d) for n, d, f in entries if f == fmt]
+        n_blocks = [math.prod(d) // kind.ELEMENTS for _, d in mine]
+        raw = kind.draw(gen, sum(n_blocks), w, dev)
+        raw_host = raw.reshape(-1).cpu().numpy()
+        del raw
+        off = 0
+        for (name, dims), nb in zip(mine, n_blocks):
+            tensors[name] = (fmt, dims, raw_host[off:off + nb * kind.BYTES])
+            off += nb * kind.BYTES
 
-    n_blocks = [d[0] * d[1] // bs for _, d in mats]
-    total = sum(n_blocks)
-    raw = torch.randint(0, 256, (total, ts), dtype=torch.uint8,
-                        generator=gen, device=dev)
-    d_bits = _scale_bits(gen, total, *w["d"], dev)
-    raw[:, d_at:d_at + 2] = d_bits
-    raw_host = raw.reshape(-1).cpu().numpy()
-    del raw, d_bits
-
-    sizes = [d[0] for _, d in vecs]
+    f32 = [(n, d) for n, d, f in entries if f == "f32"]
+    sizes = [math.prod(d) for _, d in f32]
     v = torch.randn(sum(sizes), generator=gen, device=dev) * w["norm_std"]
     v_host = v.cpu().numpy().astype(np.float32)
     del v
-
-    tensors = {}
     off = 0
-    for (name, dims), nb in zip(mats, n_blocks):
-        tensors[name] = (fmt, dims, raw_host[off:off + nb * ts])
-        off += nb * ts
-    off = 0
-    for name, dims in vecs:
-        x = v_host[off:off + dims[0]]
-        if not name.endswith(".bias"):
+    for (name, dims), n in zip(f32, sizes):
+        x = v_host[off:off + n]
+        if len(dims) == 1 and not name.endswith(".bias"):
             x += 1.0  # a norm's weight: 1 plus noise; a bias: noise
         tensors[name] = ("f32", dims, x.view(np.uint8))
-        off += dims[0]
+        off += n
     return Checkpoint(hp, tensors)
+
+
+def ggml_type(fmt: str):
+    """The port's `GgmlType` of a format name: f32, or a format file's."""
+    from llm_tpu_torch.ggml.types import GgmlType
+
+    return GgmlType.F32 if fmt == "f32" else \
+        GgmlType[plugins.fmt(fmt).GGML_TYPE]
 
 
 class MemoryReader:
@@ -128,14 +111,12 @@ class MemoryReader:
 
     def __init__(self, ckpt: Checkpoint):
         from llm_tpu_torch.ggml.reader import TensorInfo
-        from llm_tpu_torch.ggml.types import GgmlType
 
-        types = {"q4_0": GgmlType.Q4_0, "f32": GgmlType.F32}
         self._data = {}
         self.tensors = {}
         for name, (fmt, dims, arr) in ckpt.tensors.items():
             self.tensors[name] = TensorInfo(name, len(dims), tuple(dims),
-                                            types[fmt], 0)
+                                            ggml_type(fmt), 0)
             self._data[name] = arr
 
     def fetch(self, name: str) -> np.ndarray:
@@ -148,7 +129,7 @@ def build_model(cfg: dict, ckpt: Checkpoint, device):
     synchronize)."""
     from llm_tpu_torch.ggml.types import (ELEMENT_TYPE_TO_FILE_TYPE,
                                           QNT_VERSION, ContainerType,
-                                          FileType, GgmlType)
+                                          FileType)
     from llm_tpu_torch.loader import Model, ModelParameters
     from llm_tpu_torch.models.params import WeightSource, build_params
     from llm_tpu_torch.models.spec import (Hyperparameters, get_arch,
@@ -157,13 +138,12 @@ def build_model(cfg: dict, ckpt: Checkpoint, device):
     from llm_tpu_torch.tokenizer.embedded import EmbeddedTokenizer
 
     hp = ckpt.hp
-    h = Hyperparameters(arch=hp["arch"])
-    for k in ("n_embd", "n_head", "n_head_kv", "n_layer", "n_vocab"):
-        setattr(h, k, hp[k])
-    et = {"q4_0": GgmlType.Q4_0}[cfg["format"]]
-    h.file_type = FileType(format=ELEMENT_TYPE_TO_FILE_TYPE[et],
-                           quantization_version=QNT_VERSION)
-    arch = get_arch(hp["arch"])
+    mine = plugins.arch(hp["arch"])
+    h = Hyperparameters(arch=mine.PORT_ARCH, **mine.port_hparams(hp))
+    h.file_type = FileType(
+        format=ELEMENT_TYPE_TO_FILE_TYPE[ggml_type(cfg["format"])],
+        quantization_version=QNT_VERSION)
+    arch = get_arch(mine.PORT_ARCH)
     spec = with_runtime_params(arch.make_spec(h),
                                context_size=cfg["context"])
     emb = EmbeddedTokenizer()
